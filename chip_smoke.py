@@ -1,0 +1,405 @@
+"""Chip smoke test of the PyTorch / CUDA port (`src/repro_torch`).
+
+    python3 chip_smoke.py            # on a machine with one NVIDIA H100
+
+Phases (any failed check makes the script exit non-zero, after all ran):
+  1. print the card's name and power limit; TF32 off for f32 matmuls;
+  2. build both CUDA kernels from the repository's sources (nvcc, sm_90a);
+  3. hold each kernel against its plain PyTorch version on the card at the
+     main path's shapes (tolerance 1e-4 in f32, 2e-2 in bf16, as
+     |err| <= tol + tol*|ref|) and time kernel, plain version, library
+     yardstick (torch.matmul / scaled_dot_product_attention, timed only)
+     and the memory/compute bound;
+  4. serve 8 requests with full-width bf16 qwen2-0.5b (24 layers, random
+     seeded weights) through `PapiEngine(attn_pim=True)`: every request
+     must finish, both FC variants must run, both kernels must launch
+     during `run()`, steady iterations must take one host transfer;
+  5. trace five steady iterations per FC variant with torch.profiler
+     (device busy share, top kernels);
+  6. parity at full width, 2 layers, f32: one decode step's logits with the
+     kernels (pim FC + Attn-PIM) against the plain path (pu + plain
+     attention) within 1e-3;
+  7. print the `kernels` JSON line, the card line, and last the device JSON.
+
+Exits non-zero without printing a result when no CUDA device is present or
+when run outside a checkout of the repository.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+if not (SRC / "repro_torch" / "__init__.py").exists():
+    sys.exit("chip_smoke.py: src/repro_torch not found next to this script; "
+             "run it from a checkout of the repository")
+sys.path.insert(0, str(SRC))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+if not torch.cuda.is_available():
+    sys.exit("chip_smoke.py: no CUDA device available")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import decode_attention as attn_mod  # noqa: E402
+from repro_torch.kernels import fc_gemv as fc_mod  # noqa: E402
+from repro_torch.models import (attn_impl, decode_step, fc_variant,  # noqa: E402
+                                init_cache, init_params, prefill_to_slots)
+from repro_torch.serving import PapiEngine, ServeRequest  # noqa: E402
+
+DEV = torch.device("cuda")
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# (K, N) of qwen2-0.5b's FC weights and their count per layer
+FC_SHAPES = {(896, 896): 2, (896, 128): 2, (896, 4864): 2, (4864, 896): 1}
+L2_BYTES = 50 * 2 ** 20
+FAILURES: list[str] = []
+
+
+def check(ok: bool, what: str) -> None:
+    print(("ok    " if ok else "FAIL  ") + what, flush=True)
+    if not ok:
+        FAILURES.append(what)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else (
+        f"nvidia-smi failed: {out.stderr.strip()}")
+
+
+def peak_rates() -> tuple[float, float, float]:
+    """(bytes/s, bf16 FLOP/s, f32 FLOP/s) published for this card: H100
+    SXM 3.35 TB/s, 989 TFLOP/s bf16 dense, 67 TFLOP/s f32 (PCIe part:
+    2.0 TB/s, 756, 51)."""
+    name = torch.cuda.get_device_name(0)
+    if "PCIe" in name:
+        return 2.0e12, 756e12, 51e12
+    return 3.35e12, 989e12, 67e12
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    bw, bf16, f32 = peak_rates()
+    t_b = nbytes / bw
+    t_o = flops / (bf16 if dtype == torch.bfloat16 else f32)
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+def time_ms(fn, argsets, reps: int = 5) -> float:
+    """Device time per call of fn, median over `reps` batches.  Each batch
+    runs fn once per argument set (enough sets to exceed L2, as the main
+    path finds its weights cold) between two CUDA events, queued behind a
+    device-side sleep so that the host's launch overhead never shows as
+    device time."""
+    for a in argsets[:3]:
+        fn(*a)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(300_000_000)       # ~150 ms: the host runs ahead
+        s, e = torch.cuda.Event(True), torch.cuda.Event(True)
+        s.record()
+        for a in argsets:
+            fn(*a)
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / len(argsets))
+    return statistics.median(times)
+
+
+def max_err(got, want) -> tuple[float, bool, float]:
+    tol = TOL[got.dtype]
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return err.max().item(), bool((err <= tol + tol * want.abs()).all()), tol
+
+
+# ---------------------------------------------------------------------------
+def phase_fc_gemv() -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for (K, N) in FC_SHAPES:
+            for m in (1, 8, 13):
+                x = torch.randn(m, K, generator=gen, device=DEV).to(dtype)
+                w = (torch.randn(K, N, generator=gen, device=DEV)
+                     / math.sqrt(K)).to(dtype)
+                got = fc_mod.fc_gemv(x, w)
+                torch.cuda.synchronize()
+                err, ok, tol = max_err(got, fc_mod.fc_gemv_ref(x, w))
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+                check(ok and got.shape == (m, N),
+                      f"fc_gemv {str(dtype)[6:]} m={m} K={K} N={N}: "
+                      f"max_abs_err {err:.3e} (tol {tol})")
+    # timing at the decode path's m = max_slots = 8, bf16, one layer's FCs
+    ms = plain = lib = bnd = 0.0
+    by = "bytes"
+    for (K, N), count in FC_SHAPES.items():
+        wbytes = K * N * 2
+        copies = min(400, max(2, math.ceil(2 * L2_BYTES / wbytes)))
+        x = torch.randn(8, K, generator=gen, device=DEV).to(torch.bfloat16)
+        ws = [torch.randn(K, N, generator=gen, device=DEV).to(torch.bfloat16)
+              for _ in range(copies)]
+        args = [(x, w) for w in ws]
+        k_ms = time_ms(fc_mod.fc_gemv, args)
+        p_ms = time_ms(fc_mod.fc_gemv_ref, args)
+        l_ms = time_ms(torch.matmul, args)
+        b_ms, b_by = bound(wbytes + (8 * K + 8 * N) * 2, 2 * 8 * K * N,
+                           torch.bfloat16)
+        print(f"      fc_gemv bf16 m=8 K={K} N={N}: kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, torch.matmul {l_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        ms += count * k_ms
+        plain += count * p_ms
+        lib += count * l_ms
+        bnd += count * b_ms
+        by = b_by if b_by == "operations" else by
+        del ws
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bnd, "bound_by": by}
+
+
+def _attn_inputs(gen, dtype, t, lens, b=8, nkv=2, g=7, hd=64, S=2048):
+    q = torch.randn(b, nkv, t * g, hd, generator=gen, device=DEV).to(dtype)
+    k = torch.randn(b, S, nkv, hd, generator=gen, device=DEV).to(dtype)
+    v = torch.randn(b, S, nkv, hd, generator=gen, device=DEV).to(dtype)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=DEV)
+
+
+def _sdpa_args(q, k, v, lens, t):
+    """The same function as one scaled_dot_product_attention call: heads =
+    KV heads, the t*g query rows carry the window-causal mask."""
+    b, nkv, tg, hd = q.shape
+    S = k.shape[1]
+    g = tg // t
+    row = torch.arange(tg, device=DEV) // g
+    limit = lens.long()[:, None] - (t - 1) + row[None, :]
+    mask = torch.arange(S, device=DEV)[None, None, :] < limit[:, :, None]
+    return (q, k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+            mask[:, None])
+
+
+def _sdpa(q, k, v, mask):
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                            attn_mask=mask)
+
+
+def phase_decode_attention() -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    lens_by_t = {1: [1, 32, 33, 2048, 100, 513, 1000, 7],
+                 64: [64, 65, 96, 2048, 128, 513, 1000, 200]}
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for t, lens in lens_by_t.items():
+            q, k, v, ln = _attn_inputs(gen, dtype, t, lens)
+            got = attn_mod.decode_attention(q, k, v, ln, q_rows=t)
+            torch.cuda.synchronize()
+            err, ok, tol = max_err(
+                got, attn_mod.decode_attention_ref(q, k, v, ln, t))
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            check(ok and bool(torch.isfinite(got).all()),
+                  f"decode_attention {str(dtype)[6:]} t={t} lens={lens}: "
+                  f"max_abs_err {err:.3e} (tol {tol})")
+    zero = attn_mod.decode_attention(
+        *(_attn_inputs(gen, torch.bfloat16, 1, [0, 5, 0, 9, 1, 2, 3, 4])))
+    check(bool((zero[0] == 0).all() and (zero[2] == 0).all()),
+          "decode_attention lens == 0 returns zeros")
+    result = {"max_abs_err": worst}
+    for t, lens in lens_by_t.items():
+        sets = [_attn_inputs(gen, torch.bfloat16, t, lens) for _ in range(12)]
+        k_ms = time_ms(lambda q, k, v, ln: attn_mod.decode_attention(
+            q, k, v, ln, q_rows=t), sets)
+        p_ms = time_ms(lambda q, k, v, ln: attn_mod.decode_attention_ref(
+            q, k, v, ln, t), sets)
+        l_ms = time_ms(_sdpa, [_sdpa_args(*s, t) for s in sets])
+        q = sets[0][0]
+        kv_bytes = sum(lens) * 2 * 64 * 2 * 2          # K and V, nkv=2, bf16
+        io_bytes = 2 * q.numel() * 2
+        flops = 4 * sum(lens) * 2 * t * 7 * 64          # qk and pv
+        b_ms, b_by = bound(kv_bytes + io_bytes, flops, torch.bfloat16)
+        print(f"      decode_attention bf16 t={t} b=8 S=2048: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+        if t == 1:
+            result.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        del sets
+    return result
+
+
+# ---------------------------------------------------------------------------
+def phase_main_path() -> tuple[dict, dict]:
+    cfg = get_config("qwen2-0.5b")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+    eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
+                     prefill_len=64, alpha=4, attn_pim=True, device=DEV)
+    rng = np.random.default_rng(0)
+    prompt_lens = [24, 150, 40, 70, 12, 97, 33, 64]   # 150/97/70 chunk
+    for i, plen in enumerate(prompt_lens):
+        eng.submit(ServeRequest(i, rng.integers(3, cfg.vocab_size,
+                                                size=plen).tolist(),
+                                max_new_tokens=8 + 8 * i))
+    fc_mod.LAUNCHES = 0
+    attn_mod.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(max_iterations=500)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fc_gemv": fc_mod.LAUNCHES,
+                "decode_attention": attn_mod.LAUNCHES}
+
+    reasons = sorted(r.finished_reason for r in results)
+    check(len(results) == 8 and all(r in ("eos", "length") for r in reasons),
+          f"main path: 8 requests finished ({reasons})")
+    toks = [t for r in results for t in r.tokens]
+    check(all(0 <= t < cfg.vocab_size for t in toks) and len(toks) > 0,
+          f"main path: {len(toks)} tokens within the vocabulary")
+    variants = {s.fc_variant for s in eng.stats}
+    check({"pu", "pim"} <= variants, f"main path: FC variants {variants}")
+    check(launches["fc_gemv"] > 0 and launches["decode_attention"] > 0,
+          f"main path launches {launches}")
+    steady = [s for s in eng.stats if s.admitted == 0]
+    check(bool(steady) and all(s.transfers == 1 for s in steady),
+          f"main path: {len(steady)} steady iterations, one host transfer "
+          "each")
+    per = {v: [s.wall_s * 1e3 for s in steady if s.fc_variant == v]
+           for v in ("pu", "pim")}
+    print(f"      main path: {len(toks)} tokens in {eng.iteration} "
+          f"iterations, {wall:.3f} s, {len(toks) / wall:.1f} tok/s; "
+          + ", ".join(f"median steady iteration under {v} "
+                      f"{statistics.median(x):.2f} ms ({len(x)} its)"
+                      for v, x in per.items() if x), flush=True)
+    return launches, params
+
+
+def phase_trace(params) -> None:
+    """Where a steady decode iteration's time goes, per FC variant: five
+    iterations of 8 live requests under torch.profiler; device busy share =
+    kernel time / host wall time, and the kernels that take the most."""
+    cfg = get_config("qwen2-0.5b")
+    rng = np.random.default_rng(5)
+    for variant, alpha in (("pu", 0.0), ("pim", 99.0)):
+        eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
+                         prefill_len=64, alpha=alpha, attn_pim=True,
+                         device=DEV)
+        for i in range(8):
+            eng.submit(ServeRequest(i, rng.integers(
+                3, cfg.vocab_size, size=32).tolist(), max_new_tokens=32))
+        for _ in range(3):
+            eng.step()                      # admission + warm decode steps
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        ran = {s.fc_variant for s in eng.stats[-6:-1]}
+        kern = []
+        for evt in prof.key_averages():
+            dev = getattr(evt, "self_device_time_total", None)
+            if dev is None:
+                dev = getattr(evt, "self_cuda_time_total", 0)
+            if dev > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+                kern.append((dev, evt.key, evt.count))
+        busy = sum(k[0] for k in kern)
+        if not kern:
+            print(f"      trace {variant}: profiler saw no device time "
+                  "(not measured)", flush=True)
+            continue
+        top = sorted(kern, reverse=True)[:6]
+        print(f"      trace {variant} (ran {sorted(ran)}): 5 steady "
+              f"iterations {wall_us / 5e3:.2f} ms each, device busy "
+              f"{busy / 5e3:.2f} ms each ({busy / wall_us:.1%}); top: "
+              + "; ".join(f"{name[:40]} {dev / 5e3:.3f} ms x{cnt // 5}"
+                          for dev, name, cnt in top), flush=True)
+
+
+def phase_parity() -> None:
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(3))
+    rng = np.random.default_rng(3)
+    slots, P = 8, 64
+    toks = torch.tensor(rng.integers(3, cfg.vocab_size, size=(slots, P)),
+                        dtype=torch.int32, device=DEV)
+    lens = torch.tensor(rng.integers(1, P + 1, size=slots), dtype=torch.int32,
+                        device=DEV)
+    cache = init_cache(cfg, slots, 256, DEV)
+    first, cache = prefill_to_slots(
+        cfg, params, {"tokens": toks, "prompt_lens": lens}, cache,
+        torch.arange(slots, dtype=torch.int32, device=DEV))
+    out = {}
+    for fcv, impl in (("pu", "xla"), ("pim", "pim")):
+        c = {k: v.clone() for k, v in cache.items()}
+        with fc_variant(fcv), attn_impl(impl):
+            out[fcv], _ = decode_step(cfg, params, c, first[:, None])
+    torch.cuda.synchronize()
+    err = (out["pim"] - out["pu"]).abs().max().item()
+    agree = (out["pim"].argmax(-1) == out["pu"].argmax(-1)).float().mean()
+    check(err <= 1e-3, f"parity f32 2 layers: decode logits kernels vs "
+          f"plain max_abs_err {err:.3e} (tol 1e-3), greedy agreement "
+          f"{agree.item():.3f}")
+
+
+# ---------------------------------------------------------------------------
+def main() -> int:
+    card = card_line()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__}, cuda {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    secs = _build.build_all()
+    print(f"built {', '.join(_build.KERNELS)} for sm_90a in {secs:.1f} s",
+          flush=True)
+
+    fc = phase_fc_gemv()
+    at = phase_decode_attention()
+    launches, params = phase_main_path()
+    phase_trace(params)
+    del params
+    phase_parity()
+
+    rows = [
+        dict(name="fc_gemv", route="cuda",
+             source="src/repro_torch/kernels/csrc/fc_gemv.cu",
+             replaces="src/repro/kernels/fc_gemv.py:86",
+             launches=launches["fc_gemv"], **fc),
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention.py:152",
+             launches=launches["decode_attention"], **at),
+    ]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(card, flush=True)
+    if FAILURES:
+        print(f"{len(FAILURES)} check(s) failed:", *FAILURES, sep="\n  ",
+              file=sys.stderr)
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

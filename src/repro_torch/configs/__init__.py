@@ -1,0 +1,19 @@
+"""Architecture registry of the port: the architectures it serves so far."""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.qwen2_0_5b import CONFIG as QWEN2_0_5B
+
+_REGISTRY: dict[str, ModelConfig] = {c.name: c for c in (QWEN2_0_5B,)}
+
+
+def get_config(name: str) -> ModelConfig:
+    """Resolve an architecture id (or `<id>-smoke` for its reduced twin)."""
+    if name in _REGISTRY:
+        return _REGISTRY[name]
+    if name.endswith("-smoke"):
+        return get_config(name[: -len("-smoke")]).reduced()
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
+
+
+__all__ = ["ModelConfig", "get_config"]

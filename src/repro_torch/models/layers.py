@@ -1,0 +1,222 @@
+"""Transformer building blocks of the dense path: norm, RoPE, SwiGLU MLP,
+projections and attention — ports of `repro.models.layers`.
+
+Numerics follow the reference rounding point for rounding point, because
+in bf16 they decide whether greedy tokens match: statistics and softmax in
+f32, `rmsnorm` casts its rsqrt back to the activation dtype before the
+multiplies, `swiglu` runs silu in f32 and casts back, RoPE rotates split
+halves in f32.  Attention comes as
+  * `flash_attention` / `dense_attention` — prefill (plain PyTorch, the
+    reference's XLA code; never `scaled_dot_product_attention`);
+  * `decode_attention_xla` — the plain decode path (oracle);
+  * `decode_attention_pim` — decode through the Attn-PIM kernel.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+
+import torch
+
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.models.linear import papi_linear
+
+_attn_state = threading.local()
+
+
+def current_attn_impl() -> str:
+    """Decode-attention implementation: "xla" (plain softmax path, the
+    reference's name) or "pim" (the Attn-PIM flash-decode kernel)."""
+    return getattr(_attn_state, "impl", "xla")
+
+
+@contextlib.contextmanager
+def attn_impl(impl: str):
+    if impl not in ("xla", "pim"):
+        raise ValueError(f"attention impl must be 'xla' or 'pim', not "
+                         f"{impl!r}")
+    prev = current_attn_impl()
+    _attn_state.impl = impl
+    try:
+        yield
+    finally:
+        _attn_state.impl = prev
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * weight.to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device | None = None) -> torch.Tensor:
+    """Inverse frequencies, shape [head_dim // 2] (f32)."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / torch.pow(theta, exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [b, seq, heads, hd]; positions broadcastable to [b, seq]."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)
+    angles = positions[..., None].float() * inv            # [b, seq, hd/2]
+    angles = angles[..., None, :]                          # over heads
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """down( silu(gate(x)) * up(x) )."""
+    gate = papi_linear(x, p["w_gate"])
+    up = papi_linear(x, p["w_up"])
+    act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
+    return papi_linear(act, p["w_down"])
+
+
+def qkv_project(x: torch.Tensor, p: dict):
+    """[b, s, d] -> q [b, s, nH, hd], k/v [b, s, nKV, hd]."""
+    b, s, d = x.shape
+
+    def proj(w):
+        nh, hd = w.shape[1], w.shape[2]
+        return papi_linear(x, w.reshape(d, nh * hd)).reshape(b, s, nh, hd)
+
+    q, k, v = proj(p["w_q"]), proj(p["w_k"]), proj(p["w_v"])
+    if "b_q" in p:
+        q = q + p["b_q"]
+        k = k + p["b_k"]
+        v = v + p["b_v"]
+    return q, k, v
+
+
+def out_project(attn: torch.Tensor, p: dict) -> torch.Tensor:
+    """[b, s, nH, hd] -> [b, s, d]."""
+    b, s, nh, hd = attn.shape
+    w = p["w_o"]
+    return papi_linear(attn.reshape(b, s, nh * hd), w.reshape(nh * hd, -1))
+
+
+def expand_kv_heads(k: torch.Tensor, nh: int) -> torch.Tensor:
+    """[b, s, nKV, hd] -> [b, s, nH, hd] (head = kv * group + g)."""
+    nkv = k.shape[2]
+    if nkv == nh:
+        return k
+    return k.repeat_interleave(nh // nkv, dim=2)
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool) -> torch.Tensor:
+    """Attention that materializes [b, h, sq, sk] scores."""
+    nh = q.shape[2]
+    k, v = expand_kv_heads(k, nh), expand_kv_heads(v, nh)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bqhk,bshk->bhqs", q, k).float() * scale
+    if causal:
+        sq, sk = scores.shape[-2], scores.shape[-1]
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,bshk->bqhk", probs, v)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_block: int = 512,
+                    kv_block: int = 512) -> torch.Tensor:
+    """Blockwise online-softmax attention: peak score memory is
+    [b, q_block, heads, kv_block].  Ragged shapes take `dense_attention`,
+    as in the reference."""
+    b, sq, nh, hd = q.shape
+    sk = k.shape[1]
+    if sq % q_block or sk % kv_block:
+        return dense_attention(q, k, v, causal=causal)
+    k, v = expand_kv_heads(k, nh), expand_kv_heads(v, nh)
+    scale = 1.0 / math.sqrt(hd)
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, q_block):
+        qblk = q[:, q0:q0 + q_block]
+        acc = torch.zeros((b, q_block, nh, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, q_block, nh), float("-inf"), device=q.device)
+        l = torch.zeros((b, q_block, nh), device=q.device)
+        q_pos = torch.arange(q0, q0 + q_block, device=q.device)
+        for k0 in range(0, sk, kv_block):
+            kblk, vblk = k[:, k0:k0 + kv_block], v[:, k0:k0 + kv_block]
+            s = torch.einsum("bqhk,bshk->bqhs", qblk, kblk).float() * scale
+            if causal:
+                k_pos = torch.arange(k0, k0 + kv_block, device=q.device)
+                mask = q_pos[:, None] >= k_pos[None, :]
+                s = s.masked_fill(~mask[None, :, None, :], float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            # fully-masked rows (m_new = -inf) contribute nothing
+            dead = torch.isinf(m_new)
+            m_safe = torch.where(dead, torch.zeros_like(m_new), m_new)
+            p = torch.exp(s - m_safe[..., None])
+            p = torch.where(dead[..., None], torch.zeros_like(p), p)
+            alpha = torch.where(torch.isinf(m), torch.zeros_like(m),
+                                torch.exp(m - m_safe))
+            l = l * alpha + p.sum(dim=-1)
+            pv = torch.einsum("bqhs,bshk->bqhk", p.to(v.dtype), vblk)
+            acc = acc * alpha[..., None] + pv.float()
+            m = m_new
+        out[:, q0:q0 + q_block] = (
+            acc / torch.clamp(l[..., None], min=1e-30)).to(q.dtype)
+    return out
+
+
+def decode_attention_xla(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, cache_len: torch.Tensor,
+                         q_offset: torch.Tensor) -> torch.Tensor:
+    """Decode attention against a padded KV cache — the plain path.
+    q [b, t, nH, hd]; positions >= cache_len are masked, and within the t
+    query tokens the mask is causal from q_offset (both [b])."""
+    b, t, nh, hd = q.shape
+    skv, nkv = k_cache.shape[1], k_cache.shape[2]
+    group = nh // nkv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, t, nkv, group, hd)
+    s = torch.einsum("bthgk,bshk->bthgs", qg, k_cache).float() * scale
+    kv_pos = torch.arange(skv, device=q.device)
+    q_pos = q_offset[:, None] + torch.arange(t, device=q.device)[None, :]
+    valid = ((kv_pos[None, None, :] <= q_pos[..., None])
+             & (kv_pos[None, None, :] < cache_len[:, None, None]))
+    s = s.masked_fill(~valid[:, :, None, None, :], float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bthgs,bshk->bthgk", p.to(v_cache.dtype), v_cache)
+    return out.reshape(b, t, nh, hd)
+
+
+def fold_query_window(q: torch.Tensor, nkv: int) -> torch.Tensor:
+    """[b, t, nH, hd] -> the kernel's [b, nkv, t*g, hd] row layout, rows
+    (window, group)-row-major within each KV head."""
+    b, t, nh, hd = q.shape
+    g = nh // nkv
+    qh = q.reshape(b, t, nkv, g, hd).permute(0, 2, 1, 3, 4)
+    return qh.reshape(b, nkv, t * g, hd)
+
+
+def unfold_query_window(out: torch.Tensor, t: int, nh: int) -> torch.Tensor:
+    """Inverse of `fold_query_window`: [b, nkv, t*g, hd] -> [b, t, nH, hd]."""
+    b, nkv, tg, hd = out.shape
+    o = out.reshape(b, nkv, t, tg // t, hd).permute(0, 2, 1, 3, 4)
+    return o.reshape(b, t, nh, hd)
+
+
+def decode_attention_pim(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor,
+                         lens: torch.Tensor) -> torch.Tensor:
+    """Decode attention through the Attn-PIM kernel for any window t >= 1;
+    the t rows sit at absolute positions lens - t .. lens - 1."""
+    b, t, nh, hd = q.shape
+    nkv = k_cache.shape[2]
+    qh = fold_query_window(q, nkv).contiguous()
+    out = decode_attention(qh, k_cache, v_cache,
+                           lens.to(torch.int32).contiguous(), q_rows=t)
+    return unfold_query_window(out, t, nh)

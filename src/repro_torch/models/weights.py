@@ -1,0 +1,41 @@
+"""Weight bridge: the JAX package's parameter pytree -> the port's.
+
+Both packages stack per-layer leaves on a leading layer axis under the same
+keys, so the bridge is a straight copy, checked leaf by leaf against
+`model_spec`.  The caller hands the tree over as nested dicts of numpy
+arrays (e.g. ``jax.tree.map(np.asarray, params)``); bf16 leaves arrive as
+``ml_dtypes.bfloat16`` and go through float32 (exact) to torch.bfloat16.
+This is how the tests hold the two packages to the same weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import DTYPES, PSpec, model_spec
+
+
+def params_from_jax(cfg: ModelConfig, tree: dict,
+                    device: torch.device | str) -> dict:
+    dtype = DTYPES[cfg.dtype]
+
+    def walk(spec: dict, node: dict, path: str) -> dict:
+        missing = set(spec) - set(node)
+        if missing:
+            raise KeyError(f"{path or 'params'} lacks {sorted(missing)}")
+        out = {}
+        for key, sub in spec.items():
+            where = f"{path}/{key}"
+            if isinstance(sub, PSpec):
+                arr = np.array(node[key], dtype=np.float32)  # own copy
+                if arr.shape != sub.shape:
+                    raise ValueError(f"{where}: shape {arr.shape}, expected "
+                                     f"{sub.shape}")
+                out[key] = torch.from_numpy(arr).to(device=device,
+                                                    dtype=dtype)
+            else:
+                out[key] = walk(sub, node[key], where)
+        return out
+
+    return walk(model_spec(cfg), tree, "")

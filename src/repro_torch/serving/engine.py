@@ -1,0 +1,321 @@
+"""PAPI serving engine of the port: offline continuous batching with
+dynamic FC-path scheduling over a dense KV slab — `repro.serving.engine`'s
+`PapiEngine.submit/run/step` at TLP = 1.
+
+Each iteration:
+  1. admits waiting requests into free KV slots: chunk 0 of every admitted
+     prompt runs through one batched `prefill_to_slots` call, later
+     `prefill_len`-token chunks of long prompts through `prefill_chunk`
+     waves (the decode path at the running offset, masked KV writes); only
+     the final chunk's logits give the first token, and the whole admission
+     costs one device->host copy;
+  2. runs one decode step for every slot (inactive slots decode garbage at
+     pos = 1 that is never read) with greedy sampling on the device, and
+     fetches the [slots] token vector — the iteration's ONE host transfer;
+  3. feeds the finish flags to `core.scheduler.PapiScheduler`, which
+     compares AI ~= RLP * TLP with alpha and picks "pu" (matmul) or "pim"
+     (`fc_gemv`) for the next iteration's FC projections.
+
+``attn_pim=True`` routes every decode-path attention — plain decode and
+chunk waves alike — through the Attn-PIM kernel.  Admission runs under the
+ambient FC variant ("pu"), as in the reference.
+
+Not ported yet: speculative decoding, the paged layout, `serve()`, faults
+and the degraded path, preemption, deadlines, the journal, telemetry, the
+sanitizer and mesh execution.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.scheduler import PapiScheduler
+from repro_torch.models import (attn_impl, decode_step, fc_variant,
+                                init_cache, prefill_chunk, prefill_to_slots)
+from repro_torch.serving.sampler import greedy
+
+
+@dataclasses.dataclass
+class ServeRequest:
+    req_id: int
+    prompt: list[int]
+    max_new_tokens: int
+
+
+@dataclasses.dataclass
+class ServeResult:
+    req_id: int
+    tokens: list[int]
+    prompt_len: int
+    iterations: int
+    finished_reason: str = "length"
+
+
+@dataclasses.dataclass
+class IterStats:
+    iteration: int
+    rlp: int
+    tlp: int
+    ai_estimate: float
+    fc_variant: str
+    new_tokens: int
+    wall_s: float
+    transfers: int = 0     # device->host copies this iteration
+    admitted: int = 0      # requests admitted to slots this iteration
+
+
+class PapiEngine:
+    """Serving engine on one device (``cuda`` unless ``device="cpu"``)."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, *, max_slots: int = 8,
+                 cache_capacity: int = 256, prefill_len: int = 64,
+                 alpha: float = 32.0, eos_token: int = 2,
+                 attn_pim: bool = False,
+                 device: torch.device | str | None = None) -> None:
+        if not cfg.has_decode_step:
+            raise ValueError(f"{cfg.name} is encoder-only")
+        self.device = resolve_device(device)
+        if params["embed"]["w"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed']['w'].device}, "
+                             f"the engine on {self.device}")
+        self.cfg, self.params = cfg, params
+        self.max_slots = max_slots
+        self.capacity = cache_capacity
+        self.prefill_len = prefill_len
+        self.eos_token = eos_token
+        self.attn_pim = attn_pim
+        self.scheduler = PapiScheduler(cfg, alpha=alpha, tlp=1,
+                                       eos_token=eos_token)
+        self.scheduler.initial_schedule(0, 1)
+        self.cache = init_cache(cfg, max_slots, cache_capacity, self.device)
+        # per-slot host state
+        self.slot_req: list[ServeRequest | None] = [None] * max_slots
+        self.slot_tokens: list[list[int]] = [[] for _ in range(max_slots)]
+        self.slot_last = np.zeros(max_slots, np.int32)
+        self.slot_prompt = np.zeros(max_slots, np.int32)
+        # admission-clamped generation budget; the caller's request is
+        # never written back
+        self.slot_budget = np.zeros(max_slots, np.int64)
+        self.queue: list[ServeRequest] = []
+        self.results: list[ServeResult] = []
+        self.stats: list[IterStats] = []
+        self.iteration = 0
+        self.host_transfers = 0
+
+    # ------------------------------------------------------------------ API
+    def submit(self, req: ServeRequest) -> None:
+        self.queue.append(req)
+
+    @property
+    def active_slots(self) -> list[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is not None]
+
+    def run(self, max_iterations: int = 10_000) -> list[ServeResult]:
+        while (self.queue or self.active_slots) and (
+                self.iteration < max_iterations):
+            self.step()
+        if self.iteration >= max_iterations:
+            # exhaustion returns in-flight requests with tokens-so-far
+            for s in self.active_slots:
+                self._emit(self.slot_req[s], self.slot_tokens[s], "aborted")
+                self.slot_req[s] = None
+                self.slot_tokens[s] = []
+                self.slot_last[s] = 0
+        return self.results
+
+    # ------------------------------------------------------------- internals
+    def _fetch(self, *tensors: torch.Tensor):
+        """The engine's one counted device->host copy: int tensors are
+        flattened into one buffer, copied once, and split on the host."""
+        self.host_transfers += 1
+        flat = torch.cat([t.reshape(-1).to(torch.int32) for t in tensors])
+        host = flat.cpu().numpy()
+        out, at = [], 0
+        for t in tensors:
+            out.append(host[at:at + t.numel()].reshape(t.shape))
+            at += t.numel()
+        return out[0] if len(out) == 1 else out
+
+    def _attn_scope(self):
+        return attn_impl("pim" if self.attn_pim else "xla")
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _emit(self, req: ServeRequest, tokens: Sequence[int],
+              reason: str) -> None:
+        self.results.append(ServeResult(req.req_id, list(tokens),
+                                        len(req.prompt), self.iteration,
+                                        reason))
+
+    def _admit(self) -> int:
+        """Fill free slots from the queue, one batched prefill per wave; a
+        request that finishes at admission (first token <eos>, or a
+        1-token budget) frees its slot for the next wave of this step."""
+        admitted = 0
+        while True:
+            wave_admitted, instant_finish = self._admit_wave()
+            admitted += wave_admitted
+            if not (instant_finish and self.queue):
+                return admitted
+
+    def _admit_wave(self) -> tuple[int, bool]:
+        free = [i for i, r in enumerate(self.slot_req) if r is None]
+        batch_rows: list[tuple[int, ServeRequest]] = []
+        while self.queue and free:
+            req = self.queue.pop(0)
+            p = len(req.prompt)        # the FULL prompt — never truncated
+            # the slab holds prompt + budget + the TLP = 1 decode window
+            budget = self.capacity - p - 1
+            if budget < 1:
+                # the slab cannot hold the prompt and one token: reject
+                # honestly instead of truncating
+                self._emit(req, [], "rejected")
+                continue
+            slot = free.pop(0)
+            self.slot_budget[slot] = max(1, min(req.max_new_tokens, budget))
+            batch_rows.append((slot, req))
+        if not batch_rows:
+            return 0, False
+
+        # chunk 0: the fixed-shape batched prefill (positions 0..P-1)
+        tokens = np.zeros((self.max_slots, self.prefill_len), np.int32)
+        lens = np.ones(self.max_slots, np.int32)
+        src = np.full(self.max_slots, -1, np.int32)
+        for row, (slot, req) in enumerate(batch_rows):
+            p0 = min(len(req.prompt), self.prefill_len)
+            tokens[row, :p0] = req.prompt[:p0]
+            lens[row] = p0
+            src[slot] = row
+            self.slot_prompt[slot] = len(req.prompt)
+        batch = {"tokens": self._to_device(tokens),
+                 "prompt_lens": self._to_device(lens)}
+        with self._attn_scope():
+            first, self.cache = prefill_to_slots(
+                self.cfg, self.params, batch, self.cache,
+                self._to_device(src))
+            # chunks 1..: every wave advances each pending slot by one
+            # (ragged-tail-masked) window; nothing host-side depends on a
+            # wave's result, so all waves run back to back and admission
+            # ends in ONE device->host copy
+            pending = {slot: req for slot, req in batch_rows
+                       if len(req.prompt) > self.prefill_len}
+            offs = {slot: self.prefill_len for slot in pending}
+            wave_finals: list[tuple[torch.Tensor, list[int]]] = []
+            while pending:
+                ctoks = np.zeros((self.max_slots, self.prefill_len), np.int32)
+                clens = np.zeros(self.max_slots, np.int32)
+                final: list[int] = []
+                for slot, req in list(pending.items()):
+                    n = min(len(req.prompt) - offs[slot], self.prefill_len)
+                    ctoks[slot, :n] = req.prompt[offs[slot]:offs[slot] + n]
+                    clens[slot] = n
+                    offs[slot] += n
+                    if offs[slot] == len(req.prompt):
+                        final.append(slot)
+                        del pending[slot]
+                nxt, self.cache = prefill_chunk(
+                    self.cfg, self.params, self.cache,
+                    self._to_device(ctoks), self._to_device(clens))
+                if final:
+                    wave_finals.append((nxt, final))
+        got = self._fetch(first, *(nxt for nxt, _ in wave_finals))
+        if wave_finals:
+            first_h = np.array(got[0])
+            for (_, final), nxt_h in zip(wave_finals, got[1:]):
+                for slot in final:
+                    first_h[slot] = int(nxt_h[slot])
+        else:
+            first_h = np.array(got)
+
+        admitted = 0
+        instant_finish = False
+        for slot, req in batch_rows:
+            tok = int(first_h[slot])
+            self.slot_tokens[slot] = [tok]
+            self.slot_last[slot] = tok
+            if tok == self.eos_token or self.slot_budget[slot] <= 1:
+                reason = "eos" if tok == self.eos_token else "length"
+                self._emit(req, [tok], reason)
+                self.slot_tokens[slot] = []
+                self.slot_last[slot] = 0   # slot stays available
+                instant_finish = True
+            else:
+                self.slot_req[slot] = req
+                admitted += 1              # counts toward RLP
+        return admitted, instant_finish
+
+    def _decode_all(self) -> np.ndarray:
+        """One fused plain decode step for all slots: decode_step + greedy
+        on the device, then the iteration's single host fetch."""
+        variant = self.scheduler.fc_assignment
+        with fc_variant(variant), self._attn_scope():
+            last = self._to_device(self.slot_last)
+            logits, self.cache = decode_step(self.cfg, self.params,
+                                             self.cache, last[:, None])
+            nxt = greedy(logits[:, -1])
+        return np.asarray(self._fetch(nxt))
+
+    def step(self) -> None:
+        t0 = time.perf_counter()
+        transfers0 = self.host_transfers
+        admitted = self._admit()
+        decoding = self.active_slots
+        if not decoding:
+            self.scheduler.observe_counts(0, admitted)
+            self.iteration += 1
+            return
+
+        out = self._decode_all()
+
+        # host-side bookkeeping: append tokens, detect eos / length
+        finished = np.zeros(self.max_slots, bool)
+        new_tokens = 0
+        for s in decoding:
+            req = self.slot_req[s]
+            tok = int(out[s])
+            self.slot_tokens[s].append(tok)
+            new_tokens += 1
+            if tok == self.eos_token or (
+                    len(self.slot_tokens[s]) >= self.slot_budget[s]):
+                reason = "eos" if tok == self.eos_token else "length"
+                self._emit(req, self.slot_tokens[s], reason)
+                self.slot_req[s] = None
+                self.slot_tokens[s] = []
+                self.slot_last[s] = 0
+                finished[s] = True
+            else:
+                self.slot_last[s] = tok
+
+        # park inactive slots at pos = 1 so their garbage decode never
+        # creeps past the capacity (fixed-shape mask, as the reference)
+        inactive = np.array([r is None for r in self.slot_req])
+        if inactive.any():
+            self.cache["pos"] = torch.where(
+                self._to_device(inactive),
+                torch.ones((), dtype=torch.int32, device=self.device),
+                self.cache["pos"])
+
+        # the PAPI runtime scheduling step (§5.2.2)
+        self.scheduler.observe_counts(finished, admitted)
+        self.iteration += 1
+        self.stats.append(IterStats(
+            iteration=self.iteration,
+            rlp=self.scheduler.rlp,
+            tlp=self.scheduler.tlp,
+            ai_estimate=self.scheduler.ai_estimate,
+            fc_variant=self.scheduler.fc_assignment,
+            new_tokens=new_tokens,
+            wall_s=time.perf_counter() - t0,
+            transfers=self.host_transfers - transfers0,
+            admitted=admitted,
+        ))
+
+
+__all__ = ["IterStats", "PapiEngine", "ServeRequest", "ServeResult"]
