@@ -4,21 +4,32 @@
 
 Phases (any failed check makes the script exit non-zero, after all ran):
   1. print the card's name and power limit; TF32 off for f32 matmuls;
-  2. build both CUDA kernels from the repository's sources (nvcc, sm_90a);
+  2. build the three CUDA kernels from the repository's sources (nvcc,
+     sm_90a, one nvcc per source, started together);
   3. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (tolerance 1e-4 in f32, 2e-2 in bf16, as
      |err| <= tol + tol*|ref|) and time kernel, plain version, library
      yardstick (torch.matmul / scaled_dot_product_attention, timed only)
-     and the memory/compute bound;
+     and the memory/compute bound; 3c: the paged kernel over a shuffled
+     page pool (page 16 and 32), also bit-equal to the dense kernel on the
+     same contents, blind to table entries past each length, zeros for
+     lens == 0;
   4. serve 8 requests with full-width bf16 qwen2-0.5b (24 layers, random
      seeded weights) through `PapiEngine(attn_pim=True)`: every request
      must finish, both FC variants must run, both kernels must launch
      during `run()`, steady iterations must take one host transfer;
-  5. trace five steady iterations per FC variant with torch.profiler
-     (device busy share, top kernels);
+     4b: the same 8 requests through `PapiEngine(kv_layout="paged")`: the
+     same token streams, both FC variants, the paged kernel launched and
+     the dense attention kernel not, one transfer per steady iteration,
+     the pool drained at the end;
+     4c: a 2100-token prompt that the dense engine (2048-token slots)
+     rejects completes on the paged engine, its chunk waves and decodes
+     past position 2048 through the paged kernel;
+  5. trace five steady iterations per KV layout and FC variant with
+     torch.profiler (device busy share, top kernels);
   6. parity at full width, 2 layers, f32: one decode step's logits with the
      kernels (pim FC + Attn-PIM) against the plain path (pu + plain
-     attention) within 1e-3;
+     attention) within 1e-3, over a dense slab and over a paged cache;
   7. print the `kernels` JSON line, the card line, and last the device JSON.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -52,8 +63,10 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as attn_mod  # noqa: E402
 from repro_torch.kernels import fc_gemv as fc_mod  # noqa: E402
+from repro_torch.kernels import paged_decode_attention as paged_mod  # noqa: E402
 from repro_torch.models import (attn_impl, decode_step, fc_variant,  # noqa: E402
-                                init_cache, init_params, prefill_to_slots)
+                                init_cache, init_paged_cache, init_params,
+                                prefill_to_pages, prefill_to_slots)
 from repro_torch.serving import PapiEngine, ServeRequest  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -239,62 +252,246 @@ def phase_decode_attention() -> dict:
     return result
 
 
+def _paged_pool(gen, dtype, lens, page, b=8, nkv=2, hd=64, S=2048):
+    """A shuffled page pool for `lens` (the main path's geometry: page 0 =
+    garbage, max_blocks = S*b/page) and two tables over it: `clean` maps
+    each request's live blocks and leaves the rest on page 0; `dirty` also
+    points the entries past each length at other live pages."""
+    num_pages = b * S // page + 1
+    max_blocks = num_pages - 1
+    kp = torch.randn(num_pages, page, nkv, hd, generator=gen,
+                     device=DEV).to(dtype)
+    vp = torch.randn(num_pages, page, nkv, hd, generator=gen,
+                     device=DEV).to(dtype)
+    perm = torch.randperm(num_pages - 1, generator=gen, device=DEV) + 1
+    clean = torch.zeros(b, max_blocks, dtype=torch.int32, device=DEV)
+    at = 0
+    for i, n in enumerate(lens):
+        used = -(-n // page)
+        clean[i, :used] = perm[at:at + used].to(torch.int32)
+        at += used
+    dirty = clean.clone()
+    for i, n in enumerate(lens):
+        used = -(-n // page)
+        fill = torch.randint(1, num_pages, (max_blocks - used,),
+                             generator=gen, device=DEV)
+        dirty[i, used:] = fill.to(torch.int32)
+    return kp, vp, clean, dirty
+
+
+def phase_paged_attention() -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    lens_by_t = {1: [1, 32, 33, 2048, 100, 513, 1000, 7],
+                 64: [64, 65, 96, 2048, 128, 513, 1000, 200]}
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for page in (16, 32):
+            for t, lens in lens_by_t.items():
+                kp, vp, clean, dirty = _paged_pool(gen, dtype, lens, page)
+                q = torch.randn(8, 2, t * 7, 64, generator=gen,
+                                device=DEV).to(dtype)
+                ln = torch.tensor(lens, dtype=torch.int32, device=DEV)
+                got = paged_mod.paged_decode_attention(q, kp, vp, ln, clean,
+                                                       q_rows=t)
+                torch.cuda.synchronize()
+                err, ok, tol = max_err(got, paged_mod.paged_decode_attention_ref(
+                    q, kp, vp, ln, clean, t))
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+                name = f"paged_decode_attention {str(dtype)[6:]} page={page} t={t}"
+                check(ok and bool(torch.isfinite(got).all()),
+                      f"{name}: max_abs_err {err:.3e} (tol {tol})")
+                blocks = clean[:, :2048 // page]          # the dense layout
+                dense = attn_mod.decode_attention(
+                    q, paged_mod.gather_kv_pages(kp, blocks).contiguous(),
+                    paged_mod.gather_kv_pages(vp, blocks).contiguous(), ln,
+                    q_rows=t)
+                kp0, vp0 = kp.clone(), vp.clone()
+                kp0[0] = float("nan")                     # poison page 0
+                vp0[0] = float("nan")
+                blind = [paged_mod.paged_decode_attention(
+                    q, a, b, ln, tab, q_rows=t)
+                    for a, b, tab in ((kp, vp, dirty), (kp0, vp0, clean))]
+                torch.cuda.synchronize()
+                check(torch.equal(got, dense),
+                      f"{name}: bit-equal to the dense kernel")
+                check(all(torch.equal(got, x) for x in blind),
+                      f"{name}: table entries past each length never read")
+    kp, vp, clean, _ = _paged_pool(gen, torch.bfloat16, [0, 5, 0, 9, 1, 2,
+                                                         3, 4], 16)
+    q = torch.randn(8, 2, 7, 64, generator=gen, device=DEV).to(torch.bfloat16)
+    zero = paged_mod.paged_decode_attention(
+        q, kp, vp, torch.tensor([0, 5, 0, 9, 1, 2, 3, 4], dtype=torch.int32,
+                                device=DEV), clean)
+    check(bool((zero[0] == 0).all() and (zero[2] == 0).all()),
+          "paged_decode_attention lens == 0 returns zeros")
+
+    result = {"max_abs_err": worst}
+    for t, lens in lens_by_t.items():
+        sets = []
+        for _ in range(12):
+            kp, vp, clean, _ = _paged_pool(gen, torch.bfloat16, lens, 16)
+            q = torch.randn(8, 2, t * 7, 64, generator=gen,
+                            device=DEV).to(torch.bfloat16)
+            sets.append((q, kp, vp, torch.tensor(lens, dtype=torch.int32,
+                                                  device=DEV), clean))
+        k_ms = time_ms(lambda q, k, v, ln, tab: paged_mod.paged_decode_attention(
+            q, k, v, ln, tab, q_rows=t), sets)
+        p_ms = time_ms(lambda q, k, v, ln, tab:
+                       paged_mod.paged_decode_attention_ref(q, k, v, ln, tab,
+                                                            t), sets)
+        # the library yardstick runs over views gathered beforehand (the
+        # first 2048 positions of each request); the gather is not timed
+        lib_sets = [_sdpa_args(
+            q, paged_mod.gather_kv_pages(k, tab[:, :128]),
+            paged_mod.gather_kv_pages(v, tab[:, :128]), ln, t)
+            for q, k, v, ln, tab in sets]
+        l_ms = time_ms(_sdpa, lib_sets)
+        del lib_sets
+        q = sets[0][0]
+        kv_bytes = sum(lens) * 2 * 64 * 2 * 2          # K and V, nkv=2, bf16
+        io_bytes = 2 * q.numel() * 2                    # q and out
+        table_bytes = sum(-(-n // 16) for n in lens) * 4 + 8 * 4
+        flops = 4 * sum(lens) * 2 * t * 7 * 64          # qk and pv
+        b_ms, b_by = bound(kv_bytes + io_bytes + table_bytes, flops,
+                           torch.bfloat16)
+        print(f"      paged_decode_attention bf16 t={t} b=8 page=16 "
+              f"num_pages=1025 max_blocks=1024: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, sdpa over pre-gathered views (gather not "
+              f"timed) {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        if t == 1:
+            result.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                          bound_ms=b_ms, bound_by=b_by)
+        del sets
+    return result
+
+
 # ---------------------------------------------------------------------------
-def phase_main_path() -> tuple[dict, dict]:
-    cfg = get_config("qwen2-0.5b")
-    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+PROMPT_LENS = [24, 150, 40, 70, 12, 97, 33, 64]       # 150/97/70 chunk
+
+
+def _serve(cfg, params, label: str, **kw) -> tuple[dict, dict]:
+    """Serve the main path's 8 requests through one engine, with the
+    kernels' launch counts set to 0 just before `run()` and read just
+    after.  Returns ({req_id: tokens}, launches)."""
     eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
-                     prefill_len=64, alpha=4, attn_pim=True, device=DEV)
+                     prefill_len=64, alpha=4, attn_pim=True, device=DEV, **kw)
     rng = np.random.default_rng(0)
-    prompt_lens = [24, 150, 40, 70, 12, 97, 33, 64]   # 150/97/70 chunk
-    for i, plen in enumerate(prompt_lens):
+    for i, plen in enumerate(PROMPT_LENS):
         eng.submit(ServeRequest(i, rng.integers(3, cfg.vocab_size,
                                                 size=plen).tolist(),
                                 max_new_tokens=8 + 8 * i))
-    fc_mod.LAUNCHES = 0
-    attn_mod.LAUNCHES = 0
+    fc_mod.LAUNCHES = attn_mod.LAUNCHES = paged_mod.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = eng.run(max_iterations=500)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"fc_gemv": fc_mod.LAUNCHES,
-                "decode_attention": attn_mod.LAUNCHES}
+                "decode_attention": attn_mod.LAUNCHES,
+                "paged_decode_attention": paged_mod.LAUNCHES}
 
     reasons = sorted(r.finished_reason for r in results)
     check(len(results) == 8 and all(r in ("eos", "length") for r in reasons),
-          f"main path: 8 requests finished ({reasons})")
+          f"{label}: 8 requests finished ({reasons})")
     toks = [t for r in results for t in r.tokens]
     check(all(0 <= t < cfg.vocab_size for t in toks) and len(toks) > 0,
-          f"main path: {len(toks)} tokens within the vocabulary")
+          f"{label}: {len(toks)} tokens within the vocabulary")
     variants = {s.fc_variant for s in eng.stats}
-    check({"pu", "pim"} <= variants, f"main path: FC variants {variants}")
-    check(launches["fc_gemv"] > 0 and launches["decode_attention"] > 0,
-          f"main path launches {launches}")
+    check({"pu", "pim"} <= variants, f"{label}: FC variants {variants}")
+    paged = eng.kv is not None
+    attn = "paged_decode_attention" if paged else "decode_attention"
+    other = "decode_attention" if paged else "paged_decode_attention"
+    check(launches["fc_gemv"] > 0 and launches[attn] > 0
+          and launches[other] == 0, f"{label}: launches {launches}")
     steady = [s for s in eng.stats if s.admitted == 0]
     check(bool(steady) and all(s.transfers == 1 for s in steady),
-          f"main path: {len(steady)} steady iterations, one host transfer "
+          f"{label}: {len(steady)} steady iterations, one host transfer "
           "each")
+    if paged:
+        alloc = eng.kv.alloc
+        alloc.check()
+        check(alloc.mapped_count == 0 and alloc.reserved_unmapped == 0
+              and alloc.free_count == alloc.num_pages,
+              f"{label}: pool drained (watermark {alloc.watermark} of "
+              f"{alloc.num_pages} pages)")
     per = {v: [s.wall_s * 1e3 for s in steady if s.fc_variant == v]
            for v in ("pu", "pim")}
-    print(f"      main path: {len(toks)} tokens in {eng.iteration} "
+    print(f"      {label}: {len(toks)} tokens in {eng.iteration} "
           f"iterations, {wall:.3f} s, {len(toks) / wall:.1f} tok/s; "
           + ", ".join(f"median steady iteration under {v} "
                       f"{statistics.median(x):.2f} ms ({len(x)} its)"
                       for v, x in per.items() if x), flush=True)
+    return {r.req_id: r.tokens for r in results}, launches
+
+
+def phase_main_path() -> tuple[dict, dict]:
+    """Phases 4 and 4b: the dense main path, then the paged one on the
+    same requests; the streams must be equal."""
+    cfg = get_config("qwen2-0.5b")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+    dense, launches = _serve(cfg, params, "main path")
+    paged, paged_launches = _serve(cfg, params, "paged main path",
+                                   kv_layout="paged", page_size=16)
+    check(paged == dense, "paged main path: the 8 token streams equal the "
+          "dense main path's")
+    launches["paged_decode_attention"] = paged_launches[
+        "paged_decode_attention"]
     return launches, params
 
 
+def phase_long_context(params) -> None:
+    """Phase 4c: a context no dense slot holds."""
+    cfg = get_config("qwen2-0.5b")
+    prompt = np.random.default_rng(6).integers(3, cfg.vocab_size,
+                                               size=2100).tolist()
+    kw = dict(max_slots=8, cache_capacity=2048, prefill_len=64, alpha=4,
+              attn_pim=True, eos_token=cfg.vocab_size, device=DEV)
+    dense = PapiEngine(cfg, params, **kw)
+    dense.submit(ServeRequest(0, prompt, max_new_tokens=32))
+    got = dense.run(max_iterations=10)
+    check([r.finished_reason for r in got] == ["rejected"],
+          "long context: the dense engine (2048-token slots) rejects a "
+          "2100-token prompt")
+    eng = PapiEngine(cfg, params, kv_layout="paged", page_size=16, **kw)
+    eng.submit(ServeRequest(0, prompt, max_new_tokens=32))
+    paged_mod.LAUNCHES = attn_mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = eng.run(max_iterations=100)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    toks = got[0].tokens if got else []
+    waves = -(-(len(prompt) - 64) // 64)
+    check(len(got) == 1 and got[0].finished_reason == "length"
+          and len(toks) == 32 and all(0 <= t < cfg.vocab_size for t in toks),
+          f"long context: the paged engine completes it ({len(toks)} tokens, "
+          f"{got[0].finished_reason if got else 'nothing'})")
+    layers = cfg.num_layers
+    check(paged_mod.LAUNCHES == layers * (waves + 31)
+          and attn_mod.LAUNCHES == 0,
+          f"long context: {paged_mod.LAUNCHES} paged kernel launches "
+          f"({waves} chunk waves at t=64 + 31 decode steps, {layers} "
+          f"layers), to position {len(prompt) + 31}")
+    eng.kv.alloc.check()
+    check(eng.kv.alloc.mapped_count == 0, "long context: pool drained")
+    print(f"      long context: 2100-token prompt + 32 tokens in "
+          f"{wall:.3f} s, page watermark {eng.kv.alloc.watermark}",
+          flush=True)
+
+
 def phase_trace(params) -> None:
-    """Where a steady decode iteration's time goes, per FC variant: five
-    iterations of 8 live requests under torch.profiler; device busy share =
-    kernel time / host wall time, and the kernels that take the most."""
+    """Where a steady decode iteration's time goes, per KV layout and FC
+    variant: five iterations of 8 live requests under torch.profiler;
+    device busy share = kernel time / host wall time, and the kernels that
+    take the most."""
     cfg = get_config("qwen2-0.5b")
     rng = np.random.default_rng(5)
-    for variant, alpha in (("pu", 0.0), ("pim", 99.0)):
+    for layout, variant, alpha in (("dense", "pu", 0.0), ("dense", "pim", 99.0),
+                                   ("paged", "pu", 0.0), ("paged", "pim", 99.0)):
         eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
                          prefill_len=64, alpha=alpha, attn_pim=True,
-                         device=DEV)
+                         kv_layout=layout, device=DEV)
         for i in range(8):
             eng.submit(ServeRequest(i, rng.integers(
                 3, cfg.vocab_size, size=32).tolist(), max_new_tokens=32))
@@ -319,11 +516,11 @@ def phase_trace(params) -> None:
                 kern.append((dev, evt.key, evt.count))
         busy = sum(k[0] for k in kern)
         if not kern:
-            print(f"      trace {variant}: profiler saw no device time "
+            print(f"      trace {layout} {variant}: profiler saw no device time "
                   "(not measured)", flush=True)
             continue
         top = sorted(kern, reverse=True)[:6]
-        print(f"      trace {variant} (ran {sorted(ran)}): 5 steady "
+        print(f"      trace {layout} {variant} (ran {sorted(ran)}): 5 steady "
               f"iterations {wall_us / 5e3:.2f} ms each, device busy "
               f"{busy / 5e3:.2f} ms each ({busy / wall_us:.1%}); top: "
               + "; ".join(f"{name[:40]} {dev / 5e3:.3f} ms x{cnt // 5}"
@@ -335,26 +532,36 @@ def phase_parity() -> None:
                               dtype="float32")
     params = init_params(cfg, torch.Generator(device=DEV).manual_seed(3))
     rng = np.random.default_rng(3)
-    slots, P = 8, 64
+    slots, P, page = 8, 64, 16
     toks = torch.tensor(rng.integers(3, cfg.vocab_size, size=(slots, P)),
                         dtype=torch.int32, device=DEV)
     lens = torch.tensor(rng.integers(1, P + 1, size=slots), dtype=torch.int32,
                         device=DEV)
-    cache = init_cache(cfg, slots, 256, DEV)
-    first, cache = prefill_to_slots(
-        cfg, params, {"tokens": toks, "prompt_lens": lens}, cache,
-        torch.arange(slots, dtype=torch.int32, device=DEV))
-    out = {}
-    for fcv, impl in (("pu", "xla"), ("pim", "pim")):
-        c = {k: v.clone() for k, v in cache.items()}
-        with fc_variant(fcv), attn_impl(impl):
-            out[fcv], _ = decode_step(cfg, params, c, first[:, None])
-    torch.cuda.synchronize()
-    err = (out["pim"] - out["pu"]).abs().max().item()
-    agree = (out["pim"].argmax(-1) == out["pu"].argmax(-1)).float().mean()
-    check(err <= 1e-3, f"parity f32 2 layers: decode logits kernels vs "
-          f"plain max_abs_err {err:.3e} (tol 1e-3), greedy agreement "
-          f"{agree.item():.3f}")
+    src = torch.arange(slots, dtype=torch.int32, device=DEV)
+    dense = init_cache(cfg, slots, 256, DEV)
+    # a paged cache of 256 positions per slot on shuffled pages
+    paged = init_paged_cache(cfg, slots, slots * 256 // page + 1, page,
+                             256 // page, DEV)
+    paged["block_tables"] = torch.tensor(
+        rng.permutation(slots * 256 // page) + 1, dtype=torch.int32,
+        device=DEV).reshape(slots, 256 // page)
+    batch = {"tokens": toks, "prompt_lens": lens}
+    first, dense = prefill_to_slots(cfg, params, batch, dense, src)
+    first_p, paged = prefill_to_pages(cfg, params, batch, paged, src)
+    check(torch.equal(first, first_p), "parity f32 2 layers: paged prefill "
+          "first tokens equal the dense prefill's")
+    for layout, cache in (("dense", dense), ("paged", paged)):
+        out = {}
+        for fcv, impl in (("pu", "xla"), ("pim", "pim")):
+            c = {k: v.clone() for k, v in cache.items()}
+            with fc_variant(fcv), attn_impl(impl):
+                out[fcv], _ = decode_step(cfg, params, c, first[:, None])
+        torch.cuda.synchronize()
+        err = (out["pim"] - out["pu"]).abs().max().item()
+        agree = (out["pim"].argmax(-1) == out["pu"].argmax(-1)).float().mean()
+        check(err <= 1e-3, f"parity f32 2 layers, {layout} cache: decode "
+              f"logits kernels vs plain max_abs_err {err:.3e} (tol 1e-3), "
+              f"greedy agreement {agree.item():.3f}")
 
 
 # ---------------------------------------------------------------------------
@@ -372,7 +579,9 @@ def main() -> int:
 
     fc = phase_fc_gemv()
     at = phase_decode_attention()
+    pa = phase_paged_attention()
     launches, params = phase_main_path()
+    phase_long_context(params)
     phase_trace(params)
     del params
     phase_parity()
@@ -386,6 +595,10 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/decode_attention.cu",
              replaces="src/repro/kernels/decode_attention.py:152",
              launches=launches["decode_attention"], **at),
+        dict(name="paged_decode_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+             replaces="src/repro/kernels/paged_decode_attention.py:77",
+             launches=launches["paged_decode_attention"], **pa),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

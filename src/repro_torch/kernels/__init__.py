@@ -1,2 +1,3 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
-version: `fc_gemv` (FC-PIM) and `decode_attention` (Attn-PIM)."""
+version: `fc_gemv` (FC-PIM), `decode_attention` and
+`paged_decode_attention` (Attn-PIM over a dense slab or over pages)."""

@@ -4,10 +4,11 @@ package's `kernels/compat.py`, which only handled TPU compiler params).
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with `ctypes`.  The
 library lands in ``build/repro_torch/`` under the repository root, named by
-a hash of its source and flags, so a process builds each kernel at most
-once and a changed source never loads a stale library.  `build_all` starts
-one ``nvcc`` per source at the same time.  Nothing is built at import: the
-first CUDA call of a wrapper triggers it.
+a hash of its source, every shared header (``csrc/*.cuh``) and the flags,
+so a process builds each kernel at most once and a changed source or
+header never loads a stale library.  `build_all` starts one ``nvcc`` per
+source at the same time.  Nothing is built at import: the first CUDA call
+of a wrapper triggers it.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("fc_gemv", "decode_attention")
+KERNELS = ("fc_gemv", "decode_attention", "paged_decode_attention")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -39,8 +40,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

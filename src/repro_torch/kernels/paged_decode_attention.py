@@ -1,0 +1,114 @@
+"""Attn-PIM over bank-row pages: GQA flash-decode attention over a paged
+KV pool — the port of `repro.kernels.paged_decode_attention`.
+
+Layouts follow the reference: q ``[b, nkv, t*g, hd]`` (rows
+(window, group)-row-major), K/V pages ``[num_pages, page_size, nkv, hd]``,
+lens ``[b]`` int32 counting ALL t window tokens, tables ``[b, max_blocks]``
+int32 mapping logical block ``j // page_size`` of request i to its physical
+page.  The masking is the dense kernel's (`kernels.decode_attention`).
+
+`paged_decode_attention` launches the hand-written CUDA kernel
+(``csrc/paged_decode_attention.cu``, which shares its body with the dense
+kernel through ``csrc/decode_attention.cuh``) for tensors on the card and
+uses the plain PyTorch version `paged_decode_attention_ref` for tensors on
+the CPU.  Table entries past a request's length may name any page (the
+engine points them at the garbage page 0): the kernel never reads them and
+the plain version masks them.  `LAUNCHES` counts kernel launches only.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import (DTYPES, HEAD_DIMS,
+                                                  decode_attention_ref)
+
+LAUNCHES = 0
+_fn = None
+
+
+def gather_kv_pages(pages: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """[num_pages, page, nkv, hd] gathered by [b, max_blocks] tables ->
+    the contiguous per-request view [b, max_blocks * page, nkv, hd]."""
+    b, nblk = tables.shape
+    _, page, nkv, hd = pages.shape
+    return pages[tables.long()].reshape(b, nblk * page, nkv, hd)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, lens: torch.Tensor,
+                               tables: torch.Tensor,
+                               q_rows: int = 1) -> torch.Tensor:
+    """Plain version: gather the pages by `tables`, then the dense plain
+    version over the gathered view."""
+    return decode_attention_ref(q, gather_kv_pages(k_pages, tables),
+                                gather_kv_pages(v_pages, tables), lens, q_rows)
+
+
+def _launch_fn():
+    global _fn
+    if _fn is None:
+        fn = _build.load("paged_decode_attention").paged_decode_attention_launch
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, lens: torch.Tensor,
+                           tables: torch.Tensor, *,
+                           q_rows: int = 1) -> torch.Tensor:
+    """[b, nkv, t*g, hd] queries against the first `lens` logical positions
+    of each request's pages -> [b, nkv, t*g, hd] in q's dtype, through
+    Attn-PIM.  The table entries a request's length reaches must name pages
+    of the pool: checking them on the card would cost a device->host copy,
+    so the kernel trusts them (the engine's allocator only hands out pool
+    pages)."""
+    global LAUNCHES
+    b, nkv, tg, hd = q.shape
+    if (k_pages.dim() != 4 or k_pages.shape != v_pages.shape
+            or k_pages.shape[2] != nkv or k_pages.shape[3] != hd):
+        raise ValueError(f"q {tuple(q.shape)} does not match K/V pages "
+                         f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
+    if q_rows < 1 or tg % q_rows:
+        raise ValueError(f"{tg} query rows are not a multiple of q_rows "
+                         f"{q_rows}")
+    if lens.shape != (b,):
+        raise ValueError(f"lens must be [{b}], got {tuple(lens.shape)}")
+    if tables.dim() != 2 or tables.shape[0] != b or tables.shape[1] < 1:
+        raise ValueError(f"tables must be [{b}, max_blocks], got "
+                         f"{tuple(tables.shape)}")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype and q.dtype in DTYPES):
+        raise TypeError(f"paged_decode_attention takes float32 or bfloat16, "
+                        f"got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    if not (q.device == k_pages.device == v_pages.device == lens.device
+            == tables.device):
+        raise ValueError("q, K/V pages, lens and tables must share one device")
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pages, v_pages, lens, tables,
+                                          q_rows)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if lens.dtype != torch.int32 or tables.dtype != torch.int32:
+        raise TypeError(f"lens and tables must be int32, got {lens.dtype} "
+                        f"and {tables.dtype}")
+    if not all(t.is_contiguous() for t in (q, k_pages, v_pages, lens, tables)):
+        raise ValueError("paged_decode_attention needs contiguous inputs")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("K/V pages must be 16-byte aligned (vector loads)")
+    out = torch.empty_like(q)
+    err = _launch_fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                       lens.data_ptr(), tables.data_ptr(), out.data_ptr(),
+                       b, nkv, tg, hd, k_pages.shape[1], tables.shape[1],
+                       q_rows, DTYPES[q.dtype],
+                       torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "paged_decode_attention")
+    LAUNCHES += 1
+    return out

@@ -2,11 +2,12 @@
 random weights made from ``--seed``.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 8 \\
-        --alpha 4 --attn-pim
+        --alpha 4 --attn-pim [--kv paged --page-size 16]
 
 Runs on the card (``--device cpu`` for the plain PyTorch path).  Prints
 the per-iteration scheduler decisions — RLP, TLP, the AI estimate and the
-chosen FC path — as `repro.launch.serve` does.
+chosen FC path — and, under ``--kv paged``, the page pool's watermark, as
+`repro.launch.serve` does.
 """
 from __future__ import annotations
 
@@ -51,6 +52,18 @@ def main(argv=None) -> None:
     ap.add_argument("--attn-pim", action="store_true",
                     help="every decode-path attention through the Attn-PIM "
                          "kernel (plain decode and chunk waves)")
+    ap.add_argument("--kv", choices=("dense", "paged"), default="dense",
+                    help="KV-cache layout: 'dense' per-slot slabs, or "
+                         "'paged' Attn-PIM bank-row pages with block tables "
+                         "and page-budgeted admission (long contexts share "
+                         "one pooled budget instead of uniform slots)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (--kv paged; one Attn-PIM "
+                         "bank row)")
+    ap.add_argument("--max-blocks", type=int, default=None,
+                    help="block-table width (--kv paged): caps per-request "
+                         "context at max_blocks*page_size tokens; default = "
+                         "the whole pool")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -62,7 +75,9 @@ def main(argv=None) -> None:
     eng = PapiEngine(cfg, params, max_slots=args.max_slots,
                      cache_capacity=args.capacity,
                      prefill_len=args.prefill_len, alpha=args.alpha,
-                     attn_pim=args.attn_pim, device=device)
+                     attn_pim=args.attn_pim, kv_layout=args.kv,
+                     page_size=args.page_size, max_blocks=args.max_blocks,
+                     device=device)
     for r in make_requests(args.requests, cfg.vocab_size, args.seed,
                            args.max_prompt):
         eng.submit(r)
@@ -78,6 +93,12 @@ def main(argv=None) -> None:
           f"{dict(sorted(by_reason.items()))} on {device}")
     print(f"tokens: {tok}  wall: {wall:.2f}s  tok/s: {tok / max(wall, 1e-9):.1f}")
     print(f"reschedules: {eng.scheduler.num_reschedules}")
+    if eng.kv is not None:
+        st = eng.kv.stats()
+        frag = max((s.kv_fragmentation for s in eng.stats), default=0.0)
+        print(f"kv pages: watermark {st.watermark}/{st.num_pages} "
+              f"({st.page_size} tokens/page), peak fragmentation "
+              f"{frag:.1%}")
     print("\niter  rlp tlp    AI  fc_path  new_toks")
     for s in eng.stats:
         print(f"{s.iteration:5d} {s.rlp:4d} {s.tlp:3d} {s.ai_estimate:5.1f}  "

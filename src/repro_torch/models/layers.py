@@ -8,8 +8,10 @@ multiplies, `swiglu` runs silu in f32 and casts back, RoPE rotates split
 halves in f32.  Attention comes as
   * `flash_attention` / `dense_attention` — prefill (plain PyTorch, the
     reference's XLA code; never `scaled_dot_product_attention`);
-  * `decode_attention_xla` — the plain decode path (oracle);
-  * `decode_attention_pim` — decode through the Attn-PIM kernel.
+  * `decode_attention_xla` — the plain decode path (oracle), over a dense
+    slab or, for the paged layout, over `gather_kv_pages`' view;
+  * `decode_attention_pim` / `decode_attention_pim_paged` — decode through
+    the Attn-PIM kernel over a dense slab / over bank-row pages.
 """
 from __future__ import annotations
 
@@ -20,6 +22,10 @@ import threading
 import torch
 
 from repro_torch.kernels.decode_attention import decode_attention
+# gather_kv_pages: the paged layout's plain oracle path (the reference's
+# `layers.gather_kv_pages`), lives beside the paged kernel's plain version
+from repro_torch.kernels.paged_decode_attention import (  # noqa: F401
+    gather_kv_pages, paged_decode_attention)
 from repro_torch.models.linear import papi_linear
 
 _attn_state = threading.local()
@@ -219,4 +225,20 @@ def decode_attention_pim(q: torch.Tensor, k_cache: torch.Tensor,
     qh = fold_query_window(q, nkv).contiguous()
     out = decode_attention(qh, k_cache, v_cache,
                            lens.to(torch.int32).contiguous(), q_rows=t)
+    return unfold_query_window(out, t, nh)
+
+
+def decode_attention_pim_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, tables: torch.Tensor,
+                               lens: torch.Tensor) -> torch.Tensor:
+    """Paged decode attention through the block-table Attn-PIM kernel for
+    any window t >= 1 (rows at absolute positions lens - t .. lens - 1); no
+    contiguous view of the pages is built."""
+    b, t, nh, hd = q.shape
+    nkv = k_pages.shape[2]
+    qh = fold_query_window(q, nkv).contiguous()
+    out = paged_decode_attention(qh, k_pages, v_pages,
+                                 lens.to(torch.int32).contiguous(),
+                                 tables.to(torch.int32).contiguous(),
+                                 q_rows=t)
     return unfold_query_window(out, t, nh)

@@ -1,4 +1,5 @@
-"""The dense decoder of the port — `repro.models.model`, dense family.
+"""The dense decoder of the port — `repro.models.model`, dense family, over
+a dense KV slab or a paged KV pool.
 
 Parameters keep the reference's pytree: nested dicts whose per-layer
 leaves are stacked on a leading ``num_layers`` axis (the weight bridge
@@ -6,15 +7,20 @@ leaves are stacked on a leading ``num_layers`` axis (the weight bridge
 a Python loop over layers where the reference runs `lax.scan`.
 
 The KV cache is updated IN PLACE (the reference is functional and returns
-new arrays): `_write_kv` / `_write_kv_masked` and `prefill_to_slots` write
-into the cache tensors they are given, and every entry point returns the
-same cache dict with its ``pos`` replaced.
+new arrays): `_write_kv` / `_write_kv_masked` / `_write_kv_paged`,
+`prefill_to_slots` and `prefill_to_pages` write into the cache tensors
+they are given, and every entry point returns the same cache dict with its
+``pos`` replaced.  A cache holding ``block_tables`` is paged: its K/V are
+page pools ``[L, num_pages, page_size, nkv, hd]`` and the decode path
+resolves each logical position through the slot's block table.
 
 Entry points:
   init_params(cfg, generator)            -> params
   init_cache(cfg, batch, capacity, device)
+  init_paged_cache(cfg, max_slots, num_pages, page_size, max_blocks, device)
   prefill(cfg, params, batch, cache)     -> (last_logits, cache)
   prefill_to_slots(cfg, params, batch, cache, src) -> (first_tokens, cache)
+  prefill_to_pages(cfg, params, batch, cache, src) -> (first_tokens, cache)
   chunk_logits / prefill_chunk(cfg, params, cache, tokens, chunk_lens)
   decode_step(cfg, params, cache, tokens) -> (logits, cache)
 """
@@ -116,6 +122,26 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
+                     page_size: int, max_blocks: int | None,
+                     device: torch.device | str) -> dict:
+    """Paged decode cache: K/V in a pool of fixed-size pages (one page = one
+    Attn-PIM bank row) and a per-slot block table mapping logical blocks to
+    physical pages.  Page 0 is the garbage page: the tables start at 0, so
+    writes of slots not yet admitted land there harmlessly."""
+    _check_dense(cfg)
+    if max_blocks is None:
+        max_blocks = num_pages - 1
+    dtype = DTYPES[cfg.dtype]
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"pos": torch.zeros((max_slots,), dtype=torch.int32, device=device),
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "block_tables": torch.zeros((max_slots, max_blocks),
+                                        dtype=torch.int32, device=device)}
+
+
 def layer_params(params: dict, i: int) -> dict:
     """Layer i's slice of the stacked per-layer parameters (views)."""
     def take(tree):
@@ -163,28 +189,70 @@ def _write_kv_masked(k_cache, v_cache, k_new, v_new, pos, valid_lens):
     return k_cache, v_cache
 
 
-def _decode_attention(q, k_cache, v_cache, pos):
+def _paged_rows(pos, t, tables, page_size):
+    """(physical page, row) of t new tokens per slot: logical position
+    pos + j lands in block (pos + j) // page_size, clamped to the table
+    width, at row (pos + j) % page_size of the page the table names."""
+    tok = pos.long()[:, None] + torch.arange(t, device=pos.device)[None, :]
+    blk = torch.clamp(tok // page_size, 0, tables.shape[1] - 1)
+    phys = torch.gather(tables.long(), 1, blk)                    # [b, t]
+    return phys, tok % page_size
+
+
+def _write_kv_paged(k_cache, v_cache, k_new, v_new, pos, tables,
+                    valid_lens=None):
+    """Scatter [b, t, nkv, hd] into the page pools [P, page, nkv, hd], in
+    place.  With `valid_lens`, tokens past each slot's valid prefix go to
+    the garbage page 0.  Idle slots' rows collide on page 0 too: which of
+    the duplicate writes wins is undefined, and harmless, because no live
+    request reads page 0."""
+    t = k_new.shape[1]
+    phys, row = _paged_rows(pos, t, tables, k_cache.shape[1])
+    if valid_lens is not None:
+        valid = (torch.arange(t, device=pos.device)[None, :]
+                 < valid_lens.long()[:, None])
+        phys = torch.where(valid, phys, torch.zeros_like(phys))
+    k_cache[phys, row] = k_new
+    v_cache[phys, row] = v_new
+    return k_cache, v_cache
+
+
+def _decode_attention(q, k_cache, v_cache, pos, tables=None):
     """THE decision point for decode-path attention: a [b, t, nh, hd]
     window at absolute positions pos .. pos + t - 1 (KV position j is
     visible to window row r iff j <= pos + r).  Under `attn_impl("pim")`
-    every case runs the Attn-PIM kernel; otherwise the plain path."""
+    every case runs an Attn-PIM kernel — the dense one over a slab, the
+    paged one over pages (`tables` given); otherwise the plain path, which
+    first gathers a paged cache into a contiguous view."""
     t = q.shape[1]
     if L.current_attn_impl() == "pim":
+        if tables is not None:
+            return L.decode_attention_pim_paged(q, k_cache, v_cache, tables,
+                                                lens=pos + t)
         return L.decode_attention_pim(q, k_cache, v_cache, lens=pos + t)
+    if tables is not None:
+        k_cache = L.gather_kv_pages(k_cache, tables)
+        v_cache = L.gather_kv_pages(v_cache, tables)
     return L.decode_attention_xla(q, k_cache, v_cache, cache_len=pos + t,
                                   q_offset=pos)
 
 
 def attention_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
                     positions: torch.Tensor, kv, pos, mode: str,
+                    tables: torch.Tensor | None = None,
                     write_lens: torch.Tensor | None = None):
     """Pre-norm attention sub-block.  Returns h (the KV is written in
-    place when `kv` is given)."""
+    place when `kv` is given).  `tables` [b, max_blocks] marks the paged
+    layout: `kv` are then page pools [num_pages, page, nkv, hd]."""
     a_in = L.rmsnorm(h, p["norm1"], cfg.norm_eps)
     q, k, v = L.qkv_project(a_in, p["attn"])
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
-    if mode == "decode":
+    if mode == "decode" and tables is not None:
+        _write_kv_paged(kv[0], kv[1], k, v, pos, tables,
+                        valid_lens=write_lens)
+        attn = _decode_attention(q, kv[0], kv[1], pos, tables)
+    elif mode == "decode":
         if write_lens is not None:
             # chunked prefill: ragged tails / non-chunking slots must not
             # write; the hot decode path keeps the plain slice write
@@ -206,13 +274,15 @@ def mlp_block(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
 
 def _transformer_backbone(cfg, params, h, positions, cache, mode,
                           write_lens=None):
-    """Loop over the stacked layers; each layer writes its own KV slab."""
+    """Loop over the stacked layers; each layer writes its own KV slab (or
+    its own page pool, when the cache carries block tables)."""
     pos = cache["pos"] if cache is not None else None
+    tables = cache.get("block_tables") if cache is not None else None
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         kv = (cache["k"][i], cache["v"][i]) if cache is not None else None
         h = attention_block(cfg, lp, h, positions, kv, pos, mode,
-                            write_lens=write_lens)
+                            tables=tables, write_lens=write_lens)
         h = mlp_block(cfg, lp, h)
     return h
 
@@ -275,6 +345,41 @@ def prefill_to_slots(cfg, params, batch: dict, cache: dict,
         gathered = tmp[key].index_select(1, take)
         mask = keep.reshape(1, -1, 1, 1, 1)
         head.copy_(torch.where(mask, head, gathered))
+    cache["pos"] = torch.where(keep, cache["pos"],
+                               tmp["pos"].index_select(0, take))
+    first = torch.argmax(logits, dim=-1).to(torch.int32)        # [n]
+    first_slots = torch.where(keep, torch.full_like(src, -1),
+                              first.index_select(0, take))
+    return first_slots.to(torch.int32), cache
+
+
+def prefill_to_pages(cfg, params, batch: dict, cache: dict,
+                     src: torch.Tensor):
+    """Batched admission into the PAGED cache: prefill a fixed-shape batch
+    and scatter each admitted request's prompt KV onto its block-table
+    pages, in place — the contract of `prefill_to_slots`.  The engine maps
+    the prompt's pages before the call.  Rows the mask rejects (slots left
+    untouched, positions past a prompt's length) go to the garbage page 0.
+    Returns (first_tokens [slots] int32, cache); -1 for untouched slots."""
+    n, p_len = batch["tokens"].shape
+    tables = cache["block_tables"]
+    slots, max_blocks = tables.shape
+    page_size = cache["k"].shape[2]
+    dev = cache["k"].device
+    tmp = init_cache(cfg, n, p_len, dev)
+    logits, tmp = prefill(cfg, params, batch, tmp)
+
+    take = torch.clamp(src.long(), min=0)             # [slots] row gather
+    keep = src < 0                                     # [slots] untouched
+    tok = torch.arange(p_len, device=dev)[None, :].expand(slots, p_len)
+    lens = batch["prompt_lens"].long().index_select(0, take)       # [slots]
+    valid = (~keep)[:, None] & (tok < lens[:, None])               # [slots, P]
+    blk = torch.clamp(tok // page_size, 0, max_blocks - 1)
+    phys = torch.gather(tables.long(), 1, blk)
+    phys = torch.where(valid, phys, torch.zeros_like(phys))
+    row = tok % page_size
+    for key in ("k", "v"):
+        cache[key][:, phys, row] = tmp[key].index_select(1, take)
     cache["pos"] = torch.where(keep, cache["pos"],
                                tmp["pos"].index_select(0, take))
     first = torch.argmax(logits, dim=-1).to(torch.int32)        # [n]

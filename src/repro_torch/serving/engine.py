@@ -1,6 +1,6 @@
 """PAPI serving engine of the port: offline continuous batching with
-dynamic FC-path scheduling over a dense KV slab — `repro.serving.engine`'s
-`PapiEngine.submit/run/step` at TLP = 1.
+dynamic FC-path scheduling over a dense KV slab or a paged KV pool —
+`repro.serving.engine`'s `PapiEngine.submit/run/step` at TLP = 1.
 
 Each iteration:
   1. admits waiting requests into free KV slots: chunk 0 of every admitted
@@ -20,9 +20,23 @@ Each iteration:
 chunk waves alike — through the Attn-PIM kernel.  Admission runs under the
 ambient FC variant ("pu"), as in the reference.
 
-Not ported yet: speculative decoding, the paged layout, `serve()`, faults
-and the degraded path, preemption, deadlines, the journal, telemetry, the
-sanitizer and mesh execution.
+``kv_layout="paged"`` holds the KV cache in a pool of ``page_size``-token
+pages (one Attn-PIM bank row each; `serving.kv_pages`), by default the
+dense slab's bytes: ``max_slots * cache_capacity / page_size`` pages plus
+the garbage page 0.  Admission is budgeted by pages from that one pool: a
+prompt longer than the table can hold is rejected; a request whose prompt,
+budget and decode window do not fit the pages available right now DEFERS
+(the queue keeps its order); otherwise its whole prompt's pages are mapped
+up front and the rest of its budget is reserved.  Each decode maps the page
+its next KV row needs (`ensure`), and the block tables go host->device only
+after a row changed.  A request longer than a dense slot completes.  There
+is no pool-pressure preemption yet: a deferred head waits for running
+requests to finish, and the reservation arithmetic guarantees that it
+then clears (every admitted request's growth is already reserved).
+
+Not ported yet: speculative decoding, `serve()`, faults and the degraded
+path, preemption, deadlines, the journal, telemetry, the sanitizer and
+mesh execution.
 """
 from __future__ import annotations
 
@@ -37,7 +51,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import PapiScheduler
 from repro_torch.models import (attn_impl, decode_step, fc_variant,
-                                init_cache, prefill_chunk, prefill_to_slots)
+                                init_cache, init_paged_cache, prefill_chunk,
+                                prefill_to_pages, prefill_to_slots)
+from repro_torch.serving.kv_pages import PagedKVManager
 from repro_torch.serving.sampler import greedy
 
 
@@ -68,6 +84,11 @@ class IterStats:
     wall_s: float
     transfers: int = 0     # device->host copies this iteration
     admitted: int = 0      # requests admitted to slots this iteration
+    # paged KV layout only (zeros under the dense layout):
+    kv_pages_used: int = 0       # pages holding live KV right now
+    kv_pages_free: int = 0       # pages on the free list
+    kv_page_watermark: int = 0   # peak pages used over the engine lifetime
+    kv_fragmentation: float = 0.0  # tail-of-page waste share of mapped rows
 
 
 class PapiEngine:
@@ -76,10 +97,15 @@ class PapiEngine:
     def __init__(self, cfg: ModelConfig, params: dict, *, max_slots: int = 8,
                  cache_capacity: int = 256, prefill_len: int = 64,
                  alpha: float = 32.0, eos_token: int = 2,
-                 attn_pim: bool = False,
+                 attn_pim: bool = False, kv_layout: str = "dense",
+                 page_size: int = 16, num_pages: int | None = None,
+                 max_blocks: int | None = None,
                  device: torch.device | str | None = None) -> None:
         if not cfg.has_decode_step:
             raise ValueError(f"{cfg.name} is encoder-only")
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout must be 'dense' or 'paged', not "
+                             f"{kv_layout!r}")
         self.device = resolve_device(device)
         if params["embed"]["w"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed']['w'].device}, "
@@ -93,7 +119,21 @@ class PapiEngine:
         self.scheduler = PapiScheduler(cfg, alpha=alpha, tlp=1,
                                        eos_token=eos_token)
         self.scheduler.initial_schedule(0, 1)
-        self.cache = init_cache(cfg, max_slots, cache_capacity, self.device)
+        self.kv: PagedKVManager | None = None
+        if kv_layout == "paged":
+            # default pool: the dense slab's bytes plus the garbage page,
+            # pooled so that one request may span nearly all of it
+            if num_pages is None:
+                num_pages = max(max_slots * cache_capacity // page_size, 1) + 1
+            self.kv = PagedKVManager(num_pages=num_pages, page_size=page_size,
+                                     max_slots=max_slots,
+                                     max_blocks=max_blocks)
+            self.cache = init_paged_cache(cfg, max_slots, num_pages,
+                                          page_size, self.kv.max_blocks,
+                                          self.device)
+        else:
+            self.cache = init_cache(cfg, max_slots, cache_capacity,
+                                    self.device)
         # per-slot host state
         self.slot_req: list[ServeRequest | None] = [None] * max_slots
         self.slot_tokens: list[list[int]] = [[] for _ in range(max_slots)]
@@ -127,6 +167,8 @@ class PapiEngine:
                 self.slot_req[s] = None
                 self.slot_tokens[s] = []
                 self.slot_last[s] = 0
+                if self.kv is not None:
+                    self.kv.release(s)
         return self.results
 
     # ------------------------------------------------------------- internals
@@ -141,6 +183,18 @@ class PapiEngine:
             out.append(host[at:at + t.numel()].reshape(t.shape))
             at += t.numel()
         return out[0] if len(out) == 1 else out
+
+    def _slot_pos(self, s: int) -> int:
+        """Device cache position of live slot s (KV rows written): the
+        first output token's KV is written by the next decode step."""
+        return int(self.slot_prompt[s]) + len(self.slot_tokens[s]) - 1
+
+    def _sync_tables(self) -> None:
+        """Point the paged cache at the current block tables: an identity
+        check on the no-change path, a host->device copy after a row
+        changed, never a device->host one."""
+        if self.kv is not None:
+            self.cache["block_tables"] = self.kv.tables.device(self.device)
 
     def _attn_scope(self):
         return attn_impl("pim" if self.attn_pim else "xla")
@@ -169,17 +223,26 @@ class PapiEngine:
         free = [i for i, r in enumerate(self.slot_req) if r is None]
         batch_rows: list[tuple[int, ServeRequest]] = []
         while self.queue and free:
-            req = self.queue.pop(0)
+            req = self.queue[0]
             p = len(req.prompt)        # the FULL prompt — never truncated
-            # the slab holds prompt + budget + the TLP = 1 decode window
-            budget = self.capacity - p - 1
-            if budget < 1:
-                # the slab cannot hold the prompt and one token: reject
-                # honestly instead of truncating
-                self._emit(req, [], "rejected")
+            # a slot holds prompt + budget + the TLP = 1 decode window
+            room = (self.kv.max_context if self.kv is not None
+                    else self.capacity) - p - 1
+            if room < 1:
+                # it cannot hold the prompt and one token: reject honestly
+                # instead of truncating
+                self._emit(self.queue.pop(0), [], "rejected")
                 continue
+            budget = max(1, min(req.max_new_tokens, room))
+            if self.kv is not None and not self.kv.can_admit(p + budget + 1):
+                break                  # pool busy: defer, keep the order
+            self.queue.pop(0)
             slot = free.pop(0)
-            self.slot_budget[slot] = max(1, min(req.max_new_tokens, budget))
+            if self.kv is not None:
+                # the prompt's pages are mapped now, the rest of the budget
+                # reserved and mapped as decoding grows
+                self.kv.admit(slot, p + budget + 1, p)
+            self.slot_budget[slot] = budget
             batch_rows.append((slot, req))
         if not batch_rows:
             return 0, False
@@ -196,10 +259,11 @@ class PapiEngine:
             self.slot_prompt[slot] = len(req.prompt)
         batch = {"tokens": self._to_device(tokens),
                  "prompt_lens": self._to_device(lens)}
+        self._sync_tables()    # paged: the admitted rows just mapped pages
+        to_cache = prefill_to_pages if self.kv is not None else prefill_to_slots
         with self._attn_scope():
-            first, self.cache = prefill_to_slots(
-                self.cfg, self.params, batch, self.cache,
-                self._to_device(src))
+            first, self.cache = to_cache(self.cfg, self.params, batch,
+                                         self.cache, self._to_device(src))
             # chunks 1..: every wave advances each pending slot by one
             # (ragged-tail-masked) window; nothing host-side depends on a
             # wave's result, so all waves run back to back and admission
@@ -245,6 +309,8 @@ class PapiEngine:
                 self._emit(req, [tok], reason)
                 self.slot_tokens[slot] = []
                 self.slot_last[slot] = 0   # slot stays available
+                if self.kv is not None:
+                    self.kv.release(slot)
                 instant_finish = True
             else:
                 self.slot_req[slot] = req
@@ -272,6 +338,12 @@ class PapiEngine:
             self.iteration += 1
             return
 
+        if self.kv is not None:
+            # map the page of the KV row this step writes (position pos);
+            # cannot fail: admission reserved prompt + budget + window
+            for s in decoding:
+                self.kv.ensure(s, self._slot_pos(s) + 1)
+            self._sync_tables()
         out = self._decode_all()
 
         # host-side bookkeeping: append tokens, detect eos / length
@@ -290,6 +362,8 @@ class PapiEngine:
                 self.slot_tokens[s] = []
                 self.slot_last[s] = 0
                 finished[s] = True
+                if self.kv is not None:
+                    self.kv.release(s)
             else:
                 self.slot_last[s] = tok
 
@@ -305,6 +379,13 @@ class PapiEngine:
         # the PAPI runtime scheduling step (§5.2.2)
         self.scheduler.observe_counts(finished, admitted)
         self.iteration += 1
+        pool = {}
+        if self.kv is not None:
+            ps = self.kv.stats(sum(self._slot_pos(s)
+                                   for s in self.active_slots))
+            pool = dict(kv_pages_used=ps.mapped, kv_pages_free=ps.free,
+                        kv_page_watermark=ps.watermark,
+                        kv_fragmentation=ps.fragmentation)
         self.stats.append(IterStats(
             iteration=self.iteration,
             rlp=self.scheduler.rlp,
@@ -315,6 +396,7 @@ class PapiEngine:
             wall_s=time.perf_counter() - t0,
             transfers=self.host_transfers - transfers0,
             admitted=admitted,
+            **pool,
         ))
 
 

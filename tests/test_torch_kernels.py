@@ -3,8 +3,11 @@
 On the CPU the port's wrappers take their plain PyTorch versions
 (`fc_gemv_ref`, `decode_attention_ref`); these are held against the Pallas
 kernels run in interpret mode on the same numpy inputs (f32, rtol/atol
-2e-5 as in tests/test_kernels.py).  The CUDA kernels themselves need the
-card: those cases are marked ``gpu`` and skip here.  JAX is imported only
+2e-5 as in tests/test_kernels.py; the paged plain version is held against
+the Pallas paged kernel in tests/test_torch_paged.py).  The CUDA kernels
+themselves need the card: those cases are marked ``gpu`` and skip here,
+the paged kernel's among them (against its plain version, bit-equal to the
+dense kernel, blind to table entries past each length).  JAX is imported only
 by the cases that need it, so the ``gpu`` cases also run where the card
 is and JAX is not:
 
@@ -17,6 +20,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention as attn_mod  # noqa: E402
 from repro_torch.kernels import fc_gemv as fc_mod  # noqa: E402
+from repro_torch.kernels import paged_decode_attention as paged_mod  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -176,3 +180,74 @@ def test_decode_attention_kernel_matches_plain(cuda, t, lens, dtype, tol):
     torch.testing.assert_close(
         got.float(), attn_mod.decode_attention_ref(q, k, v, ln, t).float(),
         rtol=tol, atol=tol)
+
+
+def _paged_on_card(cuda, dtype, t, page, seed, b=4, nkv=2, g=7, hd=64,
+                   max_len=300):
+    """q, a shuffled page pool and tables on the card, with ragged lens
+    (one of them 0) that cross page and tile boundaries."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    nblk = -(-max_len // page)
+    num_pages = b * nblk + 1
+    kp = torch.randn(num_pages, page, nkv, hd, generator=gen,
+                     device=cuda).to(dtype)
+    vp = torch.randn(num_pages, page, nkv, hd, generator=gen,
+                     device=cuda).to(dtype)
+    perm = torch.randperm(num_pages - 1, generator=gen, device=cuda) + 1
+    tables = perm[:b * nblk].reshape(b, nblk).to(torch.int32).contiguous()
+    lens = torch.tensor([t, page + t, max_len, 0][:b], dtype=torch.int32,
+                        device=cuda)
+    q = torch.randn(b, nkv, t * g, hd, generator=gen, device=cuda).to(dtype)
+    return q, kp, vp, lens, tables
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("page", [16, 32])
+@pytest.mark.parametrize("t", [1, 64])
+def test_paged_decode_attention_kernel_matches_plain(cuda, t, page, dtype,
+                                                     tol):
+    args = _paged_on_card(cuda, getattr(torch, dtype), t, page, t + page)
+    before = paged_mod.LAUNCHES
+    got = paged_mod.paged_decode_attention(*args, q_rows=t)
+    torch.cuda.synchronize()
+    assert paged_mod.LAUNCHES == before + 1
+    torch.testing.assert_close(
+        got.float(), paged_mod.paged_decode_attention_ref(*args, t).float(),
+        rtol=tol, atol=tol)
+    assert bool((got[3] == 0).all())             # lens == 0 -> zeros
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("page", [16, 32, 7])
+@pytest.mark.parametrize("t", [1, 64])
+def test_paged_kernel_bit_equal_to_dense_kernel(cuda, t, page, dtype):
+    """The same contents laid out as a dense slab: the dense kernel gives
+    the same bits (one shared body, the same 32-position tiles)."""
+    q, kp, vp, lens, tables = _paged_on_card(cuda, getattr(torch, dtype), t,
+                                             page, 3 * t + page)
+    k = paged_mod.gather_kv_pages(kp, tables).contiguous()
+    v = paged_mod.gather_kv_pages(vp, tables).contiguous()
+    got = paged_mod.paged_decode_attention(q, kp, vp, lens, tables, q_rows=t)
+    want = attn_mod.decode_attention(q, k, v, lens, q_rows=t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 64])
+def test_paged_kernel_never_reads_table_entries_past_the_length(cuda, t):
+    q, kp, vp, lens, tables = _paged_on_card(cuda, torch.bfloat16, t, 16,
+                                             5 + t)
+    base = paged_mod.paged_decode_attention(q, kp, vp, lens, tables,
+                                            q_rows=t)
+    scrubbed = tables.clone()
+    for i, n in enumerate(lens.tolist()):
+        scrubbed[i, -(-n // 16):] = 0             # the garbage page
+    kp[0] = float("nan")                          # poison it
+    vp[0] = float("nan")
+    got = paged_mod.paged_decode_attention(q, kp, vp, lens, scrubbed,
+                                           q_rows=t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, base)
