@@ -4,16 +4,21 @@
 
 Phases (any failed check makes the script exit non-zero, after all ran):
   1. print the card's name and power limit; TF32 off for f32 matmuls;
-  2. build the three CUDA kernels from the repository's sources (nvcc,
+  2. build the four CUDA kernels (fc_gemv, decode_attention,
+     paged_decode_attention, ssd_scan) from the repository's sources (nvcc,
      sm_90a, one nvcc per source, started together);
   3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (tolerance 1e-4 in f32, 2e-2 in bf16, as
+     main paths' shapes (tolerance 1e-4 in f32, 2e-2 in bf16, as
      |err| <= tol + tol*|ref|) and time kernel, plain version, library
      yardstick (torch.matmul / scaled_dot_product_attention, timed only)
-     and the memory/compute bound; 3c: the paged kernel over a shuffled
+     and the memory/compute bound: fc_gemv at qwen2-0.5b's and zamba2-1.2b's
+     shared-block widths, decode_attention at qwen2's GQA (g=7) and
+     zamba2's MHA (g=1, nkv=32); 3c: the paged kernel over a shuffled
      page pool (page 16 and 32), also bit-equal to the dense kernel on the
      same contents, blind to table entries past each length, zeros for
-     lens == 0;
+     lens == 0; 3d: ssd_scan at mamba2-1.3b's and zamba2-1.2b's shapes
+     (two chunks), at one chunk and three, from a zero and a random initial
+     state, y and final state (1e-4 in f32, 5e-2 in bf16);
   4. serve 8 requests with full-width bf16 qwen2-0.5b (24 layers, random
      seeded weights) through `PapiEngine(attn_pim=True)`: every request
      must finish, both FC variants must run, both kernels must launch
@@ -25,11 +30,20 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      4c: a 2100-token prompt that the dense engine (2048-token slots)
      rejects completes on the paged engine, its chunk waves and decodes
      past position 2048 through the paged kernel;
+     4d: full-width bf16 mamba2-1.3b (48 layers) serves 8 ragged prompts
+     in a 512-token window and rejects a 600-token one: ssd_scan launched
+     48 times per admission wave, no FC or attention kernel;
+     4e: full-width bf16 zamba2-1.2b (38 layers, attn_pim) on the same
+     requests: ssd_scan 38 per wave, fc_gemv and decode_attention launched,
+     both FC variants run;
   5. trace five steady iterations per KV layout and FC variant with
-     torch.profiler (device busy share, top kernels);
+     torch.profiler (device busy share, top kernels); 5b: one admission
+     wave of each SSM model (busy share, ssd_scan's share);
   6. parity at full width, 2 layers, f32: one decode step's logits with the
      kernels (pim FC + Attn-PIM) against the plain path (pu + plain
      attention) within 1e-3, over a dense slab and over a paged cache;
+     6b: prefill and one decode step of mamba2 (2 layers) and zamba2 (7
+     layers) with ssd_scan, pim FC and Attn-PIM against the plain path;
   7. print the `kernels` JSON line, the card line, and last the device JSON.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -64,15 +78,22 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as attn_mod  # noqa: E402
 from repro_torch.kernels import fc_gemv as fc_mod  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as paged_mod  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.models import (attn_impl, decode_step, fc_variant,  # noqa: E402
                                 init_cache, init_paged_cache, init_params,
-                                prefill_to_pages, prefill_to_slots)
+                                prefill, prefill_to_pages, prefill_to_slots,
+                                ssd_impl)
 from repro_torch.serving import PapiEngine, ServeRequest  # noqa: E402
 
 DEV = torch.device("cuda")
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the JAX package's own SSD tolerances (tests/test_kernels.py)
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # (K, N) of qwen2-0.5b's FC weights and their count per layer
 FC_SHAPES = {(896, 896): 2, (896, 128): 2, (896, 4864): 2, (4864, 896): 1}
+# (K, N) of zamba2-1.2b's shared attention+MLP block and their count per
+# application: q/k/v/o, gate/up, down
+ZAMBA_FC_SHAPES = {(2048, 2048): 4, (2048, 8192): 2, (8192, 2048): 1}
 L2_BYTES = 50 * 2 ** 20
 FAILURES: list[str] = []
 
@@ -130,35 +151,20 @@ def time_ms(fn, argsets, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def max_err(got, want) -> tuple[float, bool, float]:
-    tol = TOL[got.dtype]
+def max_err(got, want, tol=None) -> tuple[float, bool, float]:
+    tol = TOL[got.dtype] if tol is None else tol
     got, want = got.float(), want.float()
     err = (got - want).abs()
     return err.max().item(), bool((err <= tol + tol * want.abs()).all()), tol
 
 
 # ---------------------------------------------------------------------------
-def phase_fc_gemv() -> dict:
-    gen = torch.Generator(device=DEV).manual_seed(1)
-    worst = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        for (K, N) in FC_SHAPES:
-            for m in (1, 8, 13):
-                x = torch.randn(m, K, generator=gen, device=DEV).to(dtype)
-                w = (torch.randn(K, N, generator=gen, device=DEV)
-                     / math.sqrt(K)).to(dtype)
-                got = fc_mod.fc_gemv(x, w)
-                torch.cuda.synchronize()
-                err, ok, tol = max_err(got, fc_mod.fc_gemv_ref(x, w))
-                if dtype == torch.bfloat16:
-                    worst = max(worst, err)
-                check(ok and got.shape == (m, N),
-                      f"fc_gemv {str(dtype)[6:]} m={m} K={K} N={N}: "
-                      f"max_abs_err {err:.3e} (tol {tol})")
-    # timing at the decode path's m = max_slots = 8, bf16, one layer's FCs
+def _fc_times(gen, shapes: dict, label: str) -> dict:
+    """Kernel, plain, torch.matmul and bound time of one pass over `shapes`
+    ({(K, N): calls}) at m = max_slots = 8, bf16."""
     ms = plain = lib = bnd = 0.0
     by = "bytes"
-    for (K, N), count in FC_SHAPES.items():
+    for (K, N), count in shapes.items():
         wbytes = K * N * 2
         copies = min(400, max(2, math.ceil(2 * L2_BYTES / wbytes)))
         x = torch.randn(8, K, generator=gen, device=DEV).to(torch.bfloat16)
@@ -170,17 +176,45 @@ def phase_fc_gemv() -> dict:
         l_ms = time_ms(torch.matmul, args)
         b_ms, b_by = bound(wbytes + (8 * K + 8 * N) * 2, 2 * 8 * K * N,
                            torch.bfloat16)
-        print(f"      fc_gemv bf16 m=8 K={K} N={N}: kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, torch.matmul {l_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        print(f"      fc_gemv bf16 m=8 K={K} N={N} ({label}): kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.matmul "
+              f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
         ms += count * k_ms
         plain += count * p_ms
         lib += count * l_ms
         bnd += count * b_ms
         by = b_by if b_by == "operations" else by
         del ws
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain,
-            "library_ms": lib, "bound_ms": bnd, "bound_by": by}
+    print(f"      fc_gemv bf16 m=8, {label}: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound {bnd:.4f} ms",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
+            "bound_by": by}
+
+
+def phase_fc_gemv() -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    cases = [(K, N, m) for (K, N) in FC_SHAPES for m in (1, 8, 13)]
+    cases += [(K, N, 8) for (K, N) in ZAMBA_FC_SHAPES]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for K, N, m in cases:
+            x = torch.randn(m, K, generator=gen, device=DEV).to(dtype)
+            w = (torch.randn(K, N, generator=gen, device=DEV)
+                 / math.sqrt(K)).to(dtype)
+            got = fc_mod.fc_gemv(x, w)
+            torch.cuda.synchronize()
+            err, ok, tol = max_err(got, fc_mod.fc_gemv_ref(x, w))
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            check(ok and got.shape == (m, N),
+                  f"fc_gemv {str(dtype)[6:]} m={m} K={K} N={N}: "
+                  f"max_abs_err {err:.3e} (tol {tol})")
+    # timing at the decode path's m = max_slots = 8, bf16: one qwen2 layer's
+    # FCs (the row), one application of zamba2's shared block (printed)
+    result = _fc_times(gen, FC_SHAPES, "one qwen2-0.5b layer")
+    _fc_times(gen, ZAMBA_FC_SHAPES, "one zamba2-1.2b shared-block application")
+    return {"max_abs_err": worst, **result}
 
 
 def _attn_inputs(gen, dtype, t, lens, b=8, nkv=2, g=7, hd=64, S=2048):
@@ -208,14 +242,26 @@ def _sdpa(q, k, v, mask):
                                                             attn_mask=mask)
 
 
+# (label, t, lens, KV geometry) of the dense attention kernel's main-path
+# calls: qwen2-0.5b's GQA decode (t=1) and chunk waves (t=64) in 2048-token
+# slots, and zamba2-1.2b's MHA shared block (g=1, nkv=32) decoding in
+# 1024-token slots, lens up to the longest prompt plus its budget
+ATTN_CASES = [
+    ("qwen2-0.5b", 1, [1, 32, 33, 2048, 100, 513, 1000, 7],
+     dict(nkv=2, g=7, S=2048)),
+    ("qwen2-0.5b", 64, [64, 65, 96, 2048, 128, 513, 1000, 200],
+     dict(nkv=2, g=7, S=2048)),
+    ("zamba2-1.2b", 1, [1, 12, 33, 512, 100, 300, 576, 64],
+     dict(nkv=32, g=1, S=1024)),
+]
+
+
 def phase_decode_attention() -> dict:
     gen = torch.Generator(device=DEV).manual_seed(2)
-    lens_by_t = {1: [1, 32, 33, 2048, 100, 513, 1000, 7],
-                 64: [64, 65, 96, 2048, 128, 513, 1000, 200]}
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for t, lens in lens_by_t.items():
-            q, k, v, ln = _attn_inputs(gen, dtype, t, lens)
+        for arch, t, lens, geo in ATTN_CASES:
+            q, k, v, ln = _attn_inputs(gen, dtype, t, lens, **geo)
             got = attn_mod.decode_attention(q, k, v, ln, q_rows=t)
             torch.cuda.synchronize()
             err, ok, tol = max_err(
@@ -223,29 +269,32 @@ def phase_decode_attention() -> dict:
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
             check(ok and bool(torch.isfinite(got).all()),
-                  f"decode_attention {str(dtype)[6:]} t={t} lens={lens}: "
+                  f"decode_attention {str(dtype)[6:]} {arch} t={t} "
+                  f"nkv={geo['nkv']} g={geo['g']} S={geo['S']} lens={lens}: "
                   f"max_abs_err {err:.3e} (tol {tol})")
     zero = attn_mod.decode_attention(
         *(_attn_inputs(gen, torch.bfloat16, 1, [0, 5, 0, 9, 1, 2, 3, 4])))
     check(bool((zero[0] == 0).all() and (zero[2] == 0).all()),
           "decode_attention lens == 0 returns zeros")
     result = {"max_abs_err": worst}
-    for t, lens in lens_by_t.items():
-        sets = [_attn_inputs(gen, torch.bfloat16, t, lens) for _ in range(12)]
+    for arch, t, lens, geo in ATTN_CASES:
+        sets = [_attn_inputs(gen, torch.bfloat16, t, lens, **geo)
+                for _ in range(12)]
         k_ms = time_ms(lambda q, k, v, ln: attn_mod.decode_attention(
             q, k, v, ln, q_rows=t), sets)
         p_ms = time_ms(lambda q, k, v, ln: attn_mod.decode_attention_ref(
             q, k, v, ln, t), sets)
         l_ms = time_ms(_sdpa, [_sdpa_args(*s, t) for s in sets])
         q = sets[0][0]
-        kv_bytes = sum(lens) * 2 * 64 * 2 * 2          # K and V, nkv=2, bf16
+        nkv, g = geo["nkv"], geo["g"]
+        kv_bytes = sum(lens) * 2 * nkv * 64 * 2         # K and V, bf16
         io_bytes = 2 * q.numel() * 2
-        flops = 4 * sum(lens) * 2 * t * 7 * 64          # qk and pv
+        flops = 4 * sum(lens) * nkv * t * g * 64        # qk and pv
         b_ms, b_by = bound(kv_bytes + io_bytes, flops, torch.bfloat16)
-        print(f"      decode_attention bf16 t={t} b=8 S=2048: kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-        if t == 1:
+        print(f"      decode_attention bf16 {arch} t={t} b=8 nkv={nkv} g={g} "
+              f"S={geo['S']}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"sdpa {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        if arch == "qwen2-0.5b" and t == 1:
             result.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                           bound_ms=b_ms, bound_by=b_by)
         del sets
@@ -368,7 +417,132 @@ def phase_paged_attention() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# (b, nh, l, hp, n, chunk) of the SSM main paths' scans: mamba2-1.3b and
+# zamba2-1.2b at a 512-token prefill window (two 256-row chunks)
+SSD_SHAPES = {"mamba2-1.3b": (8, 64, 512, 64, 128, 256),
+              "zamba2-1.2b": (8, 64, 512, 64, 64, 256)}
+
+
+def _ssd_inputs(gen, b, nh, l, hp, n, x_dtype, bc_dtype, slow=False):
+    """dtx, lt, B, C and a random initial state.  The decays are those of
+    tests/test_kernels.py (dt = softplus(N(0,1) - 1), A in [-7.4, -1]:
+    the state forgets a 256-row chunk), or with `slow` the model's init
+    laws (dt ~ logU[1e-3, 0.1], A in [-16, -1]: the state carries across
+    chunks)."""
+    dtx = (0.5 * torch.randn(b, nh, l, hp, generator=gen,
+                             device=DEV)).to(x_dtype)
+    if slow:
+        lo, hi = math.log(1e-3), math.log(0.1)
+        dt = torch.exp(lo + (hi - lo) * torch.rand(b, nh, l, generator=gen,
+                                                   device=DEV))
+        A = -(1.0 + 15.0 * torch.rand(nh, generator=gen, device=DEV))
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, nh, l, generator=gen, device=DEV) - 1.0)
+        A = -torch.exp(2.0 * torch.rand(nh, generator=gen, device=DEV))
+    lt = (dt * A[None, :, None]).contiguous()
+    B = (0.5 * torch.randn(b, l, n, generator=gen, device=DEV)).to(bc_dtype)
+    C = (0.5 * torch.randn(b, l, n, generator=gen, device=DEV)).to(bc_dtype)
+    s0 = 0.5 * torch.randn(b, nh, hp, n, generator=gen, device=DEV)
+    return dtx, lt, B, C, s0
+
+
+def ssd_bound(b, nh, l, hp, n, cs) -> tuple[float, str]:
+    """The least time for one main-path call (dtx f32, B/C and y bf16, the
+    zero initial state read, the final state written): bytes over the
+    memory rate against the f32 operations these inputs need over the f32
+    rate — C·Bᵀ once per (batch, chunk) and lower triangle only, its
+    product with dtx (j <= i), the inter-chunk term and the state update."""
+    nc = l // cs
+    tri = cs * (cs + 1) // 2
+    flops = (b * nc * tri * n * 2
+             + b * nh * nc * (tri * hp * 2 + 2 * cs * n * hp * 2))
+    nbytes = (b * nh * l * hp * 4 + b * nh * l * 4 + 2 * b * l * n * 2
+              + b * nh * l * hp * 2 + 2 * b * nh * hp * n * 4)
+    return bound(nbytes, flops, torch.float32)
+
+
+def phase_ssd_scan() -> dict:
+    """Phase 3d: ssd_scan against its plain version on the card."""
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (x, B/C, y) dtypes: all f32; the bf16 model's mix; all bf16
+    mixes = ((f32, f32, f32), (f32, bf16, bf16), (bf16, bf16, bf16))
+    cases = [(arch, shape, False) for arch, shape in SSD_SHAPES.items()]
+    cases += [(arch + " slow decay", shape, True)
+              for arch, shape in SSD_SHAPES.items()]
+    cases += [("one chunk l < chunk", (8, 64, 100, 64, 128, 256), False),
+              ("three chunks slow decay", (2, 64, 768, 64, 64, 256), True)]
+    # the row's max_abs_err: every bf16-y case at the main paths' shapes,
+    # both decay laws
+    main_shapes, worst = set(SSD_SHAPES.values()), 0.0
+    for label, (b, nh, l, hp, n, ch), slow in cases:
+        for xd, bcd, yd in mixes:
+            for init in (False, True):
+                dtx, lt, B, C, s0 = _ssd_inputs(gen, b, nh, l, hp, n, xd, bcd,
+                                                slow)
+                kw = dict(chunk=ch, init_state=s0 if init else None,
+                          out_dtype=yd)
+                y, st = ssd_mod.ssd_scan(dtx, lt, B, C, **kw)
+                torch.cuda.synchronize()
+                want_y, want_st = ssd_mod.ssd_scan_ref(dtx, lt, B, C, **kw)
+                tol = SSD_TOL[yd]
+                ey, oky, _ = max_err(y, want_y, tol)
+                # the state is f32 in both versions, from the same inputs
+                es, oks, _ = max_err(st, want_st, SSD_TOL[f32])
+                if yd == bf16 and (b, nh, l, hp, n, ch) in main_shapes:
+                    worst = max(worst, ey)
+                check(oky and oks and bool(torch.isfinite(y).all()),
+                      f"ssd_scan {label} b={b} l={l} n={n} x/BC/y "
+                      f"{str(xd)[6:]}/{str(bcd)[6:]}/{str(yd)[6:]} "
+                      f"init={'random' if init else 'zero'}: max_abs_err y "
+                      f"{ey:.3e} (tol {tol}), state {es:.3e} (tol "
+                      f"{SSD_TOL[f32]})")
+                del dtx, lt, B, C, s0, y, st, want_y, want_st
+    result = {"max_abs_err": worst, "library_ms": None}
+    for arch, (b, nh, l, hp, n, ch) in SSD_SHAPES.items():
+        sets = []
+        for _ in range(3):               # 137 MB a set: past the L2
+            dtx, lt, B, C, _ = _ssd_inputs(gen, b, nh, l, hp, n, f32, bf16)
+            sets.append((dtx, lt, B, C, torch.zeros(b, nh, hp, n,
+                                                    device=DEV)))
+
+        def kern(dtx, lt, B, C, s0):
+            return ssd_mod.ssd_scan(dtx, lt, B, C, chunk=ch, init_state=s0,
+                                    out_dtype=bf16)
+
+        def plain(dtx, lt, B, C, s0):
+            return ssd_mod.ssd_scan_ref(dtx, lt, B, C, chunk=ch,
+                                        init_state=s0, out_dtype=bf16)
+
+        k_ms, p_ms = time_ms(kern, sets), time_ms(plain, sets)
+        b_ms, b_by = ssd_bound(b, nh, l, hp, n, ch)
+        print(f"      ssd_scan {arch} shapes b={b} nh={nh} l={l} hp={hp} "
+              f"n={n} cs={ch} (dtx f32, B/C/y bf16): kernel {k_ms:.4f} ms, "
+              f"plain {p_ms:.4f} ms, no single PyTorch call, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        if arch == "mamba2-1.3b":
+            result.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+        del sets
+    return result
+
+
+# ---------------------------------------------------------------------------
 PROMPT_LENS = [24, 150, 40, 70, 12, 97, 33, 64]       # 150/97/70 chunk
+
+
+MODS = {"fc_gemv": fc_mod, "decode_attention": attn_mod,
+        "paged_decode_attention": paged_mod, "ssd_scan": ssd_mod}
+
+
+def zero_counts() -> None:
+    for mod in MODS.values():
+        mod.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    return {name: mod.LAUNCHES for name, mod in MODS.items()}
 
 
 def _serve(cfg, params, label: str, **kw) -> tuple[dict, dict]:
@@ -382,15 +556,13 @@ def _serve(cfg, params, label: str, **kw) -> tuple[dict, dict]:
         eng.submit(ServeRequest(i, rng.integers(3, cfg.vocab_size,
                                                 size=plen).tolist(),
                                 max_new_tokens=8 + 8 * i))
-    fc_mod.LAUNCHES = attn_mod.LAUNCHES = paged_mod.LAUNCHES = 0
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = eng.run(max_iterations=500)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fc_gemv": fc_mod.LAUNCHES,
-                "decode_attention": attn_mod.LAUNCHES,
-                "paged_decode_attention": paged_mod.LAUNCHES}
+    launches = read_counts()
 
     reasons = sorted(r.finished_reason for r in results)
     check(len(results) == 8 and all(r in ("eos", "length") for r in reasons),
@@ -404,7 +576,8 @@ def _serve(cfg, params, label: str, **kw) -> tuple[dict, dict]:
     attn = "paged_decode_attention" if paged else "decode_attention"
     other = "decode_attention" if paged else "paged_decode_attention"
     check(launches["fc_gemv"] > 0 and launches[attn] > 0
-          and launches[other] == 0, f"{label}: launches {launches}")
+          and launches[other] == 0 and launches["ssd_scan"] == 0,
+          f"{label}: launches {launches}")
     steady = [s for s in eng.stats if s.admitted == 0]
     check(bool(steady) and all(s.transfers == 1 for s in steady),
           f"{label}: {len(steady)} steady iterations, one host transfer "
@@ -565,6 +738,175 @@ def phase_parity() -> None:
 
 
 # ---------------------------------------------------------------------------
+# the SSM families: 8 ragged prompts up to the 512-token window, and one of
+# 600 tokens that the engine rejects (no chunk waves for SSM state)
+SSM_PROMPT_LENS = [12, 512, 100, 37, 256, 480, 64, 300]
+SSM_ENGINE = dict(max_slots=8, cache_capacity=1024, prefill_len=512, alpha=4)
+
+
+def _serve_ssm(arch: str, params, attn_pim: bool) -> tuple[dict, dict]:
+    """Phases 4d / 4e: serve the SSM requests at full width, with every
+    kernel's launch count set to 0 just before `run()` and read just
+    after.  Returns (launches, {"waves": n, "tokens": n, "wall_s": s})."""
+    cfg = get_config(arch)
+    label = f"{arch} path"
+    eng = PapiEngine(cfg, params, attn_pim=attn_pim, device=DEV,
+                     **SSM_ENGINE)
+    rng = np.random.default_rng(8)
+    reqs = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+            for n in SSM_PROMPT_LENS]
+    reqs.insert(3, rng.integers(3, cfg.vocab_size, size=600).tolist())
+    for i, prompt in enumerate(reqs):
+        eng.submit(ServeRequest(i, prompt, max_new_tokens=8 + 7 * (i % 9)))
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(max_iterations=500)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    # one prefill per admitting iteration: the 8 admitted requests fit the
+    # 8 slots, so no iteration runs a second wave
+    waves = sum(1 for s in eng.stats if s.admitted > 0)
+
+    got = {r.req_id: r for r in results}
+    check(len(got) == 9 and got[3].finished_reason == "rejected"
+          and got[3].tokens == [],
+          f"{label}: the 600-token prompt is rejected (prefill_len 512)")
+    others = [r for i, r in got.items() if i != 3]
+    check(len(others) == 8 and all(r.finished_reason in ("eos", "length")
+                                   for r in others),
+          f"{label}: the other 8 requests finished "
+          f"({sorted(r.finished_reason for r in others)})")
+    toks = [t for r in others for t in r.tokens]
+    check(len(toks) > 0 and all(0 <= t < cfg.vocab_size for t in toks),
+          f"{label}: {len(toks)} tokens within the vocabulary")
+    check(waves >= 1 and launches["ssd_scan"] == cfg.num_layers * waves,
+          f"{label}: ssd_scan launched {launches['ssd_scan']} times in "
+          f"{waves} admission wave(s), {cfg.num_layers} per wave")
+    if cfg.family == "ssm":
+        check(launches["fc_gemv"] == launches["decode_attention"]
+              == launches["paged_decode_attention"] == 0,
+              f"{label}: no FC or attention kernel launched ({launches})")
+    else:
+        check(launches["fc_gemv"] > 0 and launches["decode_attention"] > 0
+              and launches["paged_decode_attention"] == 0,
+              f"{label}: fc_gemv and decode_attention launched ({launches})")
+        variants = {s.fc_variant for s in eng.stats}
+        check({"pu", "pim"} <= variants, f"{label}: FC variants {variants}")
+    steady = [s for s in eng.stats if s.admitted == 0]
+    check(bool(steady) and all(s.transfers == 1 for s in steady),
+          f"{label}: {len(steady)} steady iterations, one host transfer "
+          "each")
+    per = {v: [s.wall_s * 1e3 for s in steady if s.fc_variant == v]
+           for v in ("pu", "pim")}
+    print(f"      {label}: {len(toks)} tokens in {eng.iteration} "
+          f"iterations, {wall:.3f} s, {len(toks) / wall:.1f} tok/s; "
+          + ", ".join(f"median steady iteration under {v} "
+                      f"{statistics.median(x):.2f} ms ({len(x)} its)"
+                      for v, x in per.items() if x), flush=True)
+    return launches, {"waves": waves, "tokens": len(toks), "wall_s": wall}
+
+
+def phase_ssm_paths() -> tuple[dict, dict]:
+    """Phases 4d (mamba2-1.3b) and 4e (zamba2-1.2b, attn_pim) at full
+    width, bf16, random weights from seed 0."""
+    launches, params_by_arch = {}, {}
+    for arch, attn_pim in (("mamba2-1.3b", False), ("zamba2-1.2b", True)):
+        params = init_params(get_config(arch),
+                             torch.Generator(device=DEV).manual_seed(0))
+        launches[arch], _ = _serve_ssm(arch, params, attn_pim)
+        params_by_arch[arch] = params
+    return launches, params_by_arch
+
+
+def phase_wave_trace(params_by_arch) -> None:
+    """Phase 5b: one admission wave (8 ragged prompts in the 512-token
+    window through `prefill_to_slots`) of each SSM model under
+    torch.profiler: device busy share and ssd_scan's share of the wave's
+    device time."""
+    rng = np.random.default_rng(9)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for arch, params in params_by_arch.items():
+        cfg = get_config(arch)
+        P = SSM_ENGINE["prefill_len"]
+        toks = torch.tensor(rng.integers(3, cfg.vocab_size, size=(8, P)),
+                            dtype=torch.int32, device=DEV)
+        batch = {"tokens": toks, "prompt_lens": torch.tensor(
+            SSM_PROMPT_LENS, dtype=torch.int32, device=DEV)}
+        src = torch.arange(8, dtype=torch.int32, device=DEV)
+        cache = init_cache(cfg, 8, SSM_ENGINE["cache_capacity"], DEV)
+        prefill_to_slots(cfg, params, batch, cache, src)     # warm
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            prefill_to_slots(cfg, params, batch, cache, src)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kern = []
+        for evt in prof.key_averages():
+            dev = getattr(evt, "self_device_time_total", None)
+            if dev is None:
+                dev = getattr(evt, "self_cuda_time_total", 0)
+            if dev > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+                kern.append((dev, evt.key, evt.count))
+        if not kern:
+            print(f"      wave trace {arch}: profiler saw no device time "
+                  "(not measured)", flush=True)
+            continue
+        busy = sum(k[0] for k in kern)
+        ssd = sum(k[0] for k in kern if "ssd_scan" in k[1])
+        top = sorted(kern, reverse=True)[:6]
+        print(f"      wave trace {arch}: one admission wave {wall_us / 1e3:.2f}"
+              f" ms wall, device busy {busy / 1e3:.2f} ms "
+              f"({busy / wall_us:.1%}); ssd_scan {ssd / 1e3:.2f} ms "
+              f"({ssd / busy:.1%} of device time); top: "
+              + "; ".join(f"{name[:40]} {dev / 1e3:.3f} ms x{cnt}"
+                          for dev, name, cnt in top), flush=True)
+
+
+def phase_ssm_parity() -> None:
+    """Phase 6b: full width, f32, reduced depth (mamba2 2 layers; zamba2 7:
+    one shared application and one remainder layer).  The prefill's logits
+    and one decode step's, with the kernels (ssd_scan, pim FC, Attn-PIM)
+    against the plain path (plain scan, pu, plain attention); both decode
+    the plain path's first tokens."""
+    rng = np.random.default_rng(10)
+    for arch, depth in (("mamba2-1.3b", 2), ("zamba2-1.2b", 7)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth,
+                                  dtype="float32")
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(3))
+        P = SSM_ENGINE["prefill_len"]
+        toks = torch.tensor(rng.integers(3, cfg.vocab_size, size=(8, P)),
+                            dtype=torch.int32, device=DEV)
+        batch = {"tokens": toks, "prompt_lens": torch.tensor(
+            SSM_PROMPT_LENS, dtype=torch.int32, device=DEV)}
+        out, first = {}, None
+        for impl, fcv, attn in (("plain", "pu", "xla"),
+                                ("kernel", "pim", "pim")):
+            cache = init_cache(cfg, 8, 1024, DEV)
+            with ssd_impl(impl):
+                logits0, cache = prefill(cfg, params, batch, cache)
+                if first is None:
+                    first = logits0.argmax(-1).to(torch.int32)
+                with fc_variant(fcv), attn_impl(attn):
+                    logits1, _ = decode_step(cfg, params, cache,
+                                             first[:, None])
+            out[impl] = (logits0, logits1)
+        torch.cuda.synchronize()
+        for step, (k, p) in enumerate(zip(out["kernel"], out["plain"])):
+            err = (k - p).abs().max().item()
+            agree = (k.argmax(-1) == p.argmax(-1)).float().mean().item()
+            what = "prefill" if step == 0 else "decode step"
+            check(err <= 1e-3 and bool(torch.isfinite(k).all()),
+                  f"parity f32 {arch} {depth} layers, {what} logits: kernels "
+                  f"vs plain max_abs_err {err:.3e} (tol 1e-3), greedy "
+                  f"agreement {agree:.3f}")
+        del params
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -577,14 +919,36 @@ def main() -> int:
     print(f"built {', '.join(_build.KERNELS)} for sm_90a in {secs:.1f} s",
           flush=True)
 
-    fc = phase_fc_gemv()
-    at = phase_decode_attention()
-    pa = phase_paged_attention()
-    launches, params = phase_main_path()
-    phase_long_context(params)
-    phase_trace(params)
+    t_start = time.perf_counter()
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"      [{fn.__name__}: {time.perf_counter() - t0:.1f} s, "
+              f"{time.perf_counter() - t_start:.1f} s in all]", flush=True)
+        return out
+
+    fc = timed(phase_fc_gemv)
+    at = timed(phase_decode_attention)
+    pa = timed(phase_paged_attention)
+    ssd = timed(phase_ssd_scan)
+    launches, params = timed(phase_main_path)
+    timed(phase_long_context, params)
+    timed(phase_trace, params)
     del params
-    phase_parity()
+    timed(phase_parity)
+    ssm_launches, ssm_params = timed(phase_ssm_paths)
+    timed(phase_wave_trace, ssm_params)
+    del ssm_params
+    timed(phase_ssm_parity)
+    # the sum over every path's run, each with the counts set to 0 just
+    # before it
+    print(f"      launches by path: qwen2-0.5b dense and paged (phases 4, "
+          f"4b): {json.dumps(launches)}; "
+          + "; ".join(f"{arch}: {json.dumps(ln)}"
+                      for arch, ln in ssm_launches.items()), flush=True)
+    launches = {name: n + sum(ln[name] for ln in ssm_launches.values())
+                for name, n in launches.items()}
 
     rows = [
         dict(name="fc_gemv", route="cuda",
@@ -599,6 +963,10 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/paged_decode_attention.cu",
              replaces="src/repro/kernels/paged_decode_attention.py:77",
              launches=launches["paged_decode_attention"], **pa),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan.py:78",
+             launches=launches["ssd_scan"], **ssd),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

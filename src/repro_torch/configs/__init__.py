@@ -1,10 +1,13 @@
 """Architecture registry of the port: the architectures it serves so far."""
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import HybridConfig, ModelConfig, SSMConfig
+from repro_torch.configs.mamba2_1_3b import CONFIG as MAMBA2_1_3B
 from repro_torch.configs.qwen2_0_5b import CONFIG as QWEN2_0_5B
+from repro_torch.configs.zamba2_1_2b import CONFIG as ZAMBA2_1_2B
 
-_REGISTRY: dict[str, ModelConfig] = {c.name: c for c in (QWEN2_0_5B,)}
+_REGISTRY: dict[str, ModelConfig] = {
+    c.name: c for c in (QWEN2_0_5B, MAMBA2_1_3B, ZAMBA2_1_2B)}
 
 
 def get_config(name: str) -> ModelConfig:
@@ -16,4 +19,4 @@ def get_config(name: str) -> ModelConfig:
     raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
 
 
-__all__ = ["ModelConfig", "get_config"]
+__all__ = ["HybridConfig", "ModelConfig", "SSMConfig", "get_config"]

@@ -1,12 +1,40 @@
-"""Model configuration: the port's own copy of the dense subset of
-`repro.configs.base.ModelConfig` (the fields the dense serving path reads,
-`resolved_head_dim`, `group_size` and the `reduced()` smoke twin)."""
+"""Model configuration: the port's own copy of the subset of
+`repro.configs.base` that the serving path reads — `ModelConfig` with its
+dense, SSM (`SSMConfig`, Mamba2) and hybrid (`HybridConfig`, zamba2)
+fields, `resolved_head_dim`, `group_size`, `num_attention_applications`
+and the `reduced()` smoke twin."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "vlm", "audio"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD block configuration."""
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_kernel: int = 4
+    chunk_size: int = 256
+    # A = -exp(A_log) lies in [-a_max, -a_min]: A_log = log U[a_min, a_max]
+    a_min: float = 1.0
+    a_max: float = 16.0
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """zamba2-style layout: a backbone of Mamba2 blocks with one *shared*
+    attention+MLP block applied after every `period` backbone blocks."""
+    period: int = 6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +57,8 @@ class ModelConfig:
     tie_embeddings: bool = False
     causal: bool = True
     decoder: bool = True
+    ssm: SSMConfig | None = None
+    hybrid: HybridConfig | None = None
     dtype: str = "bfloat16"
 
     @property
@@ -44,8 +74,20 @@ class ModelConfig:
         return max(self.num_heads // self.num_kv_heads, 1)
 
     @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def has_decode_step(self) -> bool:
         return self.decoder
+
+    def num_attention_applications(self) -> int:
+        if self.family == "ssm":
+            return 0
+        if self.family == "hybrid":
+            assert self.hybrid is not None
+            return self.num_layers // self.hybrid.period
+        return self.num_layers
 
     def reduced(self) -> "ModelConfig":
         """A tiny config of the same family for CPU tests — the same
@@ -57,7 +99,8 @@ class ModelConfig:
         return ModelConfig(
             name=self.name + "-smoke",
             family=self.family,
-            num_layers=min(self.num_layers, 2),
+            num_layers=min(self.num_layers,
+                           4 if self.family == "hybrid" else 2),
             d_model=128,
             num_heads=4 if self.num_heads else 0,
             num_kv_heads=num_kv,
@@ -72,5 +115,9 @@ class ModelConfig:
             tie_embeddings=self.tie_embeddings,
             causal=self.causal,
             decoder=self.decoder,
+            ssm=(SSMConfig(d_state=16, head_dim=32, expand=2,
+                           conv_kernel=self.ssm.conv_kernel, chunk_size=32)
+                 if self.ssm is not None else None),
+            hybrid=HybridConfig(period=2) if self.hybrid is not None else None,
             dtype="float32",
         )

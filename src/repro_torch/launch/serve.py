@@ -3,6 +3,11 @@ random weights made from ``--seed``.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 8 \\
         --alpha 4 --attn-pim [--kv paged --page-size 16]
+    python -m repro_torch.launch.serve --arch zamba2-1.2b --attn-pim
+    python -m repro_torch.launch.serve --arch mamba2-1.3b
+
+The SSM (mamba2) and hybrid (zamba2) families reject prompts longer than
+``--prefill-len`` and refuse ``--kv paged``, as the reference does.
 
 Runs on the card (``--device cpu`` for the plain PyTorch path).  Prints
 the per-iteration scheduler decisions — RLP, TLP, the AI estimate and the

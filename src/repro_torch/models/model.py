@@ -1,18 +1,20 @@
-"""The dense decoder of the port — `repro.models.model`, dense family, over
-a dense KV slab or a paged KV pool.
+"""The port's decoder — `repro.models.model` for the dense, SSM (mamba2)
+and hybrid (zamba2) families, over a dense KV slab or (dense only) a paged
+KV pool.
 
 Parameters keep the reference's pytree: nested dicts whose per-layer
 leaves are stacked on a leading ``num_layers`` axis (the weight bridge
 `models.weights.params_from_jax` is then a straight copy).  The backbone is
 a Python loop over layers where the reference runs `lax.scan`.
 
-The KV cache is updated IN PLACE (the reference is functional and returns
-new arrays): `_write_kv` / `_write_kv_masked` / `_write_kv_paged`,
-`prefill_to_slots` and `prefill_to_pages` write into the cache tensors
-they are given, and every entry point returns the same cache dict with its
-``pos`` replaced.  A cache holding ``block_tables`` is paged: its K/V are
-page pools ``[L, num_pages, page_size, nkv, hd]`` and the decode path
-resolves each logical position through the slot's block table.
+The caches are updated IN PLACE (the reference is functional and returns
+new arrays): `_write_kv` / `_write_kv_masked` / `_write_kv_paged`, the
+SSM blocks (into ``cache["ssm"]``, an `ssm.SSMState` of per-layer stacked
+tensors), `prefill_to_slots` and `prefill_to_pages` write into the cache
+tensors they are given, and every entry point returns the same cache dict
+with its ``pos`` replaced.  A cache holding ``block_tables`` is paged: its
+K/V are page pools ``[L, num_pages, page_size, nkv, hd]`` and the decode
+path resolves each logical position through the slot's block table.
 
 Entry points:
   init_params(cfg, generator)            -> params
@@ -33,71 +35,140 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
 class PSpec:
     shape: tuple[int, ...]
-    init: str = "normal"      # normal | zeros | ones
+    init: str = "normal"      # normal | zeros | ones | a_log | dt_bias
     std: float = 0.02
+    dtype: str | None = None  # None: the model's dtype
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.mlp != "swiglu" or cfg.norm != "rmsnorm"
-            or not cfg.tie_embeddings):
+def _check_family(cfg: ModelConfig) -> None:
+    if (cfg.family not in FAMILIES or cfg.mlp != "swiglu"
+            or cfg.norm != "rmsnorm" or not cfg.tie_embeddings):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense swiglu/rmsnorm models with "
-            "tied embeddings only")
+            f"{cfg.name}: the port serves {'/'.join(FAMILIES)} models with "
+            "swiglu/rmsnorm and tied embeddings only")
+
+
+def _attn_spec(cfg: ModelConfig, residual_std: float) -> dict:
+    d, nh, nkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.resolved_head_dim)
+    std = d ** -0.5
+    p = {
+        "w_q": PSpec((d, nh, hd), std=std),
+        "w_k": PSpec((d, nkv, hd), std=std),
+        "w_v": PSpec((d, nkv, hd), std=std),
+        "w_o": PSpec((nh, hd, d), std=residual_std),
+    }
+    if cfg.qkv_bias:
+        p["b_q"] = PSpec((nh, hd), "zeros")
+        p["b_k"] = PSpec((nkv, hd), "zeros")
+        p["b_v"] = PSpec((nkv, hd), "zeros")
+    return p
+
+
+def _mlp_spec(cfg: ModelConfig, residual_std: float) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    std = d ** -0.5
+    return {
+        "w_gate": PSpec((d, f), std=std),
+        "w_up": PSpec((d, f), std=std),
+        "w_down": PSpec((f, d), std=residual_std),
+    }
+
+
+def _ssm_spec(cfg: ModelConfig, residual_std: float) -> dict:
+    s, d = cfg.ssm, cfg.d_model
+    di, nh, n, k = s.d_inner(d), s.n_heads(d), s.d_state, s.conv_kernel
+    std = d ** -0.5
+    return {
+        "w_z": PSpec((d, di), std=std),
+        "w_x": PSpec((d, di), std=std),
+        "w_B": PSpec((d, n), std=std),
+        "w_C": PSpec((d, n), std=std),
+        "w_dt": PSpec((d, nh), std=std),
+        "conv_x": PSpec((k, di), std=1 / math.sqrt(k)),
+        "conv_B": PSpec((k, n), std=1 / math.sqrt(k)),
+        "conv_C": PSpec((k, n), std=1 / math.sqrt(k)),
+        # f32 in any model dtype: recurrence-critical, as in the reference
+        "A_log": PSpec((nh,), "a_log", dtype="float32"),
+        "D": PSpec((nh,), "ones"),
+        "dt_bias": PSpec((nh,), "dt_bias", dtype="float32"),
+        "norm_w": PSpec((di,), "ones"),
+        "w_out": PSpec((di, d), std=residual_std),
+    }
+
+
+def _layer_spec(cfg: ModelConfig, residual_std: float) -> dict:
+    """Spec of ONE layer (unstacked)."""
+    d = cfg.d_model
+    if cfg.family in ("ssm", "hybrid"):
+        return {"norm": PSpec((d,), "ones"),
+                "ssm": _ssm_spec(cfg, residual_std)}
+    return {
+        "norm1": PSpec((d,), "ones"),
+        "attn": _attn_spec(cfg, residual_std),
+        "norm2": PSpec((d,), "ones"),
+        "mlp": _mlp_spec(cfg, residual_std),
+    }
 
 
 def model_spec(cfg: ModelConfig) -> dict:
-    _check_dense(cfg)
-    d, v, f = cfg.d_model, cfg.vocab_size, cfg.d_ff
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    nl = cfg.num_layers
+    _check_family(cfg)
+    d, v, nl = cfg.d_model, cfg.vocab_size, cfg.num_layers
     residual_std = (d ** -0.5) / math.sqrt(max(2 * nl, 1))
-    std = d ** -0.5
-    attn = {
-        "w_q": PSpec((nl, d, nh, hd), std=std),
-        "w_k": PSpec((nl, d, nkv, hd), std=std),
-        "w_v": PSpec((nl, d, nkv, hd), std=std),
-        "w_o": PSpec((nl, nh, hd, d), std=residual_std),
-    }
-    if cfg.qkv_bias:
-        attn["b_q"] = PSpec((nl, nh, hd), "zeros")
-        attn["b_k"] = PSpec((nl, nkv, hd), "zeros")
-        attn["b_v"] = PSpec((nl, nkv, hd), "zeros")
+
+    def stack(tree):
+        return {k: (dataclasses.replace(ps, shape=(nl,) + ps.shape)
+                    if isinstance(ps, PSpec) else stack(ps))
+                for k, ps in tree.items()}
+
     spec = {
         "embed": {"w": PSpec((v, d), std=0.02)},
         "final_norm": {"w": PSpec((d,), "ones")},
-        "layers": {
-            "norm1": PSpec((nl, d), "ones"),
-            "attn": attn,
-            "norm2": PSpec((nl, d), "ones"),
-            "mlp": {
-                "w_gate": PSpec((nl, d, f), std=std),
-                "w_up": PSpec((nl, d, f), std=std),
-                "w_down": PSpec((nl, f, d), std=residual_std),
-            },
-        },
+        "layers": stack(_layer_spec(cfg, residual_std)),
     }
+    if cfg.family == "hybrid":
+        # one weight-tied attention+MLP block shared across applications
+        spec["shared"] = {
+            "norm1": PSpec((d,), "ones"),
+            "attn": _attn_spec(cfg, residual_std),
+            "norm2": PSpec((d,), "ones"),
+            "mlp": _mlp_spec(cfg, residual_std),
+        }
     return spec
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     """Random parameters on the generator's device: truncated normals
     (+-3 sigma) scaled by each leaf's std, ones for norms, zeros for
-    biases — the reference's init law, not its random numbers."""
-    dtype = DTYPES[cfg.dtype]
+    biases, and the SSM laws for A_log (log U[a_min, a_max]) and dt_bias
+    (softplus^-1 of dt ~ logU[1e-3, 1e-1]), both f32 — the reference's init
+    laws, not its random numbers."""
     device = generator.device
 
     def make(ps: PSpec) -> torch.Tensor:
+        dtype = DTYPES[ps.dtype or cfg.dtype]
         if ps.init == "zeros":
             return torch.zeros(ps.shape, dtype=dtype, device=device)
         if ps.init == "ones":
             return torch.ones(ps.shape, dtype=dtype, device=device)
+        if ps.init == "a_log":
+            u = torch.rand(ps.shape, generator=generator, device=device)
+            return torch.log(cfg.ssm.a_min + u * (cfg.ssm.a_max
+                                                   - cfg.ssm.a_min)).to(dtype)
+        if ps.init == "dt_bias":
+            u = torch.rand(ps.shape, generator=generator, device=device)
+            lo, hi = math.log(1e-3), math.log(0.1)
+            dt = torch.exp(u * (hi - lo) + lo)
+            return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
         x = torch.empty(ps.shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(x, 0.0, 1.0, -3.0, 3.0,
                                     generator=generator)
@@ -112,14 +183,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                device: torch.device | str) -> dict:
-    """Decode cache: per-slot positions and dense [L, b, S, nkv, hd] K/V."""
-    _check_dense(cfg)
+    """Decode cache: per-slot positions; dense: [L, b, S, nkv, hd] K/V;
+    ssm: ``ssm``, an `SSMState` of [L, b, ...] tensors (the SSM state f32);
+    hybrid: both, with K/V [napps, b, S, nkv, hd] for the shared block's
+    applications."""
+    _check_family(cfg)
     dtype = DTYPES[cfg.dtype]
-    shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if cfg.family in ("ssm", "hybrid"):
+        one = S.init_state(batch, cfg.d_model, cfg.ssm, dtype, device)
+        cache["ssm"] = S.SSMState(*(
+            torch.zeros((cfg.num_layers,) + x.shape, dtype=x.dtype,
+                        device=device) for x in one))
+    if cfg.family in ("dense", "hybrid"):
+        shape = (cfg.num_attention_applications(), batch, capacity,
+                 cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
 
 
 def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
@@ -129,7 +210,11 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
     Attn-PIM bank row) and a per-slot block table mapping logical blocks to
     physical pages.  Page 0 is the garbage page: the tables start at 0, so
     writes of slots not yet admitted land there harmlessly."""
-    _check_dense(cfg)
+    _check_family(cfg)
+    if cfg.family != "dense":
+        raise ValueError(
+            f"paged KV cache needs a pure attention KV cache; {cfg.family} "
+            "carries SSM state that has no sequence dim to page")
     if max_blocks is None:
         max_blocks = num_pages - 1
     dtype = DTYPES[cfg.dtype]
@@ -148,6 +233,13 @@ def layer_params(params: dict, i: int) -> dict:
         return {k: (take(v) if isinstance(v, dict) else v[i])
                 for k, v in tree.items()}
     return take(params["layers"])
+
+
+def layer_state(cache: dict | None, i: int) -> S.SSMState | None:
+    """Layer i's slice of the stacked SSM state (views: written in place)."""
+    if cache is None:
+        return None
+    return S.SSMState(*(x[i] for x in cache["ssm"]))
 
 
 # ---------------------------------------------------------------------------
@@ -272,6 +364,16 @@ def mlp_block(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
     return h + L.swiglu_mlp(m_in, p["mlp"])
 
 
+def ssm_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
+              state: S.SSMState | None, mode: str) -> torch.Tensor:
+    """Pre-norm Mamba2 sub-block; the state (when given) is written in
+    place."""
+    u = L.rmsnorm(h, p["norm"], cfg.norm_eps)
+    y, _ = S.mamba2_block(u, p["ssm"], cfg.ssm, cfg.d_model, state=state,
+                          decode=(mode == "decode"))
+    return h + y
+
+
 def _transformer_backbone(cfg, params, h, positions, cache, mode,
                           write_lens=None):
     """Loop over the stacked layers; each layer writes its own KV slab (or
@@ -285,6 +387,44 @@ def _transformer_backbone(cfg, params, h, positions, cache, mode,
                             tables=tables, write_lens=write_lens)
         h = mlp_block(cfg, lp, h)
     return h
+
+
+def _ssm_layers(cfg, params, h, cache, mode, lo, hi):
+    for i in range(lo, hi):
+        h = ssm_block(cfg, layer_params(params, i), h, layer_state(cache, i),
+                      mode)
+    return h
+
+
+def _hybrid_backbone(cfg, params, h, positions, cache, mode):
+    """zamba2: segments of `period` Mamba2 blocks, the shared (weight-tied)
+    attention+MLP block after each — `num_layers // period` applications,
+    application `app` on KV slab `app` — then the remainder segment."""
+    period = cfg.hybrid.period
+    pos = cache["pos"] if cache is not None else None
+    shared = params["shared"]
+    lo = 0
+    for app in range(cfg.num_attention_applications()):
+        h = _ssm_layers(cfg, params, h, cache, mode, lo, lo + period)
+        kv = (cache["k"][app], cache["v"][app]) if cache is not None else None
+        h = attention_block(cfg, shared, h, positions, kv, pos, mode)
+        h = mlp_block(cfg, shared, h)
+        lo += period
+    return _ssm_layers(cfg, params, h, cache, mode, lo, cfg.num_layers)
+
+
+def backbone(cfg, params, h, positions, cache, mode, write_lens=None):
+    """The family dispatch.  SSM state has no sequence dim to mask, so the
+    stateful families take no chunked-prefill writes."""
+    if cfg.family in ("ssm", "hybrid") and write_lens is not None:
+        raise ValueError(f"{cfg.family}: chunked prefill needs maskable KV "
+                         "writes")
+    if cfg.family == "ssm":
+        return _ssm_layers(cfg, params, h, cache, mode, 0, cfg.num_layers)
+    if cfg.family == "hybrid":
+        return _hybrid_backbone(cfg, params, h, positions, cache, mode)
+    return _transformer_backbone(cfg, params, h, positions, cache, mode,
+                                 write_lens=write_lens)
 
 
 # ---------------------------------------------------------------------------
@@ -317,7 +457,7 @@ def lm_logits(cfg, params, h: torch.Tensor) -> torch.Tensor:
 def prefill(cfg, params, batch: dict, cache: dict):
     """Process the prompt, fill the cache, return last-position logits."""
     h, positions = embed_inputs(cfg, params, batch)
-    h = _transformer_backbone(cfg, params, h, positions, cache, "prefill")
+    h = backbone(cfg, params, h, positions, cache, "prefill")
     prompt_lens = batch["prompt_lens"]
     cache["pos"] = prompt_lens.to(torch.int32)
     idx = torch.clamp(prompt_lens.long() - 1, 0, h.shape[1] - 1)
@@ -328,23 +468,33 @@ def prefill(cfg, params, batch: dict, cache: dict):
 def prefill_to_slots(cfg, params, batch: dict, cache: dict,
                      src: torch.Tensor):
     """Batched admission: prefill a fixed-shape batch of new requests and
-    merge each into its slot of the engine cache.  src[s] is the batch row
-    admitted into slot s, or -1 to leave slot s untouched.  The temporary
-    cache is sized to the prefill window, and only its first p_len
-    positions are merged, so padded prompt rows never reach a live slot.
+    merge each into its slot of the engine cache, in place.  src[s] is the
+    batch row admitted into slot s, or -1 to leave slot s untouched.  The
+    temporary cache is sized to the prefill window, and only its first
+    p_len KV positions are merged, so padded prompt rows never reach a
+    live slot's KV; an admitted slot's SSM state is replaced whole (it has
+    taken in the padding too, as in the reference).
     Returns (first_tokens [slots] int32, cache); -1 for untouched slots."""
     n, p_len = batch["tokens"].shape
-    p_len = min(p_len, cache["k"].shape[2])
-    tmp = init_cache(cfg, n, p_len, cache["k"].device)
+    if "k" in cache:
+        p_len = min(p_len, cache["k"].shape[2])
+    tmp = init_cache(cfg, n, p_len, cache["pos"].device)
     logits, tmp = prefill(cfg, params, batch, tmp)
 
     take = torch.clamp(src.long(), min=0)             # [slots] row gather
     keep = src < 0                                     # [slots] untouched
+
+    def merge(old, new):
+        # old: [L, slots, ...], new: [L, n, ...]: gather by slot, select
+        mask = keep.reshape((1, -1) + (1,) * (old.dim() - 2))
+        old.copy_(torch.where(mask, old, new.index_select(1, take)))
+
     for key in ("k", "v"):
-        head = cache[key][:, :, :p_len]
-        gathered = tmp[key].index_select(1, take)
-        mask = keep.reshape(1, -1, 1, 1, 1)
-        head.copy_(torch.where(mask, head, gathered))
+        if key in cache:
+            merge(cache[key][:, :, :p_len], tmp[key])
+    if "ssm" in cache:
+        for old, new in zip(cache["ssm"], tmp["ssm"]):
+            merge(old, new)
     cache["pos"] = torch.where(keep, cache["pos"],
                                tmp["pos"].index_select(0, take))
     first = torch.argmax(logits, dim=-1).to(torch.int32)        # [n]
@@ -400,8 +550,8 @@ def chunk_logits(cfg, params, cache: dict, tokens: torch.Tensor,
     positions = pos[:, None] + torch.arange(t, device=pos.device)[None, :]
     h, positions = embed_inputs(cfg, params, {"tokens": tokens,
                                               "positions": positions})
-    h = _transformer_backbone(cfg, params, h, positions, cache, "decode",
-                              write_lens=chunk_lens)
+    h = backbone(cfg, params, h, positions, cache, "decode",
+                 write_lens=chunk_lens)
     idx = torch.clamp(chunk_lens.long() - 1, 0, t - 1)
     h_last = h[torch.arange(b, device=h.device), idx][:, None]
     logits = lm_logits(cfg, params, h_last)
@@ -422,7 +572,7 @@ def decode_step(cfg, params, cache: dict, tokens: torch.Tensor):
     positions = pos[:, None] + torch.arange(t, device=pos.device)[None, :]
     h, positions = embed_inputs(cfg, params, {"tokens": tokens,
                                               "positions": positions})
-    h = _transformer_backbone(cfg, params, h, positions, cache, "decode")
+    h = backbone(cfg, params, h, positions, cache, "decode")
     logits = lm_logits(cfg, params, h)
     cache["pos"] = pos + t
     return logits, cache

@@ -1,0 +1,167 @@
+"""Mamba2 / SSD block — the port of `repro.models.ssm`.
+
+Recurrence (per head h, head_dim p, state n):
+    S_t = exp(dt_t * A) * S_{t-1} + dt_t * (x_t outer B_t)      S: [p, n]
+    y_t = S_t @ C_t + D * x_t
+
+Prefill uses the chunked SSD form through the `ssd_scan` kernel (its plain
+version on the CPU); decode uses the O(1) recurrent step in plain PyTorch,
+as the reference does.  Precisions follow the reference: dtx = dt * x and
+the state in f32, B/C/y in the model dtype.
+
+A state handed in is updated IN PLACE (the reference returns new arrays):
+`mamba2_block` writes the new conv histories and SSM state into the
+`SSMState` it was given — the cache's slices — as the KV cache is written.
+
+`ssd_impl("plain")` sends `_ssd_chunked` to the plain version even for
+tensors on the card, so that the kernel path can be held against it.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import SSMConfig
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+
+_ssd_state = threading.local()
+
+
+def current_ssd_impl() -> str:
+    """Chunked-scan implementation: "kernel" (default; its plain version
+    for CPU tensors) or "plain"."""
+    return getattr(_ssd_state, "impl", "kernel")
+
+
+@contextlib.contextmanager
+def ssd_impl(impl: str):
+    if impl not in ("kernel", "plain"):
+        raise ValueError(f"ssd impl must be 'kernel' or 'plain', not {impl!r}")
+    prev = current_ssd_impl()
+    _ssd_state.impl = impl
+    try:
+        yield
+    finally:
+        _ssd_state.impl = prev
+
+
+class SSMState(NamedTuple):
+    conv_x: torch.Tensor   # [b, K-1, di]
+    conv_B: torch.Tensor   # [b, K-1, n]
+    conv_C: torch.Tensor   # [b, K-1, n]
+    ssm: torch.Tensor      # [b, nh, hp, n] (f32)
+
+
+def init_state(batch: int, d_model: int, s: SSMConfig, dtype: torch.dtype,
+               device: torch.device | str) -> SSMState:
+    di, nh, k = s.d_inner(d_model), s.n_heads(d_model), s.conv_kernel - 1
+    return SSMState(
+        conv_x=torch.zeros((batch, k, di), dtype=dtype, device=device),
+        conv_B=torch.zeros((batch, k, s.d_state), dtype=dtype, device=device),
+        conv_C=torch.zeros((batch, k, s.d_state), dtype=dtype, device=device),
+        ssm=torch.zeros((batch, nh, s.head_dim, s.d_state),
+                        dtype=torch.float32, device=device))
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 state: torch.Tensor | None):
+    """Depthwise causal conv1d.  x: [b, l, c]; w: [K, c].  Returns
+    (y [b, l, c], new_state [b, K-1, c]): the last K-1 inputs, history
+    included (`state`, zeros when None)."""
+    k = w.shape[0]
+    if state is None:
+        hist = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                           device=x.device)
+    else:
+        hist = state.to(x.dtype)
+    xp = torch.cat([hist, x], dim=1)                   # [b, l+K-1, c]
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(k))
+    return y, xp[:, -(k - 1):, :]
+
+
+def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, chunk: int,
+                 init_state: torch.Tensor | None = None):
+    """Chunked SSD.  x [b, l, nh, hp], dt [b, l, nh] f32, A [nh] f32,
+    B/C [b, l, n], init_state [b, nh, hp, n] f32 or None.  Returns
+    (y [b, l, nh, hp] in x's dtype, final_state [b, nh, hp, n] f32)."""
+    dtx = (dt[..., None] * x.float()).permute(0, 2, 1, 3).contiguous()
+    lt = (dt * A[None, None, :]).permute(0, 2, 1).contiguous()
+    scan = ssd_scan if current_ssd_impl() == "kernel" else ssd_scan_ref
+    y, final = scan(dtx, lt, B.contiguous(), C.contiguous(), chunk=chunk,
+                    init_state=(init_state.contiguous()
+                                if init_state is not None else None),
+                    out_dtype=x.dtype)
+    return y.permute(0, 2, 1, 3), final
+
+
+def _ssd_recurrent(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, state: torch.Tensor):
+    """The recurrent step over t (small) tokens: x [b, t, nh, hp], dt
+    [b, t, nh] f32, state [b, nh, hp, n] f32, updated in place.  Returns
+    (y [b, t, nh, hp] in x's dtype, state)."""
+    ys = []
+    for i in range(x.shape[1]):
+        dtt = dt[:, i].float()                                 # [b, nh]
+        g = torch.exp(dtt * A[None, :])
+        upd = torch.einsum("bh,bhp,bn->bhpn", dtt, x[:, i].float(),
+                           B[:, i].float())
+        state.mul_(g[..., None, None]).add_(upd)
+        ys.append(torch.einsum("bhpn,bn->bhp", state, C[:, i].float()))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def mamba2_block(u: torch.Tensor, p: dict, s: SSMConfig, d_model: int,
+                 state: SSMState | None = None, decode: bool = False):
+    """Full Mamba2 block on the normed input u [b, l, d].  Returns
+    (out [b, l, d], new_state) — `state` itself, updated in place, when
+    one was given."""
+    b, l, _ = u.shape
+    di, nh, hp = s.d_inner(d_model), s.n_heads(d_model), s.head_dim
+
+    z = torch.matmul(u, p["w_z"])
+    x = torch.matmul(u, p["w_x"])
+    Bp = torch.matmul(u, p["w_B"])
+    Cp = torch.matmul(u, p["w_C"])
+    dt = torch.matmul(u, p["w_dt"])
+
+    has = state is not None
+    cx, new_cx = _causal_conv(x, p["conv_x"], state.conv_x if has else None)
+    cB, new_cB = _causal_conv(Bp, p["conv_B"], state.conv_B if has else None)
+    cC, new_cC = _causal_conv(Cp, p["conv_C"], state.conv_C if has else None)
+    cx = F.silu(cx.float()).to(u.dtype)
+    cB = F.silu(cB.float()).to(u.dtype)
+    cC = F.silu(cC.float()).to(u.dtype)
+
+    xh = cx.reshape(b, l, nh, hp)
+    dtf = F.softplus(dt.float() + p["dt_bias"].float())
+    A = -torch.exp(p["A_log"].float())
+
+    if decode:
+        assert has, "the decode step needs a state"
+        y, new_ssm = _ssd_recurrent(xh, dtf, A, cB, cC, state.ssm)
+    else:
+        y, new_ssm = _ssd_chunked(xh, dtf, A, cB, cC, s.chunk_size,
+                                  state.ssm if has else None)
+
+    y = y + p["D"].to(u.dtype)[None, None, :, None] * xh
+    y = y.reshape(b, l, di)
+
+    # gated RMSNorm: norm(y * silu(z)) * w  (mamba2's RMSNormGated)
+    gated = y.float() * F.silu(z.float())
+    var = gated.square().mean(dim=-1, keepdim=True)
+    gated = gated * torch.rsqrt(var + 1e-5) * p["norm_w"].float()
+    out = torch.matmul(gated.to(u.dtype), p["w_out"])
+
+    if not has:
+        return out, SSMState(new_cx, new_cB, new_cC, new_ssm)
+    state.conv_x.copy_(new_cx)
+    state.conv_B.copy_(new_cB)
+    state.conv_C.copy_(new_cC)
+    if new_ssm is not state.ssm:
+        state.ssm.copy_(new_ssm)
+    return out, state

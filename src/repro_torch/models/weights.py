@@ -5,7 +5,9 @@ keys, so the bridge is a straight copy, checked leaf by leaf against
 `model_spec`.  The caller hands the tree over as nested dicts of numpy
 arrays (e.g. ``jax.tree.map(np.asarray, params)``); bf16 leaves arrive as
 ``ml_dtypes.bfloat16`` and go through float32 (exact) to torch.bfloat16.
-This is how the tests hold the two packages to the same weights.
+Each leaf takes its spec's dtype: the model's, except the SSM's A_log and
+dt_bias, which stay f32 in a bf16 model as in the reference.  This is how
+the tests hold the two packages to the same weights.
 """
 from __future__ import annotations
 
@@ -18,8 +20,6 @@ from repro_torch.models.model import DTYPES, PSpec, model_spec
 
 def params_from_jax(cfg: ModelConfig, tree: dict,
                     device: torch.device | str) -> dict:
-    dtype = DTYPES[cfg.dtype]
-
     def walk(spec: dict, node: dict, path: str) -> dict:
         missing = set(spec) - set(node)
         if missing:
@@ -32,8 +32,8 @@ def params_from_jax(cfg: ModelConfig, tree: dict,
                 if arr.shape != sub.shape:
                     raise ValueError(f"{where}: shape {arr.shape}, expected "
                                      f"{sub.shape}")
-                out[key] = torch.from_numpy(arr).to(device=device,
-                                                    dtype=dtype)
+                out[key] = torch.from_numpy(arr).to(
+                    device=device, dtype=DTYPES[sub.dtype or cfg.dtype])
             else:
                 out[key] = walk(sub, node[key], where)
         return out

@@ -20,6 +20,12 @@ Each iteration:
 chunk waves alike — through the Attn-PIM kernel.  Admission runs under the
 ambient FC variant ("pu"), as in the reference.
 
+The SSM (mamba2) and hybrid (zamba2) families carry per-slot SSM state
+that has no sequence dim to mask, so they take no chunk waves: a prompt
+longer than ``prefill_len`` is rejected honestly, as in the reference.
+Every admission wave's prefill runs each SSM layer's chunked scan through
+the `ssd_scan` kernel.
+
 ``kv_layout="paged"`` holds the KV cache in a pool of ``page_size``-token
 pages (one Attn-PIM bank row each; `serving.kv_pages`), by default the
 dense slab's bytes: ``max_slots * cache_capacity / page_size`` pages plus
@@ -116,6 +122,10 @@ class PapiEngine:
         self.prefill_len = prefill_len
         self.eos_token = eos_token
         self.attn_pim = attn_pim
+        # chunked prefill masks its KV writes per slot; SSM state has no
+        # sequence dim to mask, so stateful families keep single-window
+        # prefill and reject longer prompts honestly
+        self._can_chunk = cfg.family in ("dense", "moe", "vlm", "audio")
         self.scheduler = PapiScheduler(cfg, alpha=alpha, tlp=1,
                                        eos_token=eos_token)
         self.scheduler.initial_schedule(0, 1)
@@ -225,6 +235,11 @@ class PapiEngine:
         while self.queue and free:
             req = self.queue[0]
             p = len(req.prompt)        # the FULL prompt — never truncated
+            if p > self.prefill_len and not self._can_chunk:
+                # SSM/hybrid state cannot mask the garbage tail of a chunk
+                # window: reject instead of dropping the prompt head
+                self._emit(self.queue.pop(0), [], "rejected")
+                continue
             # a slot holds prompt + budget + the TLP = 1 decode window
             room = (self.kv.max_context if self.kv is not None
                     else self.capacity) - p - 1

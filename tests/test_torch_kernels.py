@@ -4,10 +4,13 @@ On the CPU the port's wrappers take their plain PyTorch versions
 (`fc_gemv_ref`, `decode_attention_ref`); these are held against the Pallas
 kernels run in interpret mode on the same numpy inputs (f32, rtol/atol
 2e-5 as in tests/test_kernels.py; the paged plain version is held against
-the Pallas paged kernel in tests/test_torch_paged.py).  The CUDA kernels
-themselves need the card: those cases are marked ``gpu`` and skip here,
-the paged kernel's among them (against its plain version, bit-equal to the
-dense kernel, blind to table entries past each length).  JAX is imported only
+the Pallas paged kernel in tests/test_torch_paged.py, and `ssd_scan_ref`
+against the Pallas `ssd_scan` in tests/test_torch_ssm.py).  The CUDA
+kernels themselves need the card: those cases are marked ``gpu`` and skip
+here, the paged kernel's among them (against its plain version, bit-equal
+to the dense kernel, blind to table entries past each length) and
+`ssd_scan`'s (against its plain version at the smoke shapes, 1e-4 in f32
+and 5e-2 in bf16 as in tests/test_kernels.py).  JAX is imported only
 by the cases that need it, so the ``gpu`` cases also run where the card
 is and JAX is not:
 
@@ -21,6 +24,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import decode_attention as attn_mod  # noqa: E402
 from repro_torch.kernels import fc_gemv as fc_mod  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as paged_mod  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -251,3 +255,79 @@ def test_paged_kernel_never_reads_table_entries_past_the_length(cuda, t):
                                            q_rows=t)
     torch.cuda.synchronize()
     assert torch.equal(got, base)
+
+
+def _ssd_on_card(cuda, b, nh, l, hp, n, x_dtype, bc_dtype, seed,
+                 slow=False):
+    """dtx, lt, B, C and an initial state on the card.  Decays as
+    tests/test_kernels.py makes them (A in [-7.4, -1]), or with `slow` the
+    model's init laws (dt ~ logU[1e-3, 0.1], A in [-16, -1]), under which
+    the state carries across chunks."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dtx = (0.5 * torch.randn(b, nh, l, hp, generator=gen,
+                             device=cuda)).to(x_dtype)
+    if slow:
+        u = torch.rand(b, nh, l, generator=gen, device=cuda)
+        dt = torch.exp(np.log(1e-3) + (np.log(0.1) - np.log(1e-3)) * u)
+        A = -(1.0 + 15.0 * torch.rand(nh, generator=gen, device=cuda))
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, nh, l, generator=gen, device=cuda) - 1.0)
+        A = -torch.exp(2.0 * torch.rand(nh, generator=gen, device=cuda))
+    lt = (dt * A[None, :, None]).contiguous()
+    B = (0.5 * torch.randn(b, l, n, generator=gen, device=cuda)).to(bc_dtype)
+    C = (0.5 * torch.randn(b, l, n, generator=gen, device=cuda)).to(bc_dtype)
+    s0 = 0.5 * torch.randn(b, nh, hp, n, generator=gen, device=cuda)
+    return dtx, lt, B, C, s0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes,tol", [
+    (("float32", "float32", "float32"), 1e-4),
+    (("float32", "bfloat16", "bfloat16"), 5e-2),    # the bf16 model's mix
+    (("bfloat16", "bfloat16", "bfloat16"), 5e-2)])
+@pytest.mark.parametrize("l,chunk", [(64, 32), (96, 32), (20, 32)])
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("slow", [False, True])
+def test_ssd_scan_kernel_matches_plain(cuda, l, chunk, init, slow, dtypes,
+                                       tol):
+    """The smoke shapes (hp=32, n=16): two and three chunks, and one chunk
+    shorter than the chunk size; y and the final state."""
+    x_dt, bc_dt, y_dt = (getattr(torch, d) for d in dtypes)
+    dtx, lt, B, C, s0 = _ssd_on_card(cuda, 2, 4, l, 32, 16, x_dt, bc_dt,
+                                     l + chunk, slow)
+    kw = dict(chunk=chunk, init_state=s0 if init else None, out_dtype=y_dt)
+    before = ssd_mod.LAUNCHES
+    y, state = ssd_mod.ssd_scan(dtx, lt, B, C, **kw)
+    torch.cuda.synchronize()
+    assert ssd_mod.LAUNCHES == before + 1
+    want_y, want_state = ssd_mod.ssd_scan_ref(dtx, lt, B, C, **kw)
+    assert y.dtype == y_dt and bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state, want_state, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_rejects_unbuilt_shapes(cuda):
+    dtx, lt, B, C, _ = _ssd_on_card(cuda, 1, 2, 32, 48, 16, torch.float32,
+                                    torch.float32, 0)
+    with pytest.raises(ValueError, match="built for"):
+        ssd_mod.ssd_scan(dtx, lt, B, C, chunk=32)
+
+
+@pytest.mark.gpu
+def test_ssd_scan_kernel_raises_on_a_chunk_past_shared_memory(cuda):
+    """The launcher sizes the block's shared memory from (hp, n, cs); a
+    chunk whose cumsum no longer fits is refused as a launch error, and
+    nothing is counted."""
+    dtx, lt, B, C, _ = _ssd_on_card(cuda, 1, 1, 65536, 64, 128,
+                                    torch.float32, torch.float32, 0)
+    before = ssd_mod.LAUNCHES
+    with pytest.raises(RuntimeError, match="ssd_scan launch failed"):
+        ssd_mod.ssd_scan(dtx, lt, B, C, chunk=65536)
+    assert ssd_mod.LAUNCHES == before
+    # the refused size leaves no error behind for the next launch
+    y, _ = ssd_mod.ssd_scan(dtx[..., :512, :], lt[..., :512].contiguous(),
+                            B[:, :512], C[:, :512], chunk=256)
+    torch.cuda.synchronize()
+    assert ssd_mod.LAUNCHES == before + 1 and bool(torch.isfinite(y).all())

@@ -1,0 +1,150 @@
+"""The port's serving engine on the SSM families against
+`repro.serving.PapiEngine`.
+
+The mamba2-1.3b and zamba2-1.2b smoke twins (f32; d_state 16, head_dim 32,
+chunk 32), the same weights through `params_from_jax`, the same requests:
+greedy token streams and per-iteration FC variants must be identical.
+The prefill window of 64 tokens gives two 32-row scan chunks per
+admission wave; alpha=2 on 4 slots crosses pu -> pim as RLP decays; a
+prompt longer than the window is rejected in both packages (SSM state has
+no sequence dim to mask, so there are no chunk waves).  zamba2 runs with
+``attn_pim`` off and on.
+
+The last tests record a fault that both packages share: a prompt shorter
+than the prefill window pushes the window's zero padding through the conv
+and the SSM recurrence, so decode starts from a state that differs from
+the one the prompt alone gives.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro import models as jm  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.serving import PapiEngine as JaxEngine  # noqa: E402
+from repro.serving import ServeRequest as JaxRequest  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.models import (decode_step, init_cache,  # noqa: E402
+                                params_from_jax, prefill_to_slots)
+from repro_torch.serving import PapiEngine, ServeRequest  # noqa: E402
+
+ENGINE = dict(max_slots=4, cache_capacity=128, prefill_len=64, alpha=2.0,
+              eos_token=1)
+ARCHES = ("mamba2-1.3b", "zamba2-1.2b")
+
+
+@pytest.fixture(scope="module")
+def models():
+    out = {}
+    for arch in ARCHES:
+        jcfg = jax_config(arch).reduced()
+        jparams = jax.jit(jm.init_params, static_argnums=0)(
+            jcfg, jax.random.PRNGKey(0))
+        cfg = get_config(arch + "-smoke")
+        params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
+                                 "cpu")
+        out[arch] = (jcfg, jparams, cfg, params)
+    return out
+
+
+def _requests():
+    """Ragged prompts up to the 64-token window (a full window, one 2-token
+    prompt) and one of 70 tokens that both engines reject; staggered
+    budgets, so RLP decays from 4."""
+    rng = np.random.default_rng(0)
+    lens = [5, 64, 17, 70, 33, 2, 48]
+    return [(i, rng.integers(3, 256, size=n).tolist(), 3 + 2 * i)
+            for i, n in enumerate(lens)]
+
+
+def _streams(results):
+    return {r.req_id: (r.tokens, r.finished_reason) for r in results}
+
+
+@pytest.mark.parametrize("arch,attn_pim", [("mamba2-1.3b", False),
+                                           ("zamba2-1.2b", False),
+                                           ("zamba2-1.2b", True)])
+def test_streams_match_reference_engine(models, arch, attn_pim):
+    jcfg, jparams, cfg, params = models[arch]
+    ref = JaxEngine(jcfg, jparams, attn_pim=attn_pim, **ENGINE)
+    eng = PapiEngine(cfg, params, attn_pim=attn_pim, device="cpu", **ENGINE)
+    for i, prompt, budget in _requests():
+        ref.submit(JaxRequest(i, prompt, budget))
+        eng.submit(ServeRequest(i, prompt, budget))
+    want = _streams(ref.run(max_iterations=200))
+    got = _streams(eng.run(max_iterations=200))
+    assert got == want
+    assert got[3] == ([], "rejected")            # 70 > prefill_len
+    assert all(reason in ("eos", "length") for i, (_, reason) in got.items()
+               if i != 3)
+    assert [s.fc_variant for s in eng.stats] == [
+        s.fc_variant for s in ref.stats]
+    assert {"pu", "pim"} <= {s.fc_variant for s in eng.stats}
+    steady = [s for s in eng.stats if s.admitted == 0]
+    assert steady and all(s.transfers == 1 for s in steady)
+
+
+def test_launcher_serves_ssm_families_on_cpu(capsys):
+    for arch in ARCHES:
+        serve_cli.main(["--arch", arch + "-smoke", "--device", "cpu",
+                        "--requests", "4", "--capacity", "128",
+                        "--prefill-len", "32", "--max-prompt", "40",
+                        "--attn-pim"])
+        out = capsys.readouterr().out
+        assert "completed 4 requests" in out and "fc_path" in out
+    with pytest.raises(ValueError, match="no sequence dim to page"):
+        serve_cli.main(["--arch", "mamba2-1.3b-smoke", "--device", "cpu",
+                        "--kv", "paged"])
+
+
+def _first_decode_logits(cfg, params, prompt, window):
+    """Admit `prompt` alone in a prefill window of `window` tokens and
+    return the logits of the first decode step."""
+    toks = np.zeros((1, window), np.int32)
+    toks[0, :len(prompt)] = prompt
+    cache = init_cache(cfg, 1, 32, "cpu")
+    first, cache = prefill_to_slots(
+        cfg, params, {"tokens": torch.from_numpy(toks),
+                      "prompt_lens": torch.tensor([len(prompt)],
+                                                  dtype=torch.int32)},
+        cache, torch.zeros(1, dtype=torch.int32))
+    logits, _ = decode_step(cfg, params, cache, first[:, None])
+    return first, logits[0, 0]
+
+
+@pytest.mark.xfail(strict=True, reason="padding reaches the SSM state in "
+                   "both packages (ROADMAP queue 3)")
+@pytest.mark.parametrize("arch", ARCHES)
+def test_padded_window_leaves_decode_state_unchanged(models, arch):
+    """A 5-token prompt in an 8-token window must decode as the same
+    prompt in a window of its own length."""
+    _, _, cfg, params = models[arch]
+    prompt = np.random.default_rng(12).integers(3, 256, size=5).tolist()
+    first_pad, padded = _first_decode_logits(cfg, params, prompt, 8)
+    first, alone = _first_decode_logits(cfg, params, prompt, 5)
+    assert torch.equal(first_pad, first)
+    torch.testing.assert_close(padded, alone, rtol=1e-4, atol=1e-4)
+
+
+def test_padded_window_fault_matches_reference(models):
+    """The fault is the reference's: the port's padded first-decode logits
+    equal the JAX package's (so parity holds, fault and all)."""
+    for arch in ARCHES:
+        jcfg, jparams, cfg, params = models[arch]
+        prompt = np.random.default_rng(12).integers(3, 256, size=5).tolist()
+        toks = np.zeros((1, 8), np.int32)
+        toks[0, :5] = prompt
+        jfirst, jc = jax.jit(jm.prefill_to_slots, static_argnums=0)(
+            jcfg, jparams, {"tokens": jnp.asarray(toks),
+                            "prompt_lens": jnp.asarray([5], jnp.int32)},
+            jm.init_cache(jcfg, 1, 32), jnp.zeros(1, jnp.int32))
+        jl, _ = jax.jit(jm.decode_step, static_argnums=0)(
+            jcfg, jparams, jc, jfirst[:, None])
+        first, logits = _first_decode_logits(cfg, params, prompt, 8)
+        assert int(first[0]) == int(jfirst[0])
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jl[0, 0]),
+                                   rtol=1e-4, atol=1e-4)
