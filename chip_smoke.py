@@ -13,10 +13,15 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      yardstick (torch.matmul / scaled_dot_product_attention, timed only)
      and the memory/compute bound: fc_gemv at qwen2-0.5b's and zamba2-1.2b's
      shared-block widths, decode_attention at qwen2's GQA (g=7) and
-     zamba2's MHA (g=1, nkv=32); 3c: the paged kernel over a shuffled
-     page pool (page 16 and 32), also bit-equal to the dense kernel on the
-     same contents, blind to table entries past each length, zeros for
-     lens == 0; 3d: ssd_scan at mamba2-1.3b's and zamba2-1.2b's shapes
+     zamba2's MHA (g=1, nkv=32), and at lens on the tile and split edges
+     of its split-S plan (0, 1, a tile -1/0/+1, NS tiles -1/0/+1, 2048, and
+     at t=64 a window whose last split is masked for the early rows);
+     each time is printed with the call's split count NS and its CUDA
+     launches (split pass, plus the merge when NS > 1); 3c: the paged
+     kernel over a shuffled page pool (page 16 and 32), also bit-equal to
+     the dense kernel on the same contents, blind to table entries past
+     each length, zeros for lens == 0, and at the split-edge lens over
+     pages of 7, 16 and 32; 3d: ssd_scan at mamba2-1.3b's and zamba2-1.2b's shapes
      (two chunks), at one chunk and three, from a zero and a random initial
      state, y and final state (1e-4 in f32, 5e-2 in bf16);
   4. serve 8 requests with full-width bf16 qwen2-0.5b (24 layers, random
@@ -37,7 +42,8 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      requests: ssd_scan 38 per wave, fc_gemv and decode_attention launched,
      both FC variants run;
   5. trace five steady iterations per KV layout and FC variant with
-     torch.profiler (device busy share, top kernels); 5b: one admission
+     torch.profiler (device busy share, top kernels, Attn-PIM's device
+     time and CUDA launches per iteration); 5b: one admission
      wave of each SSM model (busy share, ssd_scan's share);
   6. parity at full width, 2 layers, f32: one decode step's logits with the
      kernels (pim FC + Attn-PIM) against the plain path (pu + plain
@@ -256,6 +262,29 @@ ATTN_CASES = [
 ]
 
 
+def plan_note(b, nkv, rows) -> str:
+    """The split plan of an Attn-PIM call, for the lines that time it."""
+    ns = attn_mod.num_splits(b, nkv, rows, attn_mod.sm_count(DEV))
+    return (f"NS={ns}, {attn_mod.cuda_launches(ns)} CUDA launch"
+            f"{'es' if ns > 1 else ''} per call")
+
+
+def split_edge_lens(t, b=10, S=2048) -> list[int]:
+    """Lens on the tile and split edges of the split-S plan of a
+    qwen2-geometry call (b requests, t*7 rows): 0, 1, a tile -1/0/+1, NS
+    tiles -1/0/+1 (one tile per split), 2048 = S; at t > 1 the last one is
+    a length whose last split lies past the window's row-0 limit."""
+    ns = attn_mod.num_splits(b, 2, t * 7, attn_mod.sm_count(DEV))
+    lens = [0, 1, 31, 32, 33, ns * 32 - 1, ns * 32, ns * 32 + 1, S, S]
+    if t > 1:
+        for n in range(ns * 32 + 1, S + 1):
+            nkb = -(-n // 32)
+            if (ns - 1) * nkb // ns * 32 >= n - (t - 1):
+                lens[-1] = n
+                break
+    return lens[:b]
+
+
 def phase_decode_attention() -> dict:
     gen = torch.Generator(device=DEV).manual_seed(2)
     worst = 0.0
@@ -276,6 +305,21 @@ def phase_decode_attention() -> dict:
         *(_attn_inputs(gen, torch.bfloat16, 1, [0, 5, 0, 9, 1, 2, 3, 4])))
     check(bool((zero[0] == 0).all() and (zero[2] == 0).all()),
           "decode_attention lens == 0 returns zeros")
+    for dtype in (torch.float32, torch.bfloat16):
+        for t in (1, 64):
+            lens = split_edge_lens(t)
+            q, k, v, ln = _attn_inputs(gen, dtype, t, lens, b=len(lens))
+            got = attn_mod.decode_attention(q, k, v, ln, q_rows=t)
+            again = attn_mod.decode_attention(q, k, v, ln, q_rows=t)
+            torch.cuda.synchronize()
+            err, ok, tol = max_err(
+                got, attn_mod.decode_attention_ref(q, k, v, ln, t))
+            check(ok and bool(torch.isfinite(got).all())
+                  and bool((got[0] == 0).all()) and torch.equal(got, again),
+                  f"decode_attention {str(dtype)[6:]} split edges t={t} "
+                  f"({plan_note(len(lens), 2, 7 * t)}) lens={lens}: "
+                  f"max_abs_err {err:.3e} (tol {tol}), lens 0 -> zeros, "
+                  "two calls bit-equal")
     result = {"max_abs_err": worst}
     for arch, t, lens, geo in ATTN_CASES:
         sets = [_attn_inputs(gen, torch.bfloat16, t, lens, **geo)
@@ -292,7 +336,8 @@ def phase_decode_attention() -> dict:
         flops = 4 * sum(lens) * nkv * t * g * 64        # qk and pv
         b_ms, b_by = bound(kv_bytes + io_bytes, flops, torch.bfloat16)
         print(f"      decode_attention bf16 {arch} t={t} b=8 nkv={nkv} g={g} "
-              f"S={geo['S']}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"S={geo['S']}: kernel {k_ms:.4f} ms "
+              f"({plan_note(8, nkv, t * g)}), plain {p_ms:.4f} ms, "
               f"sdpa {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
         if arch == "qwen2-0.5b" and t == 1:
             result.update(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
@@ -366,6 +411,39 @@ def phase_paged_attention() -> dict:
                       f"{name}: bit-equal to the dense kernel")
                 check(all(torch.equal(got, x) for x in blind),
                       f"{name}: table entries past each length never read")
+    for dtype in (torch.float32, torch.bfloat16):
+        for page in (7, 16, 32):
+            for t in (1, 64):
+                lens = split_edge_lens(t)
+                b = len(lens)
+                kp, vp, clean, dirty = _paged_pool(gen, dtype, lens, page, b=b)
+                q = torch.randn(b, 2, t * 7, 64, generator=gen,
+                                device=DEV).to(dtype)
+                ln = torch.tensor(lens, dtype=torch.int32, device=DEV)
+                got = paged_mod.paged_decode_attention(q, kp, vp, ln, clean,
+                                                       q_rows=t)
+                torch.cuda.synchronize()
+                err, ok, tol = max_err(got, paged_mod.paged_decode_attention_ref(
+                    q, kp, vp, ln, clean, t))
+                blocks = clean[:, :-(-2048 // page)]      # the dense layout
+                dense = attn_mod.decode_attention(
+                    q, paged_mod.gather_kv_pages(kp, blocks).contiguous(),
+                    paged_mod.gather_kv_pages(vp, blocks).contiguous(), ln,
+                    q_rows=t)
+                kp[0] = float("nan")                      # poison page 0
+                vp[0] = float("nan")
+                blind = [paged_mod.paged_decode_attention(
+                    q, kp, vp, ln, tab, q_rows=t) for tab in (clean, dirty)]
+                torch.cuda.synchronize()
+                check(ok and bool(torch.isfinite(got).all())
+                      and bool((got[0] == 0).all()) and torch.equal(got, dense)
+                      and all(torch.equal(got, x) for x in blind),
+                      f"paged_decode_attention {str(dtype)[6:]} split edges "
+                      f"page={page} t={t} ({plan_note(b, 2, 7 * t)}) "
+                      f"lens={lens}: max_abs_err {err:.3e} (tol {tol}), "
+                      "bit-equal to the dense kernel, table entries past "
+                      "each length never read, lens 0 -> zeros")
+                del kp, vp, clean, dirty
     kp, vp, clean, _ = _paged_pool(gen, torch.bfloat16, [0, 5, 0, 9, 1, 2,
                                                          3, 4], 16)
     q = torch.randn(8, 2, 7, 64, generator=gen, device=DEV).to(torch.bfloat16)
@@ -405,8 +483,8 @@ def phase_paged_attention() -> dict:
         b_ms, b_by = bound(kv_bytes + io_bytes + table_bytes, flops,
                            torch.bfloat16)
         print(f"      paged_decode_attention bf16 t={t} b=8 page=16 "
-              f"num_pages=1025 max_blocks=1024: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, sdpa over pre-gathered views (gather not "
+              f"num_pages=1025 max_blocks=1024: kernel {k_ms:.4f} ms "
+              f"({plan_note(8, 2, 7 * t)}), plain {p_ms:.4f} ms, sdpa over pre-gathered views (gather not "
               f"timed) {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
               flush=True)
         if t == 1:
@@ -693,9 +771,13 @@ def phase_trace(params) -> None:
                   "(not measured)", flush=True)
             continue
         top = sorted(kern, reverse=True)[:6]
+        attn = [k for k in kern if "attn_split" in k[1]
+                or "attn_merge" in k[1]]
         print(f"      trace {layout} {variant} (ran {sorted(ran)}): 5 steady "
               f"iterations {wall_us / 5e3:.2f} ms each, device busy "
-              f"{busy / 5e3:.2f} ms each ({busy / wall_us:.1%}); top: "
+              f"{busy / 5e3:.2f} ms each ({busy / wall_us:.1%}); Attn-PIM "
+              f"{sum(k[0] for k in attn) / 5e3:.4f} ms in "
+              f"{sum(k[2] for k in attn) // 5} CUDA launches each; top: "
               + "; ".join(f"{name[:40]} {dev / 5e3:.3f} ms x{cnt // 5}"
                           for dev, name, cnt in top), flush=True)
 

@@ -7,15 +7,28 @@ counting ALL t window tokens.  Window row r sits at absolute position
 ``lens - t + r`` and sees KV position j iff ``j < lens - (t - 1) + r``.
 
 `decode_attention` launches the hand-written CUDA kernel
-(``csrc/decode_attention.cu``) for tensors on the card and uses the plain
-PyTorch version `decode_attention_ref` for tensors on the CPU.  Both return
-zeros for a request with ``lens == 0`` (the reference's softmax oracle
-would give NaN there; the engine never produces it — idle slots are parked
-at pos = 1).  `LAUNCHES` counts kernel launches only.
+(``csrc/decode_attention.cu``, body in ``csrc/decode_attention.cuh``) for
+tensors on the card and uses the plain PyTorch version
+`decode_attention_ref` for tensors on the CPU.  Both return zeros for a
+request with ``lens == 0`` (the reference's softmax oracle would give NaN
+there; the engine never produces it — idle slots are parked at pos = 1).
+
+The kernel is split-S (flash-decoding): each (request, KV head, row tile)
+is cut into `num_splits` contiguous ranges of KV tiles, one block each,
+whose f32 partials a second kernel merges in split order.  bf16 runs on
+tensor cores in 16-row tiles, f32 on CUDA cores in row tiles fitted to the
+rows (`row_tile`).  `num_splits` picks the split count from the shapes and
+the card's SM count alone — never from ``lens`` (that would cost a
+device->host copy) nor from the KV capacity nor the dtype (so the dense and
+the paged kernel split alike and stay bit-equal).  `LAUNCHES` counts calls
+that ran the kernel, one per call: a call with more than one split issues
+two CUDA launches (the split pass and the merge), one with a single split
+issues one (`cuda_launches`).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -25,6 +38,16 @@ from repro_torch.kernels import _build
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 NEG_INF = -1e30
+# the split planner's constants (tuned on an H100 SXM, PERF.md): query rows
+# per f32 block, the least splits (so a chunk wave, already hundreds of
+# blocks, still cuts a long request's chain), the most, the block waves
+# aimed at (SPLITS_MAX is at most the kernel's 32: one merge lane each),
+# and the f32 partials a call may take, sized for the widest head
+ROW_TILES = (4, 8, 16)
+SPLITS_MIN = 4
+SPLITS_MAX = 32
+WAVES = 2
+SCRATCH_CAP = 64 * 2 ** 20
 
 LAUNCHES = 0
 _fn = None
@@ -51,11 +74,58 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype)
 
 
+def row_tile(rows: int, dtype: torch.dtype) -> int:
+    """Query rows per block: 16 for bf16 (the tensor-core mma's M); for f32
+    the smallest of `ROW_TILES` that holds `rows` (a t = 1 decode: g rows),
+    else the largest (a chunk wave's t*g rows over several blocks)."""
+    if dtype == torch.bfloat16:
+        return ROW_TILES[-1]
+    return next((t for t in ROW_TILES if rows <= t), ROW_TILES[-1])
+
+
+def num_splits(b: int, nkv: int, rows: int, sms: int) -> int:
+    """KV splits per (request, KV head, row tile): enough blocks for `WAVES`
+    waves over `sms` SMs, at least `SPLITS_MIN`, at most `SPLITS_MAX`, and
+    no more than `SCRATCH_CAP` bytes of partials at the widest head dim.
+    Blocks are counted in 16-row tiles: a smaller f32 tile only occurs where
+    one tile holds all the rows, so the count holds for either dtype."""
+    blocks = b * nkv * -(-rows // ROW_TILES[-1])
+    ns = max(SPLITS_MIN, -(-WAVES * sms // blocks))
+    cap = SCRATCH_CAP // (b * nkv * rows * (max(HEAD_DIMS) + 2) * 4)
+    return max(1, min(ns, SPLITS_MAX, cap))
+
+
+def cuda_launches(ns: int) -> int:
+    """CUDA launches of one call with `ns` splits (split pass + merge)."""
+    return 1 if ns == 1 else 2
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device (cached: no device work)."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
+
+
+def split_scratch(q: torch.Tensor, ns: int) -> torch.Tensor | None:
+    """The f32 partials of `ns` splits (acc, then m, then l), or None for
+    one split; allocated per call through PyTorch's caching allocator."""
+    if ns == 1:
+        return None
+    b, nkv, tg, hd = q.shape
+    return torch.empty(b * nkv * ns * tg * (hd + 2), dtype=torch.float32,
+                       device=q.device)
+
+
 def _launch_fn():
     global _fn
     if _fn is None:
         fn = _build.load("decode_attention").decode_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -97,10 +167,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("decode_attention needs contiguous inputs")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("K/V must be 16-byte aligned (vector loads)")
+    ns = num_splits(b, nkv, tg, sm_count(q.device))
+    part = split_scratch(q, ns)
     out = torch.empty_like(q)
     err = _launch_fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                       lens.data_ptr(), out.data_ptr(), b, nkv, tg, hd,
-                       k_cache.shape[1], q_rows, DTYPES[q.dtype],
+                       lens.data_ptr(), out.data_ptr(),
+                       None if part is None else part.data_ptr(), b, nkv, tg,
+                       hd, k_cache.shape[1], q_rows, row_tile(tg, q.dtype),
+                       ns, DTYPES[q.dtype],
                        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention")
     LAUNCHES += 1

@@ -8,12 +8,16 @@ int32 mapping logical block ``j // page_size`` of request i to its physical
 page.  The masking is the dense kernel's (`kernels.decode_attention`).
 
 `paged_decode_attention` launches the hand-written CUDA kernel
-(``csrc/paged_decode_attention.cu``, which shares its body with the dense
-kernel through ``csrc/decode_attention.cuh``) for tensors on the card and
-uses the plain PyTorch version `paged_decode_attention_ref` for tensors on
-the CPU.  Table entries past a request's length may name any page (the
-engine points them at the garbage page 0): the kernel never reads them and
-the plain version masks them.  `LAUNCHES` counts kernel launches only.
+(``csrc/paged_decode_attention.cu``, which shares its split-S body with the
+dense kernel through ``csrc/decode_attention.cuh``) for tensors on the card
+and uses the plain PyTorch version `paged_decode_attention_ref` for tensors
+on the CPU.  The row tile and the split count come from the dense module's
+`row_tile` and `num_splits`, on the shapes alone, so the paged and the
+dense kernel split at the same tiles and agree bit for bit.  Table entries past a request's
+length may name any page (the engine points them at the garbage page 0):
+the kernel never reads them and the plain version masks them.  `LAUNCHES`
+counts calls that ran the kernel, one per call; a call with more than one
+split issues two CUDA launches (the split pass and the merge).
 """
 from __future__ import annotations
 
@@ -23,7 +27,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (DTYPES, HEAD_DIMS,
-                                                  decode_attention_ref)
+                                                  decode_attention_ref,
+                                                  num_splits, row_tile,
+                                                  sm_count, split_scratch)
 
 LAUNCHES = 0
 _fn = None
@@ -51,7 +57,7 @@ def _launch_fn():
     global _fn
     if _fn is None:
         fn = _build.load("paged_decode_attention").paged_decode_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
@@ -103,11 +109,14 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_decode_attention needs contiguous inputs")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("K/V pages must be 16-byte aligned (vector loads)")
+    ns = num_splits(b, nkv, tg, sm_count(q.device))
+    part = split_scratch(q, ns)
     out = torch.empty_like(q)
     err = _launch_fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                        lens.data_ptr(), tables.data_ptr(), out.data_ptr(),
-                       b, nkv, tg, hd, k_pages.shape[1], tables.shape[1],
-                       q_rows, DTYPES[q.dtype],
+                       None if part is None else part.data_ptr(), b, nkv, tg,
+                       hd, k_pages.shape[1], tables.shape[1], q_rows,
+                       row_tile(tg, q.dtype), ns, DTYPES[q.dtype],
                        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention")
     LAUNCHES += 1

@@ -8,14 +8,20 @@ the Pallas paged kernel in tests/test_torch_paged.py, and `ssd_scan_ref`
 against the Pallas `ssd_scan` in tests/test_torch_ssm.py).  The CUDA
 kernels themselves need the card: those cases are marked ``gpu`` and skip
 here, the paged kernel's among them (against its plain version, bit-equal
-to the dense kernel, blind to table entries past each length) and
+to the dense kernel, blind to table entries past each length), the
+split-S cases of both attention kernels (lens at tile and split edges, a
+2048-token request, one split, windows whose last split is masked for the
+early rows, g = 1 at every head dim, two calls bit-equal) and
 `ssd_scan`'s (against its plain version at the smoke shapes, 1e-4 in f32
-and 5e-2 in bf16 as in tests/test_kernels.py).  JAX is imported only
+and 5e-2 in bf16 as in tests/test_kernels.py).  The attention kernels'
+split planner is pure Python and is held here on the CPU.  JAX is imported only
 by the cases that need it, so the ``gpu`` cases also run where the card
 is and JAX is not:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels.py
 """
+import inspect
+
 import numpy as np
 import pytest
 
@@ -148,6 +154,89 @@ def test_decode_attention_masks_past_the_window_row():
 
 
 # ---------------------------------------------------------------------------
+# the attention kernels' split planner (shapes only, so it runs here)
+# ---------------------------------------------------------------------------
+
+def test_split_planner_takes_shapes_only():
+    """NS may not depend on lens (a device->host copy) nor on the KV
+    capacity (dense and paged would split apart): the planner's inputs are
+    the shapes and the SM count, and both wrappers take the same plan."""
+    assert list(inspect.signature(attn_mod.num_splits).parameters) == [
+        "b", "nkv", "rows", "sms"]
+    for name in ("num_splits", "row_tile", "sm_count", "split_scratch"):
+        assert getattr(paged_mod, name) is getattr(attn_mod, name)
+
+
+@pytest.mark.parametrize("rows,tile", [(1, 4), (4, 4), (5, 8), (7, 8),
+                                       (8, 8), (9, 16), (16, 16), (448, 16)])
+def test_row_tile_fits_the_rows(rows, tile):
+    """f32 (CUDA cores) fits the tile to the rows; bf16 (tensor cores)
+    always takes the mma's 16 rows."""
+    assert attn_mod.row_tile(rows, torch.float32) == tile
+    assert attn_mod.row_tile(rows, torch.bfloat16) == 16
+
+
+@pytest.mark.parametrize("b,nkv,rows,sms,want", [
+    (8, 2, 7, 132, 17),        # qwen2-0.5b decode, t=1, g=7
+    (8, 2, 448, 132, 4),       # qwen2-0.5b chunk wave, t=64: the floor
+    (8, 32, 1, 132, 4),        # zamba2-1.2b shared block, g=1
+    (1, 1, 1, 132, 32),        # one row of one request: the ceiling
+    (64, 32, 448, 132, 1),     # the scratch cap leaves one split
+])
+def test_num_splits_at_known_shapes(b, nkv, rows, sms, want):
+    assert attn_mod.num_splits(b, nkv, rows, sms) == want
+
+
+@pytest.mark.parametrize("rows", [1, 7, 16, 448, 4096])
+def test_num_splits_bounds(rows):
+    """Over batches, KV heads and SM counts: 1 <= NS <= SPLITS_MAX, the
+    partials within SCRATCH_CAP, and, where the cap allows, at least
+    SPLITS_MIN splits and enough blocks for WAVES waves unless capped."""
+    for b in (1, 3, 8, 64):
+        for nkv in (1, 2, 32):
+            for sms in (1, 114, 132):
+                ns = attn_mod.num_splits(b, nkv, rows, sms)
+                per_split = b * nkv * rows * (max(attn_mod.HEAD_DIMS) + 2) * 4
+                capped = attn_mod.SCRATCH_CAP // per_split
+                assert 1 <= ns <= attn_mod.SPLITS_MAX
+                assert ns == 1 or ns * per_split <= attn_mod.SCRATCH_CAP
+                if capped >= attn_mod.SPLITS_MIN:
+                    assert ns >= attn_mod.SPLITS_MIN
+                    blocks = b * nkv * -(-rows // 16)
+                    assert (ns == min(attn_mod.SPLITS_MAX, capped)
+                            or blocks * ns >= attn_mod.WAVES * sms)
+                assert attn_mod.cuda_launches(ns) == (1 if ns == 1 else 2)
+
+
+def test_split_scratch_holds_acc_m_and_l():
+    q = torch.zeros(8, 2, 7, 64)
+    assert attn_mod.split_scratch(q, 1) is None
+    part = attn_mod.split_scratch(q, 17)
+    assert part.dtype == torch.float32 and part.numel() == 8 * 2 * 17 * 7 * 66
+
+
+def test_attention_cpu_path_takes_plain_versions_without_planning(
+        monkeypatch):
+    """A 2048-token request, where the card would split: on the CPU both
+    wrappers take their plain versions, ask nothing of the card (the SM
+    count would need one) and count no launch."""
+    def no_card(index):
+        raise AssertionError("the CPU path asked for the SM count")
+    monkeypatch.setattr(attn_mod, "_sm_count", no_card)
+    q, k, v, ln = _attn_inputs(4, 3, 2, 7, 64, 2048, 1, [2048, 1, 33])
+    args = [torch.from_numpy(a) for a in (q, k, v, ln)]
+    tables = torch.arange(3 * 128, dtype=torch.int32).reshape(3, 128)
+    pages = [a.reshape(3 * 128, 16, 2, 64) for a in args[1:3]]
+    dense, paged = attn_mod.LAUNCHES, paged_mod.LAUNCHES
+    got = attn_mod.decode_attention(*args)
+    got_p = paged_mod.paged_decode_attention(args[0], *pages, args[3], tables)
+    assert (attn_mod.LAUNCHES, paged_mod.LAUNCHES) == (dense, paged)
+    assert torch.equal(got, attn_mod.decode_attention_ref(*args))
+    assert torch.equal(got_p, paged_mod.paged_decode_attention_ref(
+        args[0], *pages, args[3], tables))
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels (card only)
 # ---------------------------------------------------------------------------
 
@@ -255,6 +344,215 @@ def test_paged_kernel_never_reads_table_entries_past_the_length(cuda, t):
                                            q_rows=t)
     torch.cuda.synchronize()
     assert torch.equal(got, base)
+
+
+def _edge_lens(ns, S, b):
+    """Lens at tile and split edges for a call with `ns` splits: 0, 1,
+    a tile -1/0/+1, ns tiles -1/0/+1 (one tile per split, and one split
+    longer by a tile), a 2048-token request (S >= 2048) and the capacity.
+    Below t, a window's early rows see no position at all (zeros)."""
+    tile = 32
+    lens = [0, 1, tile - 1, tile, tile + 1, ns * tile - 1, ns * tile,
+            ns * tile + 1, min(2048, S), S]
+    return [min(n, S) for n in lens][:b]
+
+
+def _masked_last_split_len(ns, t, S):
+    """A length whose last split starts at or past the window's row 0 limit
+    (len - (t - 1)), so the early rows see nothing in that split; longer
+    than ns tiles, so every split holds one."""
+    for n in range(ns * 32 + 1, S + 1):
+        nkb = -(-n // 32)
+        first = (ns - 1) * nkb // ns * 32
+        if (ns - 1) * nkb // ns < nkb and first >= n - (t - 1):
+            return n
+    raise AssertionError("no such length")
+
+
+def _dense_on_card(cuda, dtype, t, lens, seed, nkv=2, g=7, hd=64, S=2048):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    b = len(lens)
+    q = torch.randn(b, nkv, t * g, hd, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(b, S, nkv, hd, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(b, S, nkv, hd, generator=gen, device=cuda).to(dtype)
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=cuda)
+
+
+def _to_pages(k, v, page, gen_seed, cuda):
+    """The dense slab [b, S, nkv, hd] laid out on shuffled pages (S a
+    multiple of `page`), page 0 left as the garbage page."""
+    b, S, nkv, hd = k.shape
+    nblk = S // page
+    gen = torch.Generator(device=cuda).manual_seed(gen_seed)
+    perm = torch.randperm(b * nblk, generator=gen, device=cuda) + 1
+    tables = perm.reshape(b, nblk).to(torch.int32).contiguous()
+    kp = torch.zeros(b * nblk + 1, page, nkv, hd, dtype=k.dtype, device=cuda)
+    vp = torch.zeros_like(kp)
+    kp[tables.long()] = k.reshape(b, nblk, page, nkv, hd)
+    vp[tables.long()] = v.reshape(b, nblk, page, nkv, hd)
+    return kp, vp, tables
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("t", [1, 64])
+def test_attention_kernels_at_tile_and_split_edges(cuda, t, dtype, tol):
+    """Lens at tile and split edges, a 2048-token request and the capacity
+    (S = 2048), qwen2's geometry: both kernels against the plain version,
+    paged (page 16) bit-equal to dense, lens == 0 zeros, one count each."""
+    b, S = 10, 2048
+    ns = attn_mod.num_splits(b, 2, t * 7, attn_mod.sm_count(cuda))
+    assert ns > 1
+    lens = _edge_lens(ns, S, b)
+    q, k, v, ln = _dense_on_card(cuda, getattr(torch, dtype), t, lens, t)
+    kp, vp, tables = _to_pages(k, v, 16, t, cuda)
+    before = (attn_mod.LAUNCHES, paged_mod.LAUNCHES)
+    got = attn_mod.decode_attention(q, k, v, ln, q_rows=t)
+    got_p = paged_mod.paged_decode_attention(q, kp, vp, ln, tables, q_rows=t)
+    torch.cuda.synchronize()
+    assert (attn_mod.LAUNCHES, paged_mod.LAUNCHES) == (before[0] + 1,
+                                                       before[1] + 1)
+    torch.testing.assert_close(
+        got.float(), attn_mod.decode_attention_ref(q, k, v, ln, t).float(),
+        rtol=tol, atol=tol)
+    assert torch.equal(got_p, got)
+    assert bool((got[0] == 0).all()) and bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_attention_kernels_last_split_masked_for_early_rows(cuda, dtype,
+                                                            tol):
+    """A t=64 window whose last split lies past the early rows' limit: that
+    split must carry zero weight for them (no stray p = 1 from an all-masked
+    tile), and the late rows still see it."""
+    t, S = 64, 2048
+    ns = attn_mod.num_splits(4, 2, t * 7, attn_mod.sm_count(cuda))
+    n = _masked_last_split_len(ns, t, S)
+    lens = [n, 2048, n + 32, 0]
+    q, k, v, ln = _dense_on_card(cuda, getattr(torch, dtype), t, lens, 11)
+    got = attn_mod.decode_attention(q, k, v, ln, q_rows=t)
+    kp, vp, tables = _to_pages(k, v, 32, 11, cuda)
+    got_p = paged_mod.paged_decode_attention(q, kp, vp, ln, tables, q_rows=t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got.float(), attn_mod.decode_attention_ref(q, k, v, ln, t).float(),
+        rtol=tol, atol=tol)
+    assert torch.equal(got_p, got) and bool((got[3] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("t", [1, 64])
+def test_attention_kernels_one_split(cuda, monkeypatch, t, dtype, tol):
+    """NS = 1 (the scratch cap forced to 0): the split pass writes the
+    output itself, one CUDA launch; it holds the plain version and is close
+    to the split result."""
+    lens = [1, 33, 700, 2048, 0, 64, 65, 500]
+    q, k, v, ln = _dense_on_card(cuda, getattr(torch, dtype), t,
+                                 [max(n, t) if n else 0 for n in lens], 5)
+    split = attn_mod.decode_attention(q, k, v, ln, q_rows=t)
+    monkeypatch.setattr(attn_mod, "SCRATCH_CAP", 0)
+    assert attn_mod.num_splits(8, 2, t * 7, attn_mod.sm_count(cuda)) == 1
+    assert attn_mod.split_scratch(q, 1) is None
+    one = attn_mod.decode_attention(q, k, v, ln, q_rows=t)
+    kp, vp, tables = _to_pages(k, v, 16, 5, cuda)
+    one_p = paged_mod.paged_decode_attention(q, kp, vp, ln, tables, q_rows=t)
+    torch.cuda.synchronize()
+    want = attn_mod.decode_attention_ref(q, k, v, ln, t).float()
+    torch.testing.assert_close(one.float(), want, rtol=tol, atol=tol)
+    torch.testing.assert_close(one.float(), split.float(), rtol=tol, atol=tol)
+    assert torch.equal(one_p, one) and bool((one[4] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_attention_kernels_mha_g1(cuda, hd, dtype, tol):
+    """zamba2-1.2b's shared block: g = 1, nkv = 32 (in f32 the 4-row
+    tile), at every head dim the kernels are built for."""
+    lens = [1, 12, 33, 512, 100, 300, 576, 0]
+    q, k, v, ln = _dense_on_card(cuda, getattr(torch, dtype), 1, lens, hd,
+                                 nkv=32, g=1, hd=hd, S=1024)
+    got = attn_mod.decode_attention(q, k, v, ln)
+    kp, vp, tables = _to_pages(k, v, 16, hd, cuda)
+    got_p = paged_mod.paged_decode_attention(q, kp, vp, ln, tables)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got.float(), attn_mod.decode_attention_ref(q, k, v, ln).float(),
+        rtol=tol, atol=tol)
+    assert torch.equal(got_p, got) and bool((got[7] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("t", [1, 3, 64])
+def test_attention_kernels_other_head_dims(cuda, t, hd, dtype, tol):
+    """GQA (g = 7) at head dims 32 and 128, a 2048-token request."""
+    lens = [t, 2048, 300, 33]
+    q, k, v, ln = _dense_on_card(cuda, getattr(torch, dtype), t, lens, t + hd,
+                                 hd=hd)
+    got = attn_mod.decode_attention(q, k, v, ln, q_rows=t)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got.float(), attn_mod.decode_attention_ref(q, k, v, ln, t).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 64])
+def test_attention_kernels_are_deterministic(cuda, t):
+    """The merge adds the splits in split order, without atomics: two calls
+    on the same inputs give the same bits, dense and paged."""
+    lens = [t, 2048, 1000, 513, 64, 65, 200, 7]
+    q, k, v, ln = _dense_on_card(cuda, torch.bfloat16, t,
+                                 [max(n, t) for n in lens], 21)
+    kp, vp, tables = _to_pages(k, v, 16, 21, cuda)
+    a = attn_mod.decode_attention(q, k, v, ln, q_rows=t)
+    b = attn_mod.decode_attention(q, k, v, ln, q_rows=t)
+    pa = paged_mod.paged_decode_attention(q, kp, vp, ln, tables, q_rows=t)
+    pb = paged_mod.paged_decode_attention(q, kp, vp, ln, tables, q_rows=t)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(pa, pb) and torch.equal(pa, a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [7, 16, 32])
+@pytest.mark.parametrize("t", [1, 64])
+def test_paged_kernel_split_edges_bit_equal_and_blind(cuda, t, page):
+    """Split-edge lens and a 2048-token request over pages of 7, 16 and 32
+    positions: bit-equal to the dense kernel over the gathered slab, and
+    unchanged when every table entry past a length names the NaN-poisoned
+    garbage page."""
+    b = 10
+    ns = attn_mod.num_splits(b, 2, t * 7, attn_mod.sm_count(cuda))
+    lens = _edge_lens(ns, 2048, b)
+    gen = torch.Generator(device=cuda).manual_seed(page + t)
+    nblk = -(-2048 // page)
+    kp = torch.randn(b * nblk + 1, page, 2, 64, generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    vp = torch.randn_like(kp)
+    perm = torch.randperm(b * nblk, generator=gen, device=cuda) + 1
+    tables = perm.reshape(b, nblk).to(torch.int32).contiguous()
+    q = torch.randn(b, 2, t * 7, 64, generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = paged_mod.paged_decode_attention(q, kp, vp, ln, tables, q_rows=t)
+    dense = attn_mod.decode_attention(
+        q, paged_mod.gather_kv_pages(kp, tables).contiguous(),
+        paged_mod.gather_kv_pages(vp, tables).contiguous(), ln, q_rows=t)
+    scrubbed = tables.clone()
+    for i, n in enumerate(lens):
+        scrubbed[i, -(-n // page):] = 0
+    kp[0] = float("nan")
+    vp[0] = float("nan")
+    blind = paged_mod.paged_decode_attention(q, kp, vp, ln, scrubbed,
+                                             q_rows=t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dense)
+    assert torch.equal(blind, got)
+    assert bool((got[0] == 0).all()) and bool(torch.isfinite(got).all())
 
 
 def _ssd_on_card(cuda, b, nh, l, hp, n, x_dtype, bc_dtype, seed,
