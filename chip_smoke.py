@@ -12,7 +12,13 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      |err| <= tol + tol*|ref|) and time kernel, plain version, library
      yardstick (torch.matmul / scaled_dot_product_attention, timed only)
      and the memory/compute bound: fc_gemv at qwen2-0.5b's and zamba2-1.2b's
-     shared-block widths, decode_attention at qwen2's GQA (g=7) and
+     shared-block widths and ragged ones, a weight at an odd offset (the
+     element path, bit-equal to an aligned copy), every FC group of both
+     models bit-equal to single launches and to a second run in one CUDA
+     launch, and timed as the model launches them (4 grouped calls per
+     qwen2 layer or zamba2 application, beside 7 torch.matmul calls and the
+     bound, with the planner's cluster and column tile); decode_attention
+     at qwen2's GQA (g=7) and
      zamba2's MHA (g=1, nkv=32), and at lens on the tile and split edges
      of its split-S plan (0, 1, a tile -1/0/+1, NS tiles -1/0/+1, 2048, and
      at t=64 a window whose last split is masked for the early rows);
@@ -27,7 +33,8 @@ Phases (any failed check makes the script exit non-zero, after all ran):
   4. serve 8 requests with full-width bf16 qwen2-0.5b (24 layers, random
      seeded weights) through `PapiEngine(attn_pim=True)`: every request
      must finish, both FC variants must run, both kernels must launch
-     during `run()`, steady iterations must take one host transfer;
+     during `run()` (fc_gemv 4 times per layer of each pim step), steady
+     iterations must take one host transfer;
      4b: the same 8 requests through `PapiEngine(kv_layout="paged")`: the
      same token streams, both FC variants, the paged kernel launched and
      the dense attention kernel not, one transfer per steady iteration,
@@ -39,11 +46,12 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      in a 512-token window and rejects a 600-token one: ssd_scan launched
      48 times per admission wave, no FC or attention kernel;
      4e: full-width bf16 zamba2-1.2b (38 layers, attn_pim) on the same
-     requests: ssd_scan 38 per wave, fc_gemv and decode_attention launched,
-     both FC variants run;
+     requests: ssd_scan 38 per wave, fc_gemv (4 per shared-block
+     application of each pim step) and decode_attention launched, both FC
+     variants run;
   5. trace five steady iterations per KV layout and FC variant with
-     torch.profiler (device busy share, top kernels, Attn-PIM's device
-     time and CUDA launches per iteration); 5b: one admission
+     torch.profiler (device busy share, top kernels, FC-PIM's and
+     Attn-PIM's device time and CUDA launches per iteration); 5b: one admission
      wave of each SSM model (busy share, ssd_scan's share);
   6. parity at full width, 2 layers, f32: one decode step's logits with the
      kernels (pim FC + Attn-PIM) against the plain path (pu + plain
@@ -95,11 +103,13 @@ DEV = torch.device("cuda")
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the JAX package's own SSD tolerances (tests/test_kernels.py)
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
-# (K, N) of qwen2-0.5b's FC weights and their count per layer
-FC_SHAPES = {(896, 896): 2, (896, 128): 2, (896, 4864): 2, (4864, 896): 1}
-# (K, N) of zamba2-1.2b's shared attention+MLP block and their count per
-# application: q/k/v/o, gate/up, down
-ZAMBA_FC_SHAPES = {(2048, 2048): 4, (2048, 8192): 2, (8192, 2048): 1}
+# the FC groups of one qwen2-0.5b layer and of one zamba2-1.2b shared-block
+# application, as the model launches them under "pim": (K, [N of each
+# weight]) for q/k/v, o, gate/up and down
+FC_GROUPS = [(896, [896, 128, 128]), (896, [896]), (896, [4864, 4864]),
+             (4864, [896])]
+ZAMBA_FC_GROUPS = [(2048, [2048, 2048, 2048]), (2048, [2048]),
+                   (2048, [8192, 8192]), (8192, [2048])]
 L2_BYTES = 50 * 2 ** 20
 FAILURES: list[str] = []
 
@@ -165,43 +175,64 @@ def max_err(got, want, tol=None) -> tuple[float, bool, float]:
 
 
 # ---------------------------------------------------------------------------
-def _fc_times(gen, shapes: dict, label: str) -> dict:
-    """Kernel, plain, torch.matmul and bound time of one pass over `shapes`
-    ({(K, N): calls}) at m = max_slots = 8, bf16."""
+def fc_plan_note(K: int, ns: list[int]) -> str:
+    """The launch plan of an FC-PIM call, for the lines that time it."""
+    p = fc_mod.plan(K, ns, attn_mod.sm_count(DEV))
+    return (f"cluster {p.cluster} x {p.k_slice} rows, {p.col_tile}-column "
+            "tiles, 1 CUDA launch")
+
+
+def fc_group_bound(m: int, K: int, ns: list[int]) -> tuple[float, str]:
+    """The least time of one grouped call in bf16: every weight, x and
+    every output moved once, against 2 m K N operations per weight."""
+    nbytes = sum(K * n + m * n for n in ns) * 2 + m * K * 2
+    return bound(nbytes, sum(2 * m * K * n for n in ns), torch.bfloat16)
+
+
+def _fc_group_times(gen, groups: list, label: str) -> dict:
+    """Kernel (one grouped call per group), plain (one fc_gemv_ref per
+    weight), torch.matmul (one per weight) and bound time of one pass over
+    `groups` at m = max_slots = 8, bf16."""
     ms = plain = lib = bnd = 0.0
     by = "bytes"
-    for (K, N), count in shapes.items():
-        wbytes = K * N * 2
-        copies = min(400, max(2, math.ceil(2 * L2_BYTES / wbytes)))
+    for K, ns in groups:
+        gbytes = K * sum(ns) * 2
+        copies = min(400, max(2, math.ceil(2 * L2_BYTES / gbytes)))
         x = torch.randn(8, K, generator=gen, device=DEV).to(torch.bfloat16)
-        ws = [torch.randn(K, N, generator=gen, device=DEV).to(torch.bfloat16)
-              for _ in range(copies)]
-        args = [(x, w) for w in ws]
-        k_ms = time_ms(fc_mod.fc_gemv, args)
-        p_ms = time_ms(fc_mod.fc_gemv_ref, args)
-        l_ms = time_ms(torch.matmul, args)
-        b_ms, b_by = bound(wbytes + (8 * K + 8 * N) * 2, 2 * 8 * K * N,
-                           torch.bfloat16)
-        print(f"      fc_gemv bf16 m=8 K={K} N={N} ({label}): kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.matmul "
-              f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
-        ms += count * k_ms
-        plain += count * p_ms
-        lib += count * l_ms
-        bnd += count * b_ms
+        args = [(x, *[torch.randn(K, n, generator=gen, device=DEV).to(
+            torch.bfloat16) for n in ns]) for _ in range(copies)]
+        k_ms = time_ms(lambda x, *ws: fc_mod.fc_gemv_group(x, list(ws)), args)
+        p_ms = time_ms(lambda x, *ws: [fc_mod.fc_gemv_ref(x, w) for w in ws],
+                       args)
+        l_ms = time_ms(lambda x, *ws: [torch.matmul(x, w) for w in ws], args)
+        b_ms, b_by = fc_group_bound(8, K, ns)
+        print(f"      fc_gemv bf16 m=8 K={K} N={ns} ({label}; "
+              f"{fc_plan_note(K, ns)}): kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms, torch.matmul x{len(ns)} {l_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        ms += k_ms
+        plain += p_ms
+        lib += l_ms
+        bnd += b_ms
         by = b_by if b_by == "operations" else by
-        del ws
-    print(f"      fc_gemv bf16 m=8, {label}: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, torch.matmul {lib:.4f} ms, bound {bnd:.4f} ms",
-          flush=True)
+        del args
+    print(f"      fc_gemv bf16 m=8, {label} ({len(groups)} CUDA launches): "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
+          f"{lib:.4f} ms, bound {bnd:.4f} ms", flush=True)
     return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
             "bound_by": by}
 
 
 def phase_fc_gemv() -> dict:
     gen = torch.Generator(device=DEV).manual_seed(1)
-    cases = [(K, N, m) for (K, N) in FC_SHAPES for m in (1, 8, 13)]
-    cases += [(K, N, 8) for (K, N) in ZAMBA_FC_SHAPES]
+    shapes = list(dict.fromkeys((K, n) for K, ns in FC_GROUPS for n in ns))
+    cases = [(K, N, m) for K, N in shapes for m in (1, 8, 13)]
+    cases += [(K, n, 8) for K, n in dict.fromkeys(
+        (K, n) for K, ns in ZAMBA_FC_GROUPS for n in ns)]
+    # ragged: N % 8 != 0, K < 16, clusters of 4 and 8 ranks whose last K
+    # slice is short, and m past one pass of 64 rows
+    cases += [(100, 37, 13), (129, 64, 64), (1, 40, 8), (1000, 200, 13),
+              (5000, 37, 8), (896, 4864, 130)]          # 130: three passes
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for K, N, m in cases:
@@ -211,15 +242,47 @@ def phase_fc_gemv() -> dict:
             got = fc_mod.fc_gemv(x, w)
             torch.cuda.synchronize()
             err, ok, tol = max_err(got, fc_mod.fc_gemv_ref(x, w))
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and (K, N) in shapes:
                 worst = max(worst, err)
             check(ok and got.shape == (m, N),
                   f"fc_gemv {str(dtype)[6:]} m={m} K={K} N={N}: "
                   f"max_abs_err {err:.3e} (tol {tol})")
+        # a weight whose rows are not 16-byte aligned (the element path)
+        flat = torch.randn(896 * 896 + 1, generator=gen, device=DEV).to(dtype)
+        w = flat[1:].view(896, 896)
+        x = torch.randn(8, 896, generator=gen, device=DEV).to(dtype)
+        got, aligned = fc_mod.fc_gemv(x, w), fc_mod.fc_gemv(x, w.clone())
+        torch.cuda.synchronize()
+        err, ok, tol = max_err(got, fc_mod.fc_gemv_ref(x, w))
+        check(ok and torch.equal(got, aligned),
+              f"fc_gemv {str(dtype)[6:]} m=8 K=896 N=896, weight at an odd "
+              f"offset: max_abs_err {err:.3e} (tol {tol}), bit-equal to an "
+              "aligned copy")
+        # a group gives the bits of single launches, and of itself again
+        for K, ns in FC_GROUPS + ZAMBA_FC_GROUPS:
+            if len(ns) == 1:
+                continue
+            for m in (1, 8, 13):
+                x = torch.randn(m, K, generator=gen, device=DEV).to(dtype)
+                ws = [(torch.randn(K, n, generator=gen, device=DEV)
+                       / math.sqrt(K)).to(dtype) for n in ns]
+                before = fc_mod.LAUNCHES
+                group = fc_mod.fc_gemv_group(x, ws)
+                one = fc_mod.LAUNCHES - before
+                singles = [fc_mod.fc_gemv(x, w) for w in ws]
+                again = fc_mod.fc_gemv_group(x, ws)
+                torch.cuda.synchronize()
+                check(one == 1 and all(
+                    torch.equal(y, z) and torch.equal(y, u)
+                    for y, z, u in zip(group, singles, again)),
+                      f"fc_gemv_group {str(dtype)[6:]} m={m} K={K} N={ns}: "
+                      f"{one} launch, bit-equal to single launches and to "
+                      "a second run")
     # timing at the decode path's m = max_slots = 8, bf16: one qwen2 layer's
-    # FCs (the row), one application of zamba2's shared block (printed)
-    result = _fc_times(gen, FC_SHAPES, "one qwen2-0.5b layer")
-    _fc_times(gen, ZAMBA_FC_SHAPES, "one zamba2-1.2b shared-block application")
+    # FC groups (the row), one application of zamba2's shared block (printed)
+    result = _fc_group_times(gen, FC_GROUPS, "one qwen2-0.5b layer")
+    _fc_group_times(gen, ZAMBA_FC_GROUPS,
+                    "one zamba2-1.2b shared-block application")
     return {"max_abs_err": worst, **result}
 
 
@@ -656,6 +719,9 @@ def _serve(cfg, params, label: str, **kw) -> tuple[dict, dict]:
     check(launches["fc_gemv"] > 0 and launches[attn] > 0
           and launches[other] == 0 and launches["ssd_scan"] == 0,
           f"{label}: launches {launches}")
+    check(launches["fc_gemv"] % (4 * cfg.num_layers) == 0,
+          f"{label}: fc_gemv launched {launches['fc_gemv']} times, 4 per "
+          f"layer ({cfg.num_layers}) of each pim step")
     steady = [s for s in eng.stats if s.admitted == 0]
     check(bool(steady) and all(s.transfers == 1 for s in steady),
           f"{label}: {len(steady)} steady iterations, one host transfer "
@@ -773,9 +839,12 @@ def phase_trace(params) -> None:
         top = sorted(kern, reverse=True)[:6]
         attn = [k for k in kern if "attn_split" in k[1]
                 or "attn_merge" in k[1]]
+        fc = [k for k in kern if "fc_gemv" in k[1]]
         print(f"      trace {layout} {variant} (ran {sorted(ran)}): 5 steady "
               f"iterations {wall_us / 5e3:.2f} ms each, device busy "
-              f"{busy / 5e3:.2f} ms each ({busy / wall_us:.1%}); Attn-PIM "
+              f"{busy / 5e3:.2f} ms each ({busy / wall_us:.1%}); FC-PIM "
+              f"{sum(k[0] for k in fc) / 5e3:.4f} ms in "
+              f"{sum(k[2] for k in fc) // 5} CUDA launches each; Attn-PIM "
               f"{sum(k[0] for k in attn) / 5e3:.4f} ms in "
               f"{sum(k[2] for k in attn) // 5} CUDA launches each; top: "
               + "; ".join(f"{name[:40]} {dev / 5e3:.3f} ms x{cnt // 5}"
@@ -874,6 +943,10 @@ def _serve_ssm(arch: str, params, attn_pim: bool) -> tuple[dict, dict]:
         check(launches["fc_gemv"] > 0 and launches["decode_attention"] > 0
               and launches["paged_decode_attention"] == 0,
               f"{label}: fc_gemv and decode_attention launched ({launches})")
+        apps = cfg.num_attention_applications()
+        check(launches["fc_gemv"] % (4 * apps) == 0,
+              f"{label}: fc_gemv launched {launches['fc_gemv']} times, 4 per "
+              f"shared-block application ({apps}) of each pim step")
         variants = {s.fc_variant for s in eng.stats}
         check({"pu", "pim"} <= variants, f"{label}: FC variants {variants}")
     steady = [s for s in eng.stats if s.admitted == 0]

@@ -26,7 +26,7 @@ from repro_torch.kernels.decode_attention import decode_attention
 # `layers.gather_kv_pages`), lives beside the paged kernel's plain version
 from repro_torch.kernels.paged_decode_attention import (  # noqa: F401
     gather_kv_pages, paged_decode_attention)
-from repro_torch.models.linear import papi_linear
+from repro_torch.models.linear import papi_linear, papi_linear_group
 
 _attn_state = threading.local()
 
@@ -79,22 +79,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """down( silu(gate(x)) * up(x) )."""
-    gate = papi_linear(x, p["w_gate"])
-    up = papi_linear(x, p["w_up"])
+    """down( silu(gate(x)) * up(x) ); gate and up in one FC group."""
+    gate, up = papi_linear_group(x, [p["w_gate"], p["w_up"]])
     act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
     return papi_linear(act, p["w_down"])
 
 
 def qkv_project(x: torch.Tensor, p: dict):
-    """[b, s, d] -> q [b, s, nH, hd], k/v [b, s, nKV, hd]."""
+    """[b, s, d] -> q [b, s, nH, hd], k/v [b, s, nKV, hd], projected in
+    one FC group."""
     b, s, d = x.shape
-
-    def proj(w):
-        nh, hd = w.shape[1], w.shape[2]
-        return papi_linear(x, w.reshape(d, nh * hd)).reshape(b, s, nh, hd)
-
-    q, k, v = proj(p["w_q"]), proj(p["w_k"]), proj(p["w_v"])
+    ws = [p["w_q"], p["w_k"], p["w_v"]]
+    ys = papi_linear_group(x, [w.reshape(d, -1) for w in ws])
+    q, k, v = (y.reshape(b, s, *w.shape[1:]) for y, w in zip(ys, ws))
     if "b_q" in p:
         q = q + p["b_q"]
         k = k + p["b_k"]

@@ -1,11 +1,13 @@
 """The FC execution-path hook — where PAPI's scheduling decision lands.
 
-Every FC projection (QKV, out-proj, FFN) goes through `papi_linear`.  A
-context-local variant selects its path:
+Every FC projection (QKV, out-proj, FFN) goes through `papi_linear`, or
+`papi_linear_group` for projections that share their input (q/k/v,
+gate/up).  A context-local variant selects the path:
 
-  "pu"  (default) — ``torch.matmul``: the compute-bound path.
-  "pim"           — the weight-streaming `fc_gemv` kernel: the memory-bound
-                    path (FC-PIM analogue).
+  "pu"  (default) — ``torch.matmul``, one per weight: the compute-bound
+                    path.
+  "pim"           — the weight-streaming `fc_gemv` kernel, one launch per
+                    group: the memory-bound path (FC-PIM analogue).
 
 The serving engine sets the variant per decode iteration from
 `core.scheduler.PapiScheduler`.  The mesh split of the reference
@@ -18,7 +20,7 @@ import threading
 
 import torch
 
-from repro_torch.kernels.fc_gemv import fc_gemv
+from repro_torch.kernels.fc_gemv import fc_gemv_group
 
 _state = threading.local()
 
@@ -39,10 +41,17 @@ def fc_variant(variant: str):
         _state.variant = prev
 
 
-def papi_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [..., K] @ w [K, N] through the scheduled FC path."""
+def papi_linear_group(x: torch.Tensor,
+                      ws: list[torch.Tensor]) -> list[torch.Tensor]:
+    """[x [..., K] @ w [K, N_i] for w in ws] through the scheduled FC path:
+    under "pim" one `fc_gemv_group` launch for all of them."""
     if current_fc_variant() == "pim":
         lead = x.shape[:-1]
-        out = fc_gemv(x.reshape(-1, x.shape[-1]).contiguous(), w)
-        return out.reshape(*lead, w.shape[1])
-    return torch.matmul(x, w)
+        outs = fc_gemv_group(x.reshape(-1, x.shape[-1]).contiguous(), ws)
+        return [o.reshape(*lead, w.shape[1]) for o, w in zip(outs, ws)]
+    return [torch.matmul(x, w) for w in ws]
+
+
+def papi_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, N] through the scheduled FC path."""
+    return papi_linear_group(x, [w])[0]

@@ -7,14 +7,18 @@ kernels run in interpret mode on the same numpy inputs (f32, rtol/atol
 the Pallas paged kernel in tests/test_torch_paged.py, and `ssd_scan_ref`
 against the Pallas `ssd_scan` in tests/test_torch_ssm.py).  The CUDA
 kernels themselves need the card: those cases are marked ``gpu`` and skip
-here, the paged kernel's among them (against its plain version, bit-equal
+here: `fc_gemv`'s (against its plain version at the served models'
+widths and ragged ones for m in 1, 8, 13, 64, a weight at an odd offset,
+a grouped launch bit-equal to single launches and to itself, one launch
+per call), the paged kernel's (against its plain version, bit-equal
 to the dense kernel, blind to table entries past each length), the
 split-S cases of both attention kernels (lens at tile and split edges, a
 2048-token request, one split, windows whose last split is masked for the
 early rows, g = 1 at every head dim, two calls bit-equal) and
 `ssd_scan`'s (against its plain version at the smoke shapes, 1e-4 in f32
-and 5e-2 in bf16 as in tests/test_kernels.py).  The attention kernels'
-split planner is pure Python and is held here on the CPU.  JAX is imported only
+and 5e-2 in bf16 as in tests/test_kernels.py).  The planners (the
+attention kernels' split count, `fc_gemv`'s K split and column tile) are
+pure Python and are held here on the CPU.  JAX is imported only
 by the cases that need it, so the ``gpu`` cases also run where the card
 is and JAX is not:
 
@@ -85,12 +89,88 @@ def test_fc_gemv_rejects_bad_inputs():
         fc_mod.fc_gemv(x, torch.zeros(8, 3, dtype=torch.float64))
 
 
-@pytest.mark.parametrize("K", [896, 4864, 96, 128, 129, 1])
-def test_fc_gemv_k_split_covers_k_within_shared_memory(K):
-    ks = fc_mod.k_split_for(K)
-    splits = -(-K // ks)
-    assert 1 <= ks <= fc_mod.KS_MAX
-    assert (splits - 1) * ks < K <= splits * ks
+@pytest.mark.parametrize("m,K,ns", [(8, 96, [40, 24, 8]), (13, 100, [37]),
+                                    (3, 129, [24, 40]), (1, 40, [16, 8, 24])])
+def test_fc_gemv_group_matches_pallas_per_weight(pallas, m, K, ns):
+    jnp, jax_fc, _ = pallas
+    rng = np.random.default_rng(m * 1000 + K + sum(ns))
+    x = rng.standard_normal((m, K)).astype(np.float32)
+    ws = [(rng.standard_normal((K, n)) / np.sqrt(K)).astype(np.float32)
+          for n in ns]
+    got = fc_mod.fc_gemv_group(torch.from_numpy(x),
+                               [torch.from_numpy(w) for w in ws])
+    for y, w in zip(got, ws):
+        want = np.asarray(jax_fc(jnp.asarray(x), jnp.asarray(w),
+                                 interpret=True))
+        np.testing.assert_allclose(y.numpy(), want, **TOL)
+
+
+def test_fc_gemv_group_cpu_takes_plain_version_without_launch():
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((5, 64)).astype(np.float32))
+    ws = [torch.from_numpy(rng.standard_normal((64, n)).astype(np.float32))
+          for n in (32, 8, 8)]
+    before = fc_mod.LAUNCHES
+    out = fc_mod.fc_gemv_group(x, ws)
+    assert fc_mod.LAUNCHES == before
+    assert len(out) == 3
+    for y, w in zip(out, ws):
+        assert torch.equal(y, fc_mod.fc_gemv_ref(x, w))
+
+
+def test_fc_gemv_group_rejects_bad_groups():
+    x = torch.zeros(2, 8)
+    w = torch.zeros(8, 4)
+    with pytest.raises(ValueError):                       # unequal K
+        fc_mod.fc_gemv_group(x, [w, torch.zeros(9, 4)])
+    with pytest.raises(TypeError):                        # unequal dtypes
+        fc_mod.fc_gemv_group(x, [w, w.to(torch.bfloat16)])
+    with pytest.raises(ValueError):                       # unequal devices
+        fc_mod.fc_gemv_group(x, [w, torch.zeros(8, 4, device="meta")])
+    with pytest.raises(ValueError):                       # too many weights
+        fc_mod.fc_gemv_group(x, [w] * (fc_mod.WEIGHTS_MAX + 1))
+    with pytest.raises(ValueError):                       # none
+        fc_mod.fc_gemv_group(x, [])
+
+
+@pytest.mark.parametrize("variant", ["pu", "pim"])
+def test_papi_linear_group_equals_separate_calls(variant):
+    from repro_torch.models.linear import (fc_variant, papi_linear,
+                                           papi_linear_group)
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 48)).astype(np.float32))
+    ws = [torch.from_numpy(rng.standard_normal((48, n)).astype(np.float32))
+          for n in (48, 16, 16)]
+    with fc_variant(variant):
+        got = papi_linear_group(x, ws)
+        want = [papi_linear(x, w) for w in ws]
+    for y, z, w in zip(got, want, ws):
+        assert y.shape == (2, 3, w.shape[1])
+        assert torch.equal(y, z)
+
+
+@pytest.mark.parametrize("K", [1, 96, 128, 129, 896, 2048, 4864, 8192])
+def test_fc_gemv_plan_splits_k_by_k_alone(K):
+    cluster, k_slice = fc_mod.k_split(K)
+    assert 1 <= cluster <= fc_mod.CLUSTER_MAX
+    assert k_slice % 16 == 0
+    # the slices cover K exactly and none is empty
+    assert (cluster - 1) * k_slice < K <= cluster * k_slice
+    # the same split at any N, group, SM count; m is not an input at all
+    groups = [[1], [37], [896], [896, 128, 128], [4864, 4864], [2048] * 3]
+    for ns in groups:
+        for sms in (1, 114, 132):
+            p = fc_mod.plan(K, ns, sms)
+            assert (p.cluster, p.k_slice) == (cluster, k_slice)
+            assert p.col_tile in fc_mod.COL_TILES
+    assert "m" not in inspect.signature(fc_mod.plan).parameters
+    # every block of every tile, at every m, fits the shared memory
+    for dtype in (torch.float32, torch.bfloat16):
+        for tile in fc_mod.COL_TILES:
+            for m in (1, 8, 13, 64, 65, 512):
+                rows = fc_mod.m_rows(m)
+                assert rows % 8 == 0 and 8 <= rows <= fc_mod.M_ROWS_MAX
+                assert fc_mod.smem_bytes(tile, rows, dtype) <= fc_mod.SMEM_MAX
 
 
 # ---------------------------------------------------------------------------
@@ -240,21 +320,89 @@ def test_attention_cpu_path_takes_plain_versions_without_planning(
 # the CUDA kernels (card only)
 # ---------------------------------------------------------------------------
 
+# (K, N) of qwen2-0.5b's and zamba2-1.2b's projections, and ragged ones
+FC_KERNEL_SHAPES = [(896, 896), (896, 128), (896, 4864), (4864, 896),
+                    (2048, 2048), (2048, 8192), (8192, 2048),
+                    (100, 37), (129, 64), (1, 40), (129, 37),
+                    (1000, 200), (5000, 37)]       # clusters of 4 and 8,
+                                                   # the last slice short
+
+
+def _fc_on_card(cuda, dt, m, K, ns, seed, offset=0):
+    """x [m, K] and weights [K, n] on the card; `offset` > 0 makes each
+    weight a view that starts `offset` elements into its storage."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(m, K, generator=gen, device=cuda).to(dt)
+    ws = []
+    for n in ns:
+        flat = (torch.randn(K * n + offset, generator=gen, device=cuda)
+                / K ** 0.5).to(dt)
+        ws.append(flat[offset:].view(K, n))
+    return x, ws
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
-@pytest.mark.parametrize("m,K,N", [(1, 896, 896), (8, 896, 128),
-                                   (13, 4864, 896), (5, 100, 37)])
+@pytest.mark.parametrize("m", [1, 8, 13, 64, 130])     # 130: three passes
+@pytest.mark.parametrize("K,N", FC_KERNEL_SHAPES)
 def test_fc_gemv_kernel_matches_plain(cuda, m, K, N, dtype, tol):
     dt = getattr(torch, dtype)
-    gen = torch.Generator(device=cuda).manual_seed(m + K + N)
-    x = torch.randn(m, K, generator=gen, device=cuda).to(dt)
-    w = (torch.randn(K, N, generator=gen, device=cuda) / K ** 0.5).to(dt)
+    x, (w,) = _fc_on_card(cuda, dt, m, K, [N], m + K + N)
     before = fc_mod.LAUNCHES
     got = fc_mod.fc_gemv(x, w)
     torch.cuda.synchronize()
     assert fc_mod.LAUNCHES == before + 1
     torch.testing.assert_close(got.float(), fc_mod.fc_gemv_ref(x, w).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("m,K,N", [(8, 896, 896), (13, 100, 37), (1, 129, 64)])
+def test_fc_gemv_kernel_weight_at_odd_offset(cuda, m, K, N, dtype, tol):
+    """A weight whose rows are not 16-byte aligned takes the element path
+    and gives the bits of an aligned copy."""
+    dt = getattr(torch, dtype)
+    x, (w,) = _fc_on_card(cuda, dt, m, K, [N], 3 * m + K, offset=1)
+    got = fc_mod.fc_gemv(x, w)
+    aligned = fc_mod.fc_gemv(x, w.clone())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), fc_mod.fc_gemv_ref(x, w).float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(got, aligned)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m", [1, 8, 13, 64])
+@pytest.mark.parametrize("K,ns", [(896, [896, 128, 128]), (896, [4864, 4864]),
+                                  (2048, [2048, 2048, 2048]),
+                                  (100, [37, 64])])
+def test_fc_gemv_group_bit_equal_to_single_launches(cuda, K, ns, m, dtype):
+    dt = getattr(torch, dtype)
+    x, ws = _fc_on_card(cuda, dt, m, K, ns, K + m)
+    before = fc_mod.LAUNCHES
+    group = fc_mod.fc_gemv_group(x, ws)
+    torch.cuda.synchronize()
+    assert fc_mod.LAUNCHES == before + 1
+    singles = [fc_mod.fc_gemv(x, w) for w in ws]
+    again = fc_mod.fc_gemv_group(x, ws)
+    torch.cuda.synchronize()
+    assert fc_mod.LAUNCHES == before + 2 + len(ws)
+    for y, z, u in zip(group, singles, again):
+        assert torch.equal(y, z) and torch.equal(y, u)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fc_gemv_rows_do_not_change_a_row(cuda, dtype):
+    """A column's sum does not depend on m: row i of a 64-row call equals
+    the same row sent alone."""
+    dt = getattr(torch, dtype)
+    x, (w,) = _fc_on_card(cuda, dt, 64, 896, [4864], 11)
+    full = fc_mod.fc_gemv(x, w)
+    for i in (0, 7, 8, 63):
+        assert torch.equal(full[i:i + 1], fc_mod.fc_gemv(x[i:i + 1], w))
 
 
 @pytest.mark.gpu
