@@ -5,6 +5,7 @@ another checkout (e.g. the parent commit), on one card, in turns.
     python3 chip_ab.py build/parent        # Attn-PIM
     python3 chip_ab.py --sweep             # this checkout alone: NS sweep
     python3 chip_ab.py --fc build/parent   # FC-PIM, its planner and m
+    python3 chip_ab.py --ssd build/parent  # the SSD scan and its sweep
 
 Imports the other checkout's kernel wrappers (`decode_attention`,
 `paged_decode_attention`) as modules of their own, which build its
@@ -44,12 +45,37 @@ kernel with the planner's cluster size forced to each of `SWEEP_CLUSTERS`
 and its column tile to each of `fc_gemv.COL_TILES` (the data behind the
 planner's constants); then one qwen2 layer at each m in `SWEEP_M` against
 ``torch.matmul`` (whether alpha = 4 holds on this card); and one JSON line.
+
+With ``--ssd`` it works on the SSD chunk scan (`ssd_scan`):
+  * ptxas's registers, stack and spills of the main mix's instances
+    (dtx f32, B/C/y bf16) of both kernels;
+  * at mamba2-1.3b's and zamba2-1.2b's main-path shapes
+    (`chip_smoke.SSD_SHAPES`; the main mix, three input sets of 137 MB
+    past L2): the other checkout's wrapper (``parent``) against this
+    one's (``kernel``), in the order parent, kernel, kernel, parent,
+    twice, with how far the two are apart in y and in the state and each
+    CUDA launch's device time;
+  * this checkout's kernel built with each choice of `SSD_SWEEP` (blocks
+    an SM, the state update on tensor cores or CUDA cores and its
+    register tile: the data behind the kernel's constants), and with
+    each part of `SSD_CUTS` cut out (the output is then wrong: only the
+    time is read, and the time saved is what the part costs);
+  * the rounding study behind the kernel's precision: the plain
+    version's algorithm with P = C·Bᵀ∘L, dtx and S rounded as
+    `SSD_ROUNDINGS` lists before their products (bf16 or TF32, to
+    nearest), at the main shapes and both decay laws of
+    `chip_smoke._ssd_inputs`, y stored in bf16, each held against the
+    f32 plain version under `chip_smoke.max_err`'s rule at 5e-2: the
+    worst |err| / (tol + tol·|ref|) (above 1 fails), beside the kernel's;
+and prints one JSON line.
 """
 from __future__ import annotations
 
+import ctypes
 import importlib
 import json
 import statistics
+import subprocess
 import sys
 from pathlib import Path
 
@@ -60,6 +86,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as attn_mod
 from repro_torch.kernels import fc_gemv as fc_mod
 from repro_torch.kernels import paged_decode_attention as paged_mod
+from repro_torch.kernels import ssd_scan as ssd_mod
 
 # label -> (t, lens, KV geometry)
 SHAPES = {
@@ -74,6 +101,52 @@ PAGE = 16
 SWEEP_NS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32)
 SWEEP_CLUSTERS = (1, 2, 4, 8)
 SWEEP_M = (1, 2, 4, 8, 16, 32, 64)
+# label -> the nvcc defines of one build of ssd_scan.cu (the first is the
+# committed kernel)
+SSD_SWEEP = {
+    "2 blocks/SM, state 3xTF32": [],
+    "1 block/SM, state 3xTF32": ["-DSSD_MIN_BLOCKS=1"],
+    "2 blocks/SM, state f32 FMA 8x8": ["-DSSD_STATE_FMA=1"],
+    "2 blocks/SM, state f32 FMA 4x8": ["-DSSD_STATE_FMA=1",
+                                       "-DSSD_STATE_TP=4"],
+}
+# part -> (text of ssd_scan.cu, its replacement): a build that skips it
+SSD_CUTS = {
+    "the state update (phase B)": (
+        "    const float last = cum[cs - 1];",
+        "    if (nh > 0) continue;\n    const float last = cum[cs - 1];"),
+    "y (phase A)": (
+        "  load_rows<TX, TX, HP, LXS>(xsrc, SSD_RT, cs, xstage(0));",
+        "  if (cs > 0) return;\n"
+        "  load_rows<TX, TX, HP, LXS>(xsrc, SSD_RT, cs, xstage(0));"),
+    "building P (C·Bᵀ fetch, exps, stores)": (
+        "      store_p<LDP, true>(pre, Pt, cum, i0, jt * SSD_RT, cs);", ""),
+    "P's exps": ("? src[u] * __expf(ci - cj[u]) : 0.f;",
+                 "? src[u] * (ci - cj[u]) : 0.f;"),
+    "phase A's dtx tile copies": (
+        "        load_rows<TX, TX, HP, LXS>(xsrc + (long)njt * SSD_RT * HP, "
+        "SSD_RT,\n                                   cs - njt * SSD_RT, "
+        "xstage((pair + 1) & 1));", ""),
+    "the inter-chunk mma": (
+        "    for (int k0 = 0; k0 < N; k0 += 8) {\n      const TBC* cp",
+        "    for (int k0 = 0; k0 < N && cs < 0; k0 += 8) {\n"
+        "      const TBC* cp"),
+    "the intra-chunk mma": (
+        "      for (int k0 = 0; k0 < kend; k0 += 8) {",
+        "      for (int k0 = 0; k0 < kend && cs < 0; k0 += 8) {"),
+    "the state mma": (
+        "    for (int k0 = 0; k0 < SSD_RT; k0 += 8) {\n      const float w0",
+        "    for (int k0 = 0; k0 < SSD_RT && ntile < 0; k0 += 8) {\n"
+        "      const float w0"),
+}
+# label -> the rounding of (P, dtx, S) before their products
+SSD_ROUNDINGS = {
+    "bf16 P, dtx and S": ("bf16", "bf16", "bf16"),
+    "bf16 P": ("bf16", None, None),
+    "bf16 dtx": (None, "bf16", None),
+    "bf16 S": (None, None, "bf16"),
+    "TF32 P, dtx and S (the kernel's)": ("tf32", "tf32", "tf32"),
+}
 
 
 def other_modules(root: Path, names: tuple[str, ...]) -> dict:
@@ -289,11 +362,207 @@ def fc(root: Path) -> int:
     return 0
 
 
+def ssd_variant_libs() -> tuple[dict, dict, str]:
+    """(prepare, launch) of ssd_scan.cu built with each `SSD_SWEEP`
+    choice and with each `SSD_CUTS` part cut out, one nvcc each, started
+    together; and ptxas's report of the committed source."""
+    out_dir = _build.BUILD_DIR / "ssd_sweep"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    text = (_build.CSRC / "ssd_scan.cu").read_text()
+    jobs = {("sweep", label): (text, defines)
+            for label, defines in SSD_SWEEP.items()}
+    for label, (old, new) in SSD_CUTS.items():
+        if text.count(old) != 1:
+            raise RuntimeError(f"cut {label!r}: its text is not in the "
+                               "source once")
+        jobs[("cut", label)] = (text.replace(old, new), [])
+    procs = {}
+    for i, (key, (src, defines)) in enumerate(jobs.items()):
+        cu, so = out_dir / f"ssd_scan-{i}.cu", out_dir / f"libssd_scan-{i}.so"
+        cu.write_text(src)
+        procs[key] = (so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-o", str(so),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    procs["ptxas"] = (None, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(out_dir / "libssd_scan-ptxas.so"),
+         str(_build.CSRC / "ssd_scan.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    libs: dict = {"sweep": {}, "cut": {}}
+    report = ""
+    for key, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {key}:\n{log.decode()}")
+        if key == "ptxas":
+            report = log.decode()
+        else:
+            libs[key[0]][key[1]] = ssd_mod.bind(ctypes.CDLL(str(so)))
+    return libs["sweep"], libs["cut"], report
+
+
+def ptxas_lines(report: str) -> list[str]:
+    """Registers, stack and spills of the main mix's instances (dtx f32,
+    B/C/y bf16) of both kernels, from ptxas's -v report."""
+    lines = report.splitlines()
+    out = []
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" not in ln:
+            continue
+        name = ln.split("'")[1]
+        main = ("ssd_scan_kernelIf13__nv_bfloat16S0_Li64" in name
+                or "ssd_cb_kernelI13__nv_bfloat16Li" in name)
+        if main:
+            info = [x.split(":", 1)[-1].strip() for x in lines[i + 1:i + 4]
+                    if "bytes stack" in x or "Used" in x]
+            out.append(f"{name}: {'; '.join(info)}")
+    return out
+
+
+def _round(x: torch.Tensor, how: str | None) -> torch.Tensor:
+    """x (f32) rounded to nearest bf16 or TF32 (10 mantissa bits)."""
+    if how == "bf16":
+        return x.to(torch.bfloat16).float()
+    if how == "tf32":
+        bits = x.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return x
+
+
+def rounded_scan(dtx, lt, B, C, cs: int, rounding) -> torch.Tensor:
+    """y of `ssd_scan_ref`'s algorithm (zero initial state) with P, dtx
+    and S rounded as `rounding` says before their products, f32 sums."""
+    r_p, r_x, r_s = rounding
+    b, nh, l, hp = dtx.shape
+    n, nc = B.shape[-1], l // cs
+    x = dtx.float().reshape(b, nh, nc, cs, hp)
+    cum = ssd_mod.chunk_cumsum(lt, cs)
+    Bc = B.float().reshape(b, nc, cs, n)
+    Cc = C.float().reshape(b, nc, cs, n)
+    CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    mask = torch.ones((cs, cs), dtype=torch.bool, device=dtx.device).tril()
+    L = torch.where(mask, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                    torch.zeros((), device=dtx.device))
+    y = torch.einsum("bhcij,bhcjp->bhcip", _round(CB[:, None] * L, r_p),
+                     _round(x, r_x))
+    d2e = torch.exp(cum[..., -1:] - cum)
+    s_chunk = torch.einsum("bhcjp,bcjn->bhcpn", x * d2e[..., None], Bc)
+    state = torch.zeros((b, nh, hp, n), device=dtx.device)
+    inter = []
+    for c in range(nc):
+        inter.append(torch.einsum("bin,bhi,bhpn->bhip", Cc[:, c],
+                                  torch.exp(cum[:, :, c]),
+                                  _round(state, r_s)))
+        state = torch.exp(cum[:, :, c, -1])[..., None, None] * state + \
+            s_chunk[:, :, c]
+    y = y + torch.stack(inter, dim=2)
+    return y.reshape(b, nh, l, hp).to(torch.bfloat16)
+
+
+def ssd_rounding() -> dict:
+    """Worst |err| / (tol + tol·|ref|) of each `SSD_ROUNDINGS` entry and
+    of the kernel, per main shape and decay law."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    tol = cs.SSD_TOL[bf16]
+    gen = torch.Generator(device=cs.DEV).manual_seed(12)
+    res: dict = {}
+    for arch, (b, nh, l, hp, n, ch) in cs.SSD_SHAPES.items():
+        for slow in (False, True):
+            dtx, lt, B, C, _ = cs._ssd_inputs(gen, b, nh, l, hp, n, f32,
+                                              bf16, slow)
+            ref, _ = ssd_mod.ssd_scan_ref(dtx, lt, B, C, chunk=ch,
+                                          out_dtype=bf16)
+            ref = ref.float()
+            got = {label: rounded_scan(dtx, lt, B, C, ch, how)
+                   for label, how in SSD_ROUNDINGS.items()}
+            got["the kernel"], _ = ssd_mod.ssd_scan(dtx, lt, B, C, chunk=ch,
+                                                    out_dtype=bf16)
+            worst = {label: ((y.float() - ref).abs()
+                             / (tol + tol * ref.abs())).max().item()
+                     for label, y in got.items()}
+            key = f"{arch} {'slow' if slow else 'fast'} decay"
+            print(f"{key}: worst |err| / (tol + tol|ref|) at tol {tol}: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in worst.items()),
+                  flush=True)
+            res[key] = worst
+            del dtx, lt, B, C, ref, got
+    return res
+
+
+def ssd(root: Path) -> int:
+    """The SSD scan: parent against this checkout, then the sweep."""
+    print(cs.card_line(), flush=True)
+    _build.build_all(("ssd_scan",))
+    p_ssd = other_modules(root, ("ssd_scan",))["ssd_scan"].ssd_scan
+    libs, cuts, report = ssd_variant_libs()
+    for line in ptxas_lines(report):
+        print(f"ptxas: {line}", flush=True)
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device=cs.DEV).manual_seed(11)
+    res: dict = {}
+    for arch, (b, nh, l, hp, n, ch) in cs.SSD_SHAPES.items():
+        sets = []
+        for _ in range(3):
+            dtx, lt, B, C, _ = cs._ssd_inputs(gen, b, nh, l, hp, n, f32, bf16)
+            sets.append((dtx, lt, B, C, torch.zeros(b, nh, hp, n,
+                                                    device=cs.DEV)))
+        fns = {
+            "parent": lambda dtx, lt, B, C, s0: p_ssd(
+                dtx, lt, B, C, chunk=ch, init_state=s0, out_dtype=bf16),
+            "kernel": lambda dtx, lt, B, C, s0: ssd_mod.ssd_scan(
+                dtx, lt, B, C, chunk=ch, init_state=s0, out_dtype=bf16),
+        }
+        (py, ps), (ky, ks) = fns["parent"](*sets[0]), fns["kernel"](*sets[0])
+        torch.cuda.synchronize()
+        dy = (py.float() - ky.float()).abs().max().item()
+        ds = (ps - ks).abs().max().item()
+        per = cs.ssd_launch_ms(fns["kernel"], sets)
+        b_ms, b_by = cs.ssd_tc_bound(b, nh, l, hp, n, ch)
+        f_ms, _ = cs.ssd_bound(b, nh, l, hp, n, ch)
+        print(f"{arch}: |kernel - parent| max y {dy:.3e}, state {ds:.3e}; "
+              "per launch " + ", ".join(f"{k} {v:.4f} ms"
+                                        for k, v in per.items())
+              + f"; bound {b_ms:.4f} ms ({b_by}), every product in f32 "
+              f"{f_ms:.4f} ms", flush=True)
+        got = {name: [] for name in fns}
+        for name in ("parent", "kernel", "kernel", "parent") * 2:
+            got[name].append(cs.time_ms(fns[name], sets))
+        print(f"{arch}: " + ", ".join(
+            f"{name} {statistics.median(x):.4f} ms "
+            f"({', '.join(f'{y:.4f}' for y in x)})"
+            for name, x in got.items()), flush=True)
+        committed = ssd_mod._launch_fns()
+        times, saved = {}, {}
+        try:
+            for label, lib_fns in libs.items():
+                ssd_mod._fns = lib_fns
+                times[label] = cs.time_ms(fns["kernel"], sets)
+            base = times[next(iter(SSD_SWEEP))]
+            for label, lib_fns in cuts.items():
+                ssd_mod._fns = lib_fns
+                saved[label] = base - cs.time_ms(fns["kernel"], sets)
+        finally:
+            ssd_mod._fns = committed
+        print(f"{arch}: ms by build: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+        print(f"{arch}: ms saved by cutting: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in saved.items()), flush=True)
+        res[arch] = {**{k: statistics.median(v) for k, v in got.items()},
+                     "per_launch": per, "bound": b_ms, "f32_bound": f_ms,
+                     "sweep": times, "cuts": saved}
+        del sets, py, ps, ky, ks
+    res["rounding"] = ssd_rounding()
+    print(json.dumps(res))
+    return 0
+
+
 def main() -> int:
     if sys.argv[1] == "--sweep":
         return sweep()
     if sys.argv[1] == "--fc":
         return fc(Path(sys.argv[2]).resolve())
+    if sys.argv[1] == "--ssd":
+        return ssd(Path(sys.argv[2]).resolve())
     root = Path(sys.argv[1]).resolve()
     print(cs.card_line(), flush=True)
     _build.build_all(("decode_attention", "paged_decode_attention"))

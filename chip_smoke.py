@@ -29,7 +29,10 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      each length, zeros for lens == 0, and at the split-edge lens over
      pages of 7, 16 and 32; 3d: ssd_scan at mamba2-1.3b's and zamba2-1.2b's shapes
      (two chunks), at one chunk and three, from a zero and a random initial
-     state, y and final state (1e-4 in f32, 5e-2 in bf16);
+     state, y and final state (y 1e-4 in f32, 5e-2 in bf16; the state
+     1e-4), two calls bit-equal, and timed with each of its two CUDA
+     launches (the C·Bᵀ pass, the scan), both bounds (every product in f32;
+     the kernel's precision) and the precision of each product;
   4. serve 8 requests with full-width bf16 qwen2-0.5b (24 layers, random
      seeded weights) through `PapiEngine(attn_pim=True)`: every request
      must finish, both FC variants must run, both kernels must launch
@@ -52,7 +55,8 @@ Phases (any failed check makes the script exit non-zero, after all ran):
   5. trace five steady iterations per KV layout and FC variant with
      torch.profiler (device busy share, top kernels, FC-PIM's and
      Attn-PIM's device time and CUDA launches per iteration); 5b: one admission
-     wave of each SSM model (busy share, ssd_scan's share);
+     wave of each SSM model (busy share, ssd_scan's share over both of its
+     CUDA kernels);
   6. parity at full width, 2 layers, f32: one decode step's logits with the
      kernels (pim FC + Attn-PIM) against the plain path (pu + plain
      attention) within 1e-3, over a dense slab and over a paged cache;
@@ -588,19 +592,63 @@ def _ssd_inputs(gen, b, nh, l, hp, n, x_dtype, bc_dtype, slow=False):
     return dtx, lt, B, C, s0
 
 
-def ssd_bound(b, nh, l, hp, n, cs) -> tuple[float, str]:
-    """The least time for one main-path call (dtx f32, B/C and y bf16, the
-    zero initial state read, the final state written): bytes over the
-    memory rate against the f32 operations these inputs need over the f32
-    rate — C·Bᵀ once per (batch, chunk) and lower triangle only, its
-    product with dtx (j <= i), the inter-chunk term and the state update."""
+def ssd_work(b, nh, l, hp, n, cs) -> tuple[int, int, int, int]:
+    """(bytes, C·Bᵀ ops, y ops, state ops) of one main-path call (dtx
+    f32, B/C and y bf16, the zero initial state read, the final state
+    written): C·Bᵀ once per (batch, chunk) and lower triangle only; y: its
+    product with dtx (j <= i) and the inter-chunk term; the state update."""
     nc = l // cs
     tri = cs * (cs + 1) // 2
-    flops = (b * nc * tri * n * 2
-             + b * nh * nc * (tri * hp * 2 + 2 * cs * n * hp * 2))
     nbytes = (b * nh * l * hp * 4 + b * nh * l * 4 + 2 * b * l * n * 2
               + b * nh * l * hp * 2 + 2 * b * nh * hp * n * 4)
-    return bound(nbytes, flops, torch.float32)
+    return (nbytes, b * nc * tri * n * 2,
+            b * nh * nc * (tri * hp * 2 + cs * n * hp * 2),
+            b * nh * nc * cs * hp * n * 2)
+
+
+def ssd_bound(b, nh, l, hp, n, cs) -> tuple[float, str]:
+    """The least time of one main-path call with every operation in f32 on
+    CUDA cores (the plain version's precision): bytes over the memory rate
+    against all operations over the f32 rate."""
+    nbytes, cb, y, st = ssd_work(b, nh, l, hp, n, cs)
+    return bound(nbytes, cb + y + st, torch.float32)
+
+
+def ssd_tc_bound(b, nh, l, hp, n, cs) -> tuple[float, str]:
+    """The least time of one main-path call at the kernel's precision:
+    bytes over the memory rate against C·Bᵀ over the bf16 rate plus the y
+    products (TF32) and the state update (3xTF32 with B exact in bf16: two
+    TF32 products) over the TF32 rate, half the bf16 one; all on the same
+    tensor cores, so their times add."""
+    bw, bf16, _ = peak_rates()
+    nbytes, cb, y, st = ssd_work(b, nh, l, hp, n, cs)
+    t_b, t_o = nbytes / bw, cb / bf16 + (y + 2 * st) / (bf16 / 2)
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+# the precision of each product of the kernel, as phase 3d prints it
+SSD_PRECISION = ("C·Bᵀ: bf16 mma, exact products, f32 sums (f32 B/C: CUDA "
+                 "cores); y = (C·Bᵀ∘L)·dtx + (e^cum∘C)·Sᵀ: TF32 mma, f32 "
+                 "sums, where y is bf16 (all-f32 mix: f32 CUDA cores); state "
+                 "update: 3xTF32 mma (f32 accuracy) where y is bf16, else f32 "
+                 "CUDA cores")
+
+
+def ssd_launch_ms(kern, sets) -> dict:
+    """Device ms per call of each CUDA kernel of the scan (torch.profiler
+    over one pass of `sets`)."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for a in sets:
+            kern(*a)
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        for name in ("ssd_cb_kernel", "ssd_scan_kernel"):
+            dev = getattr(evt, "self_device_time_total", 0)
+            if name in evt.key and dev > 0:
+                out[name] = out.get(name, 0.0) + dev / 1e3 / len(sets)
+    return out
 
 
 def phase_ssd_scan() -> dict:
@@ -641,6 +689,7 @@ def phase_ssd_scan() -> dict:
                       f"{SSD_TOL[f32]})")
                 del dtx, lt, B, C, s0, y, st, want_y, want_st
     result = {"max_abs_err": worst, "library_ms": None}
+    print(f"      ssd_scan precision: {SSD_PRECISION}", flush=True)
     for arch, (b, nh, l, hp, n, ch) in SSD_SHAPES.items():
         sets = []
         for _ in range(3):               # 137 MB a set: past the L2
@@ -656,16 +705,30 @@ def phase_ssd_scan() -> dict:
             return ssd_mod.ssd_scan_ref(dtx, lt, B, C, chunk=ch,
                                         init_state=s0, out_dtype=bf16)
 
+        y1, s1 = kern(*sets[0])
+        y2, s2 = kern(*sets[0])
+        torch.cuda.synchronize()
+        check(torch.equal(y1, y2) and torch.equal(s1, s2),
+              f"ssd_scan {arch} shapes: two calls bit-equal in y and state")
         k_ms, p_ms = time_ms(kern, sets), time_ms(plain, sets)
-        b_ms, b_by = ssd_bound(b, nh, l, hp, n, ch)
+        per = ssd_launch_ms(kern, sets)
+        f_ms, f_by = ssd_bound(b, nh, l, hp, n, ch)
+        b_ms, b_by = ssd_tc_bound(b, nh, l, hp, n, ch)
         print(f"      ssd_scan {arch} shapes b={b} nh={nh} l={l} hp={hp} "
-              f"n={n} cs={ch} (dtx f32, B/C/y bf16): kernel {k_ms:.4f} ms, "
-              f"plain {p_ms:.4f} ms, no single PyTorch call, bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+              f"n={n} cs={ch} (dtx f32, B/C/y bf16; "
+              f"{ssd_mod.cuda_launches()} CUDA launches a call): kernel "
+              f"{k_ms:.4f} ms (of it, by the profiler: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in per.items())
+              + f"), plain {p_ms:.4f} ms, no single PyTorch call, bound at "
+              f"the kernel's precision {b_ms:.4f} ms ({b_by}), with every "
+              f"product in f32 {f_ms:.4f} ms ({f_by})", flush=True)
+        check(set(per) == {"ssd_cb_kernel", "ssd_scan_kernel"},
+              f"ssd_scan {arch} shapes: the profiler sees both CUDA kernels "
+              f"({sorted(per)})")
         if arch == "mamba2-1.3b":
             result.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                           bound_by=b_by)
-        del sets
+        del sets, y1, y2, s1, s2
     return result
 
 
@@ -1011,12 +1074,19 @@ def phase_wave_trace(params_by_arch) -> None:
                   "(not measured)", flush=True)
             continue
         busy = sum(k[0] for k in kern)
-        ssd = sum(k[0] for k in kern if "ssd_scan" in k[1])
+        # ssd_scan's two CUDA kernels (the C·Bᵀ pass and the scan)
+        parts = {name: (sum(k[0] for k in kern if name in k[1]),
+                        sum(k[2] for k in kern if name in k[1]))
+                 for name in ("ssd_cb_kernel", "ssd_scan_kernel")}
+        ssd = sum(dev for dev, _ in parts.values())
         top = sorted(kern, reverse=True)[:6]
         print(f"      wave trace {arch}: one admission wave {wall_us / 1e3:.2f}"
               f" ms wall, device busy {busy / 1e3:.2f} ms "
               f"({busy / wall_us:.1%}); ssd_scan {ssd / 1e3:.2f} ms "
-              f"({ssd / busy:.1%} of device time); top: "
+              f"({ssd / busy:.1%} of device time: "
+              + ", ".join(f"{name} {dev / 1e3:.2f} ms x{cnt}"
+                          for name, (dev, cnt) in parts.items())
+              + "); top: "
               + "; ".join(f"{name[:40]} {dev / 1e3:.3f} ms x{cnt}"
                           for dev, name, cnt in top), flush=True)
 

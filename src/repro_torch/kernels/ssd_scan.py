@@ -15,9 +15,12 @@ tolerance.  Unlike the Pallas kernel, the scan also takes an initial
 state and returns the state after the last chunk: the serving path
 (`models.ssm._ssd_chunked`) needs both.
 
-`ssd_scan` launches the hand-written CUDA kernel (``csrc/ssd_scan.cu``)
+`ssd_scan` launches the hand-written CUDA kernels (``csrc/ssd_scan.cu``)
 for tensors on the card and uses the plain PyTorch version `ssd_scan_ref`
-for tensors on the CPU.  `LAUNCHES` counts kernel launches (CPU calls and
+for tensors on the CPU.  A call on the card is two CUDA launches
+(`cuda_launches`): C·Bᵀ once per (batch row, chunk) into f32 scratch the
+wrapper allocates (`cb_scratch`), then the scan over the heads.  `LAUNCHES`
+counts calls that ran the kernels, one per call (CPU calls and
 `ssd_scan_ref` do not count).
 """
 from __future__ import annotations
@@ -30,9 +33,10 @@ from repro_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
 SHAPES = ((32, 16), (64, 64), (64, 128))   # (hp, n) the kernel is built for
+ROW_TILE = 64                               # the kernels' chunk rows per tile
 
 LAUNCHES = 0
-_fn = None
+_fns = None
 
 
 def chunk_cumsum(lt: torch.Tensor, cs: int) -> torch.Tensor:
@@ -81,15 +85,37 @@ def ssd_scan_ref(dtx: torch.Tensor, lt: torch.Tensor, B: torch.Tensor,
     return y.reshape(b, nh, l, hp).to(out_dtype or dtx.dtype), state
 
 
-def _launch_fn():
-    global _fn
-    if _fn is None:
-        fn = _build.load("ssd_scan").ssd_scan_launch
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+def cuda_launches() -> int:
+    """CUDA launches of one call on the card (the C·Bᵀ pass, the scan)."""
+    return 2
+
+
+def cb_scratch(b: int, l: int, cs: int, device) -> torch.Tensor:
+    """The f32 C·Bᵀ tiles of every (batch row, chunk): [b, l / cs, csp,
+    csp] with csp = cs rounded up to `ROW_TILE`; only the tiles on and
+    below the diagonal are written and read."""
+    csp = -(-cs // ROW_TILE) * ROW_TILE
+    return torch.empty((b, l // cs, csp, csp), dtype=torch.float32,
+                       device=device)
+
+
+def bind(lib: ctypes.CDLL):
+    """(prepare, launch): the C functions of a built ``ssd_scan`` library
+    with their argument types."""
+    prep, launch = lib.ssd_scan_prepare, lib.ssd_scan_launch
+    prep.argtypes = [ctypes.c_int] * 9
+    prep.restype = ctypes.c_int
+    launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p]
+    launch.restype = ctypes.c_int
+    return prep, launch
+
+
+def _launch_fns():
+    global _fns
+    if _fns is None:
+        _fns = bind(_build.load("ssd_scan"))
+    return _fns
 
 
 def ssd_scan(dtx: torch.Tensor, lt: torch.Tensor, B: torch.Tensor,
@@ -137,19 +163,27 @@ def ssd_scan(dtx: torch.Tensor, lt: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {dtx.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd_scan needs contiguous inputs")
+    if any(t.data_ptr() % 16 for t in (dtx, B, C)):
+        raise ValueError("dtx, B and C must be 16-byte aligned (cp.async)")
     if (hp, n) not in SHAPES:
         raise ValueError(f"ssd_scan kernel is built for (hp, n) in {SHAPES}, "
                          f"not {(hp, n)}")
+    bf16 = torch.bfloat16
+    kinds = (int(dtx.dtype == bf16), int(B.dtype == bf16),
+             int(out_dtype == bf16))
+    prepare, launch = _launch_fns()
+    # a chunk past a block's shared memory is refused here, before the
+    # scratch is allocated
+    _build.check(prepare(b, nh, l, cs, hp, n, *kinds), "ssd_scan")
     y = torch.empty((b, nh, l, hp), dtype=out_dtype, device=dtx.device)
     final = torch.empty((b, nh, hp, n), dtype=f32, device=dtx.device)
-    bf16 = torch.bfloat16
+    cb = cb_scratch(b, l, cs, dtx.device)
     cum = chunk_cumsum(lt, cs)
-    err = _launch_fn()(
+    err = launch(
         dtx.data_ptr(), cum.data_ptr(), B.data_ptr(), C.data_ptr(),
         init_state.data_ptr() if init_state is not None else None,
-        y.data_ptr(), final.data_ptr(), b, nh, l, cs, hp, n,
-        int(dtx.dtype == bf16), int(B.dtype == bf16), int(out_dtype == bf16),
-        torch.cuda.current_stream(dtx.device).cuda_stream)
+        y.data_ptr(), final.data_ptr(), cb.data_ptr(), b, nh, l, cs, hp, n,
+        *kinds, torch.cuda.current_stream(dtx.device).cuda_stream)
     _build.check(err, "ssd_scan")
     LAUNCHES += 1
     return y, final

@@ -1,10 +1,18 @@
-"""Serving launcher of the port: the PAPI engine on a synthetic trace with
-random weights made from ``--seed``.
+"""Serving launcher of the port: the PAPI engine on a synthetic request
+trace with random weights made from ``--seed``.
 
-    python -m repro_torch.launch.serve --arch qwen2-0.5b --requests 8 \\
-        --alpha 4 --attn-pim [--kv paged --page-size 16]
+    python -m repro_torch.launch.serve --arch qwen2-0.5b --attn-pim \\
+        [--kv paged --page-size 16]
     python -m repro_torch.launch.serve --arch zamba2-1.2b --attn-pim
     python -m repro_torch.launch.serve --arch mamba2-1.3b
+
+Requests follow `repro.launch.serve`: ``--requests`` draws from
+`core.traces.generate_trace(--task)` (default general-qa, 16 requests),
+the engine runs at capacity 256, prefill window 32 and α 6.0, and prompts
+are capped at capacity − 64 − 2 tokens (the output cap and the
+speculative window of one) with budgets capped at 64, from the same seed
+in the same order.  ``--capacity``, ``--prefill-len``, ``--max-prompt``
+and ``--alpha`` override those.
 
 The SSM (mamba2) and hybrid (zamba2) families reject prompts longer than
 ``--prefill-len`` and refuse ``--kv paged``, as the reference does.
@@ -24,35 +32,51 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
+from repro_torch.core.traces import generate_trace
 from repro_torch.models import init_params
 from repro_torch.serving import PapiEngine, ServeRequest
 
+# the speculative window the prompt cap leaves room for (spec_len 1 until
+# speculative decoding is ported) and the generation budget's cap
+SPEC_LEN = 1
+MAX_NEW = 64
 
-def make_requests(n: int, vocab: int, seed: int, max_prompt: int,
-                  max_new: int = 64) -> list[ServeRequest]:
-    """n requests with seeded random prompts (4..max_prompt tokens) and
-    staggered generation budgets (8..max_new tokens)."""
+
+def default_max_prompt(capacity: int) -> int:
+    """The reference's prompt cap: the slab less the output cap and the
+    speculative window."""
+    return capacity - MAX_NEW - max(SPEC_LEN, 1) - 1
+
+
+def make_requests(task: str, n: int, vocab: int, seed: int,
+                  max_prompt: int) -> list[ServeRequest]:
+    """The reference launcher's requests: lengths from
+    `generate_trace(task, n, seed)`, prompt tokens from one
+    ``default_rng(seed)`` drawn request by request, prompts capped at
+    `max_prompt`, budgets at `MAX_NEW`."""
     rng = np.random.default_rng(seed)
     reqs = []
-    for i in range(n):
-        plen = int(rng.integers(4, max_prompt + 1))
-        prompt = rng.integers(3, vocab, size=plen).tolist()
-        budget = 8 + (max_new - 8) * i // max(n - 1, 1)
-        reqs.append(ServeRequest(i, prompt, max_new_tokens=budget))
+    for i, req in enumerate(generate_trace(task, n, seed)):
+        prompt = rng.integers(3, vocab, size=min(req.input_len, max_prompt))
+        reqs.append(ServeRequest(i, prompt.tolist(),
+                                 max_new_tokens=min(req.output_len, MAX_NEW)))
     return reqs
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--task", default="general-qa",
+                    help="request trace: general-qa or creative-writing")
     ap.add_argument("--max-slots", type=int, default=8)
-    ap.add_argument("--capacity", type=int, default=2048,
+    ap.add_argument("--capacity", type=int, default=256,
                     help="KV slab length per slot")
-    ap.add_argument("--prefill-len", type=int, default=64,
+    ap.add_argument("--prefill-len", type=int, default=32,
                     help="prefill window; longer prompts are chunked")
-    ap.add_argument("--max-prompt", type=int, default=160)
-    ap.add_argument("--alpha", type=float, default=4.0)
+    ap.add_argument("--max-prompt", type=int, default=None,
+                    help="prompt cap; default capacity - 64 - 2")
+    ap.add_argument("--alpha", type=float, default=6.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--attn-pim", action="store_true",
                     help="every decode-path attention through the Attn-PIM "
@@ -83,11 +107,13 @@ def main(argv=None) -> None:
                      attn_pim=args.attn_pim, kv_layout=args.kv,
                      page_size=args.page_size, max_blocks=args.max_blocks,
                      device=device)
-    for r in make_requests(args.requests, cfg.vocab_size, args.seed,
-                           args.max_prompt):
+    max_prompt = (default_max_prompt(args.capacity)
+                  if args.max_prompt is None else args.max_prompt)
+    for r in make_requests(args.task, args.requests, cfg.vocab_size,
+                           args.seed, max_prompt):
         eng.submit(r)
     t0 = time.perf_counter()
-    results = eng.run(max_iterations=4000)
+    results = eng.run(max_iterations=2000)
     wall = time.perf_counter() - t0
 
     by_reason: dict[str, int] = {}

@@ -15,8 +15,10 @@ to the dense kernel, blind to table entries past each length), the
 split-S cases of both attention kernels (lens at tile and split edges, a
 2048-token request, one split, windows whose last split is masked for the
 early rows, g = 1 at every head dim, two calls bit-equal) and
-`ssd_scan`'s (against its plain version at the smoke shapes, 1e-4 in f32
-and 5e-2 in bf16 as in tests/test_kernels.py).  The planners (the
+`ssd_scan`'s (against its plain version at the smoke shapes and at
+mamba2-1.3b's and zamba2-1.2b's (hp, n) over two and three 256-row chunks,
+1e-4 in f32 and 5e-2 in bf16 as in tests/test_kernels.py, the state at
+1e-4; two calls bit-equal, two CUDA launches a call).  The planners (the
 attention kernels' split count, `fc_gemv`'s K split and column tile) are
 pure Python and are held here on the CPU.  JAX is imported only
 by the cases that need it, so the ``gpu`` cases also run where the card
@@ -727,20 +729,28 @@ def _ssd_on_card(cuda, b, nh, l, hp, n, x_dtype, bc_dtype, seed,
     return dtx, lt, B, C, s0
 
 
+# (hp, n, l, chunk): the smoke shapes (two and three chunks, one shorter
+# than the chunk size), and mamba2-1.3b's / zamba2-1.2b's (hp, n) at the
+# served chunk size, two and three chunks
+SSD_KERNEL_CASES = [(32, 16, 64, 32), (32, 16, 96, 32), (32, 16, 20, 32),
+                    (64, 64, 512, 256), (64, 64, 768, 256),
+                    (64, 128, 512, 256), (64, 128, 768, 256)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtypes,tol", [
     (("float32", "float32", "float32"), 1e-4),
     (("float32", "bfloat16", "bfloat16"), 5e-2),    # the bf16 model's mix
     (("bfloat16", "bfloat16", "bfloat16"), 5e-2)])
-@pytest.mark.parametrize("l,chunk", [(64, 32), (96, 32), (20, 32)])
+@pytest.mark.parametrize("hp,n,l,chunk", SSD_KERNEL_CASES)
 @pytest.mark.parametrize("init", [False, True])
 @pytest.mark.parametrize("slow", [False, True])
-def test_ssd_scan_kernel_matches_plain(cuda, l, chunk, init, slow, dtypes,
-                                       tol):
-    """The smoke shapes (hp=32, n=16): two and three chunks, and one chunk
-    shorter than the chunk size; y and the final state."""
+def test_ssd_scan_kernel_matches_plain(cuda, hp, n, l, chunk, init, slow,
+                                       dtypes, tol):
+    """y and the final state against the plain version (the state at 1e-4
+    in every mix: it is f32 in both)."""
     x_dt, bc_dt, y_dt = (getattr(torch, d) for d in dtypes)
-    dtx, lt, B, C, s0 = _ssd_on_card(cuda, 2, 4, l, 32, 16, x_dt, bc_dt,
+    dtx, lt, B, C, s0 = _ssd_on_card(cuda, 2, 4, l, hp, n, x_dt, bc_dt,
                                      l + chunk, slow)
     kw = dict(chunk=chunk, init_state=s0 if init else None, out_dtype=y_dt)
     before = ssd_mod.LAUNCHES
@@ -751,6 +761,44 @@ def test_ssd_scan_kernel_matches_plain(cuda, l, chunk, init, slow, dtypes,
     assert y.dtype == y_dt and bool(torch.isfinite(y).all())
     torch.testing.assert_close(y.float(), want_y.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(state, want_state, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtypes", [("float32", "float32", "float32"),
+                                    ("float32", "bfloat16", "bfloat16")])
+@pytest.mark.parametrize("hp,n", [(64, 64), (64, 128)])
+def test_ssd_scan_kernel_is_deterministic(cuda, hp, n, dtypes):
+    """Two calls give the same bits of y and of the state, and a call is
+    `cuda_launches()` CUDA launches (the C·Bᵀ pass and the scan)."""
+    x_dt, bc_dt, y_dt = (getattr(torch, d) for d in dtypes)
+    dtx, lt, B, C, s0 = _ssd_on_card(cuda, 2, 8, 768, hp, n, x_dt, bc_dt, 5,
+                                     True)
+    kw = dict(chunk=256, init_state=s0, out_dtype=y_dt)
+    y1, st1 = ssd_mod.ssd_scan(dtx, lt, B, C, **kw)
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        y2, st2 = ssd_mod.ssd_scan(dtx, lt, B, C, **kw)
+        torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(st1, st2)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and ("ssd_cb_kernel" in e.name or "ssd_scan_kernel" in e.name)]
+    assert len(names) == ssd_mod.cuda_launches() == 2, names
+
+
+@pytest.mark.parametrize("b,l,cs,want", [(8, 512, 256, (8, 2, 256, 256)),
+                                         (2, 768, 256, (2, 3, 256, 256)),
+                                         (1, 100, 100, (1, 1, 128, 128)),
+                                         (2, 20, 20, (2, 1, 64, 64))])
+def test_ssd_cb_scratch_holds_whole_row_tiles(b, l, cs, want):
+    """The C·Bᵀ scratch is one f32 [csp, csp] per (batch row, chunk), csp
+    the chunk rounded up to the kernels' row tile, whose size the CUDA
+    source defines; a call on the card is two CUDA launches."""
+    cb = ssd_mod.cb_scratch(b, l, cs, "cpu")
+    assert tuple(cb.shape) == want and cb.dtype == torch.float32
+    src = (ssd_mod._build.CSRC / "ssd_scan.cu").read_text()
+    assert f"#define SSD_RT {ssd_mod.ROW_TILE} " in src
+    assert ssd_mod.cuda_launches() == 2
 
 
 @pytest.mark.gpu

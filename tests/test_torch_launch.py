@@ -1,0 +1,137 @@
+"""The port's serving launcher against the reference launcher's recipe.
+
+`repro_torch.core.traces` is the port's own copy of `repro.core.traces`;
+`repro_torch.launch.serve` builds its requests as `repro.launch.serve`
+does (lengths from `generate_trace(--task)`, prompt tokens from one
+seeded generator, prompts capped at capacity − 64 − 2, budgets at 64) with
+the reference's defaults (16 requests, α 6.0, capacity 256, prefill 32).
+The reference's request list is captured from its own `main()`, with its
+trace run replaced by a recorder; the port's from its `main()`, with the
+engine replaced by a recorder.
+"""
+import dataclasses
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import traces as port_traces  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+
+TASKS = ("general-qa", "creative-writing")
+
+
+class _EngineRecorder:
+    """Stands in for `PapiEngine` in the port's launcher: keeps the
+    engine's keyword arguments and the submitted requests, serves none."""
+    made: list = []
+
+    def __init__(self, cfg, params, **kw):
+        self.kw, self.requests = kw, []
+        self.iteration, self.stats, self.kv = 0, [], None
+        self.scheduler = type("Sched", (), {"num_reschedules": 0})()
+        _EngineRecorder.made.append(self)
+
+    def submit(self, req):
+        self.requests.append(req)
+
+    def run(self, max_iterations):
+        return []
+
+
+def _port_launch(monkeypatch, *argv):
+    """(engine keyword arguments, [(prompt, budget)]) of one launcher run."""
+    _EngineRecorder.made = []
+    monkeypatch.setattr(serve_cli, "PapiEngine", _EngineRecorder)
+    serve_cli.main(["--arch", "qwen2-0.5b-smoke", "--device", "cpu", *argv])
+    eng, = _EngineRecorder.made
+    return eng.kw, [(r.prompt, r.max_new_tokens) for r in eng.requests]
+
+
+def _reference_requests(monkeypatch, *argv):
+    """[(prompt, budget)] that `repro.launch.serve.main` builds."""
+    ref = pytest.importorskip("repro.launch.serve")
+    got = []
+
+    def record(args, eng, reqs, rng):
+        got.extend((list(r.prompt), r.max_new_tokens) for r in reqs)
+        return []
+
+    monkeypatch.setattr(ref, "_run_trace", record)
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", "qwen2-0.5b-smoke",
+                                      *argv])
+    ref.main()
+    return got
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("task", TASKS)
+def test_generate_trace_matches_reference(task, seed):
+    from repro.core import traces as ref_traces
+    want = [dataclasses.astuple(r)
+            for r in ref_traces.generate_trace(task, 40, seed)]
+    got = [dataclasses.astuple(r)
+           for r in port_traces.generate_trace(task, 40, seed)]
+    assert got == want
+    assert port_traces._PROFILES == ref_traces._PROFILES
+
+
+@pytest.mark.parametrize("task,requests,seed", [("general-qa", 16, 0),
+                                                ("creative-writing", 12, 5)])
+def test_launcher_requests_match_reference_recipe(monkeypatch, task, requests,
+                                                  seed):
+    argv = ["--task", task, "--requests", str(requests), "--seed", str(seed)]
+    want = _reference_requests(monkeypatch, *argv)
+    _, got = _port_launch(monkeypatch, *argv)
+    assert len(got) == requests and got == want
+
+
+def test_launcher_defaults_are_the_reference_defaults(monkeypatch):
+    kw, got = _port_launch(monkeypatch)
+    assert (kw["cache_capacity"], kw["prefill_len"], kw["alpha"]) == (
+        256, 32, 6.0)
+    assert got == _reference_requests(monkeypatch)
+    assert len(got) == 16
+    assert max(len(p) for p, _ in got) <= 256 - 64 - 2
+    assert all(1 <= b <= 64 for _, b in got)
+    vocab = get_config("qwen2-0.5b-smoke").vocab_size
+    assert all(3 <= t < vocab for p, _ in got for t in p)
+
+
+def test_launcher_max_prompt_override_caps_prompts(monkeypatch):
+    _, capped = _port_launch(monkeypatch, "--max-prompt", "20")
+    _, full = _port_launch(monkeypatch)
+    assert max(len(p) for p, _ in capped) == 20
+    # prompts longer than the cap are cut to it, shorter ones keep their
+    # length, and the budgets do not move
+    lens = [min(len(p), 20) for p, _ in full]
+    assert [len(p) for p, _ in capped] == lens
+    assert [b for _, b in capped] == [b for _, b in full]
+
+
+def test_launcher_capacity_override_moves_the_default_cap(monkeypatch):
+    kw, got = _port_launch(monkeypatch, "--capacity", "128")
+    assert kw["cache_capacity"] == 128
+    assert max(len(p) for p, _ in got) <= serve_cli.default_max_prompt(128)
+    assert serve_cli.default_max_prompt(256) == 256 - 64 - 2
+
+
+def test_make_requests_is_deterministic_per_seed():
+    a = serve_cli.make_requests("general-qa", 8, 500, 3, 100)
+    b = serve_cli.make_requests("general-qa", 8, 500, 3, 100)
+    c = serve_cli.make_requests("general-qa", 8, 500, 4, 100)
+    key = [(r.prompt, r.max_new_tokens) for r in a]
+    assert key == [(r.prompt, r.max_new_tokens) for r in b]
+    assert key != [(r.prompt, r.max_new_tokens) for r in c]
+    assert np.all([r.req_id == i for i, r in enumerate(a)])
+
+
+def test_launcher_default_run_serves_the_reference_trace(capsys):
+    """No flags but the model and the CPU: the 16 general-qa requests at
+    capacity 256, prefill 32, alpha 6 are served to the end."""
+    serve_cli.main(["--arch", "qwen2-0.5b-smoke", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "completed 16 requests" in out and "fc_path" in out
