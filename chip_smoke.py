@@ -32,7 +32,15 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      state, y and final state (y 1e-4 in f32, 5e-2 in bf16; the state
      1e-4), two calls bit-equal, and timed with each of its two CUDA
      launches (the C·Bᵀ pass, the scan), both bounds (every product in f32;
-     the kernel's precision) and the precision of each product;
+     the kernel's precision) and the precision of each product; the
+     speculative verify window's shapes ride along: fc_gemv at m = 32 (8
+     slots x spec_len 4, checked and timed) and both attention kernels at
+     t = 4 (the main geometry and the split edges);
+     3e: the reference's α calibration (`calibrate_alpha_measured`) on one
+     qwen2-0.5b layer's and one zamba2-1.2b application's FC work (7
+     torch.matmul calls against 4 fc_gemv launches, weights rotated past
+     the L2) at m = 1..128, with the wall-clock columns it compared, the
+     same work's device time and the crossover each gives;
   4. serve 8 requests with full-width bf16 qwen2-0.5b (24 layers, random
      seeded weights) through `PapiEngine(attn_pim=True)`: every request
      must finish, both FC variants must run, both kernels must launch
@@ -52,16 +60,31 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      requests: ssd_scan 38 per wave, fc_gemv (4 per shared-block
      application of each pim step) and decode_attention launched, both FC
      variants run;
+     4f: speculative decoding (spec_len 4, attn_pim) of phase 4's 8
+     requests, dense and paged, at α 4 and 99, with the perfect draft (the
+     target) and a seed-1 draft: every request finishes, one transfer per
+     speculative iteration, fc_gemv launched 4 per layer for each draft
+     step and the verify (m = 32) of every iteration that ran "pim",
+     Attn-PIM called once per layer at t = 4 and 4 times at t = 1 per
+     iteration, paged streams equal dense streams, the pool drains; prints
+     accepted per window, tokens/s and the tokens equal to phase 4's;
+     4g: the TLP register at α 12: spec_len 1 runs "pim" (m = 8),
+     `set_spec_len(4)` flips to "pu" (m = 32) at once, and "pim" returns as
+     RLP decays; prints the scheduler's events;
   5. trace five steady iterations per KV layout and FC variant with
      torch.profiler (device busy share, top kernels, FC-PIM's and
      Attn-PIM's device time and CUDA launches per iteration); 5b: one admission
      wave of each SSM model (busy share, ssd_scan's share over both of its
-     CUDA kernels);
+     CUDA kernels); 5c: three steady speculative iterations per layout and
+     FC variant (the same, with calls by m and by window t);
   6. parity at full width, 2 layers, f32: one decode step's logits with the
      kernels (pim FC + Attn-PIM) against the plain path (pu + plain
      attention) within 1e-3, over a dense slab and over a paged cache;
      6b: prefill and one decode step of mamba2 (2 layers) and zamba2 (7
      layers) with ssd_scan, pim FC and Attn-PIM against the plain path;
+     6c: lossless speculation in f32 (2 layers, the kernels on): the
+     seed-1 draft's spec_len 4 streams equal the spec_len 1 streams, dense
+     and paged (else the first divergence and the logit margin there);
   7. print the `kernels` JSON line, the card line, and last the device JSON.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -92,11 +115,13 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py: no CUDA device available")
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import calibration as cal  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as attn_mod  # noqa: E402
 from repro_torch.kernels import fc_gemv as fc_mod  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as paged_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
+from repro_torch.kernels.ops import fc_layer_runners  # noqa: E402
 from repro_torch.models import (attn_impl, decode_step, fc_variant,  # noqa: E402
                                 init_cache, init_paged_cache, init_params,
                                 prefill, prefill_to_pages, prefill_to_slots,
@@ -193,24 +218,25 @@ def fc_group_bound(m: int, K: int, ns: list[int]) -> tuple[float, str]:
     return bound(nbytes, sum(2 * m * K * n for n in ns), torch.bfloat16)
 
 
-def _fc_group_times(gen, groups: list, label: str) -> dict:
+def _fc_group_times(gen, groups: list, label: str, m: int = 8) -> dict:
     """Kernel (one grouped call per group), plain (one fc_gemv_ref per
     weight), torch.matmul (one per weight) and bound time of one pass over
-    `groups` at m = max_slots = 8, bf16."""
+    `groups` at m rows (max_slots = 8 at TLP 1; 32 for a verify window of
+    spec_len 4), bf16."""
     ms = plain = lib = bnd = 0.0
     by = "bytes"
     for K, ns in groups:
         gbytes = K * sum(ns) * 2
         copies = min(400, max(2, math.ceil(2 * L2_BYTES / gbytes)))
-        x = torch.randn(8, K, generator=gen, device=DEV).to(torch.bfloat16)
+        x = torch.randn(m, K, generator=gen, device=DEV).to(torch.bfloat16)
         args = [(x, *[torch.randn(K, n, generator=gen, device=DEV).to(
             torch.bfloat16) for n in ns]) for _ in range(copies)]
         k_ms = time_ms(lambda x, *ws: fc_mod.fc_gemv_group(x, list(ws)), args)
         p_ms = time_ms(lambda x, *ws: [fc_mod.fc_gemv_ref(x, w) for w in ws],
                        args)
         l_ms = time_ms(lambda x, *ws: [torch.matmul(x, w) for w in ws], args)
-        b_ms, b_by = fc_group_bound(8, K, ns)
-        print(f"      fc_gemv bf16 m=8 K={K} N={ns} ({label}; "
+        b_ms, b_by = fc_group_bound(m, K, ns)
+        print(f"      fc_gemv bf16 m={m} K={K} N={ns} ({label}; "
               f"{fc_plan_note(K, ns)}): kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.4f} ms, torch.matmul x{len(ns)} {l_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by})", flush=True)
@@ -220,7 +246,7 @@ def _fc_group_times(gen, groups: list, label: str) -> dict:
         bnd += b_ms
         by = b_by if b_by == "operations" else by
         del args
-    print(f"      fc_gemv bf16 m=8, {label} ({len(groups)} CUDA launches): "
+    print(f"      fc_gemv bf16 m={m}, {label} ({len(groups)} CUDA launches): "
           f"kernel {ms:.4f} ms, plain {plain:.4f} ms, torch.matmul "
           f"{lib:.4f} ms, bound {bnd:.4f} ms", flush=True)
     return {"ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd,
@@ -230,7 +256,7 @@ def _fc_group_times(gen, groups: list, label: str) -> dict:
 def phase_fc_gemv() -> dict:
     gen = torch.Generator(device=DEV).manual_seed(1)
     shapes = list(dict.fromkeys((K, n) for K, ns in FC_GROUPS for n in ns))
-    cases = [(K, N, m) for K, N in shapes for m in (1, 8, 13)]
+    cases = [(K, N, m) for K, N in shapes for m in (1, 8, 13, 32)]
     cases += [(K, n, 8) for K, n in dict.fromkeys(
         (K, n) for K, ns in ZAMBA_FC_GROUPS for n in ns)]
     # ragged: N % 8 != 0, K < 16, clusters of 4 and 8 ranks whose last K
@@ -287,6 +313,9 @@ def phase_fc_gemv() -> dict:
     result = _fc_group_times(gen, FC_GROUPS, "one qwen2-0.5b layer")
     _fc_group_times(gen, ZAMBA_FC_GROUPS,
                     "one zamba2-1.2b shared-block application")
+    # the speculative verify window: 8 slots x spec_len 4
+    _fc_group_times(gen, FC_GROUPS, "one qwen2-0.5b layer, verify window",
+                    m=32)
     return {"max_abs_err": worst, **result}
 
 
@@ -316,13 +345,16 @@ def _sdpa(q, k, v, mask):
 
 
 # (label, t, lens, KV geometry) of the dense attention kernel's main-path
-# calls: qwen2-0.5b's GQA decode (t=1) and chunk waves (t=64) in 2048-token
-# slots, and zamba2-1.2b's MHA shared block (g=1, nkv=32) decoding in
-# 1024-token slots, lens up to the longest prompt plus its budget
+# calls: qwen2-0.5b's GQA decode (t=1), chunk waves (t=64) and speculative
+# verify windows (t=4) in 2048-token slots, and zamba2-1.2b's MHA shared
+# block (g=1, nkv=32) decoding in 1024-token slots, lens up to the longest
+# prompt plus its budget
 ATTN_CASES = [
     ("qwen2-0.5b", 1, [1, 32, 33, 2048, 100, 513, 1000, 7],
      dict(nkv=2, g=7, S=2048)),
     ("qwen2-0.5b", 64, [64, 65, 96, 2048, 128, 513, 1000, 200],
+     dict(nkv=2, g=7, S=2048)),
+    ("qwen2-0.5b", 4, [4, 5, 36, 2048, 100, 513, 1000, 7],
      dict(nkv=2, g=7, S=2048)),
     ("zamba2-1.2b", 1, [1, 12, 33, 512, 100, 300, 576, 64],
      dict(nkv=32, g=1, S=1024)),
@@ -373,7 +405,7 @@ def phase_decode_attention() -> dict:
     check(bool((zero[0] == 0).all() and (zero[2] == 0).all()),
           "decode_attention lens == 0 returns zeros")
     for dtype in (torch.float32, torch.bfloat16):
-        for t in (1, 64):
+        for t in (1, 4, 64):
             lens = split_edge_lens(t)
             q, k, v, ln = _attn_inputs(gen, dtype, t, lens, b=len(lens))
             got = attn_mod.decode_attention(q, k, v, ln, q_rows=t)
@@ -443,7 +475,8 @@ def _paged_pool(gen, dtype, lens, page, b=8, nkv=2, hd=64, S=2048):
 def phase_paged_attention() -> dict:
     gen = torch.Generator(device=DEV).manual_seed(4)
     lens_by_t = {1: [1, 32, 33, 2048, 100, 513, 1000, 7],
-                 64: [64, 65, 96, 2048, 128, 513, 1000, 200]}
+                 64: [64, 65, 96, 2048, 128, 513, 1000, 200],
+                 4: [4, 5, 36, 2048, 100, 513, 1000, 7]}
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for page in (16, 32):
@@ -480,7 +513,7 @@ def phase_paged_attention() -> dict:
                       f"{name}: table entries past each length never read")
     for dtype in (torch.float32, torch.bfloat16):
         for page in (7, 16, 32):
-            for t in (1, 64):
+            for t in (1, 4, 64):
                 lens = split_edge_lens(t)
                 b = len(lens)
                 kp, vp, clean, dirty = _paged_pool(gen, dtype, lens, page, b=b)
@@ -743,6 +776,9 @@ MODS = {"fc_gemv": fc_mod, "decode_attention": attn_mod,
 def zero_counts() -> None:
     for mod in MODS.values():
         mod.LAUNCHES = 0
+    fc_mod.LAUNCHES_BY_M.clear()
+    attn_mod.LAUNCHES_BY_ROWS.clear()
+    paged_mod.LAUNCHES_BY_ROWS.clear()
 
 
 def read_counts() -> dict:
@@ -806,7 +842,7 @@ def _serve(cfg, params, label: str, **kw) -> tuple[dict, dict]:
     return {r.req_id: r.tokens for r in results}, launches
 
 
-def phase_main_path() -> tuple[dict, dict]:
+def phase_main_path() -> tuple[dict, dict, dict]:
     """Phases 4 and 4b: the dense main path, then the paged one on the
     same requests; the streams must be equal."""
     cfg = get_config("qwen2-0.5b")
@@ -818,7 +854,7 @@ def phase_main_path() -> tuple[dict, dict]:
           "dense main path's")
     launches["paged_decode_attention"] = paged_launches[
         "paged_decode_attention"]
-    return launches, params
+    return launches, params, dense
 
 
 def phase_long_context(params) -> None:
@@ -1132,6 +1168,380 @@ def phase_ssm_parity() -> None:
 
 
 # ---------------------------------------------------------------------------
+ALPHA_MS = [1, 2, 4, 8, 16, 32, 64, 128]
+
+
+def phase_alpha() -> dict:
+    """Phase 3e: the reference's offline α calibration (§5.2.1) on the
+    card.  `calibrate_alpha_measured` times one layer's FC work on both
+    paths at each m (host wall clock around callables that block on the
+    device, median of 5 after a warm-up): run_pu = one torch.matmul per
+    weight (7), run_pim = one fc_gemv launch per group (4), weights rotated
+    past the L2.  Beside it, the same work's device time (CUDA events, the
+    host ahead of the device) and the crossover that time gives."""
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    out = {}
+    for label, groups in (("qwen2-0.5b layer", FC_GROUPS),
+                          ("zamba2-1.2b shared-block application",
+                           ZAMBA_FC_GROUPS)):
+        gbytes = sum(K * sum(ns) for K, ns in groups) * 2
+        copies = max(2, math.ceil(2 * L2_BYTES / gbytes))
+        run_pu, run_pim = fc_layer_runners(
+            groups, max_m=max(ALPHA_MS), dtype=torch.bfloat16, device=DEV,
+            generator=gen, copies=copies)
+        alphas, walls = [], []
+        for _ in range(3):              # three calibrations: their spread
+            rec = {"pu": {}, "pim": {}}
+
+            def recorded(fn, key, rec=rec):
+                def run(m):
+                    t0 = time.perf_counter()
+                    fn(m)
+                    rec[key].setdefault(m, []).append(
+                        time.perf_counter() - t0)
+                return run
+
+            alphas.append(cal.calibrate_alpha_measured(
+                recorded(run_pu, "pu"), recorded(run_pim, "pim"),
+                ms=ALPHA_MS))
+            # the medians of what calibrate_alpha_measured timed (warm-up
+            # dropped), each taken inside its call
+            walls.append({k: [statistics.median(v[m][1:]) * 1e3
+                              for m in ALPHA_MS] for k, v in rec.items()})
+        alpha, wall = alphas[0], walls[0]
+        # device time of the same work, one layer's weight copy per call
+        xs = {K: torch.randn(max(ALPHA_MS), K, generator=gen,
+                             device=DEV).to(torch.bfloat16)
+              for K, _ in groups}
+        sets = [[[torch.randn(K, n, generator=gen, device=DEV).to(
+            torch.bfloat16) for n in ns] for K, ns in groups]
+            for _ in range(copies)]
+        dev = {"pu": [], "pim": []}
+        for m in ALPHA_MS:
+            def pu(ws_layer, m=m):
+                for (K, _), ws in zip(groups, ws_layer):
+                    for w in ws:
+                        torch.matmul(xs[K][:m], w)
+
+            def pim(ws_layer, m=m):
+                for (K, _), ws in zip(groups, ws_layer):
+                    fc_mod.fc_gemv_group(xs[K][:m], ws)
+            args = [(ws,) for ws in sets]
+            dev["pu"].append(time_ms(pu, args))
+            dev["pim"].append(time_ms(pim, args))
+        alpha_dev = cal._crossover_alpha(ALPHA_MS, dev["pim"], dev["pu"])
+        print(f"      alpha, {label} (bf16, {copies} weight copies): "
+              "m | wall ms pu (7 torch.matmul) | wall ms pim (4 fc_gemv) | "
+              "device ms pu | device ms pim", flush=True)
+        for i, m in enumerate(ALPHA_MS):
+            print(f"        {m:4d} | {wall['pu'][i]:.4f} | "
+                  f"{wall['pim'][i]:.4f} | {dev['pu'][i]:.4f} | "
+                  f"{dev['pim'][i]:.4f}", flush=True)
+        print(f"      alpha, {label}: calibrate_alpha_measured (wall) "
+              f"{alpha} (the first of three calibrations: {alphas}; their "
+              "wall ms at m = 8, pu / pim: "
+              + ", ".join(f"{w['pu'][3]:.4f} / {w['pim'][3]:.4f}"
+                          for w in walls)
+              + f"); the device-time crossover {alpha_dev}", flush=True)
+        check(alpha in [0.5] + [m + 0.5 for m in ALPHA_MS],
+              f"alpha {label}: {alpha} is a crossover of the grid")
+        out[label] = (alpha, alpha_dev)
+        del sets, xs, run_pu, run_pim
+    return out
+
+
+# ---------------------------------------------------------------------------
+SPEC_LEN = 4
+
+
+def _spec_engine(cfg, params, draft, **kw):
+    base = dict(max_slots=8, cache_capacity=2048, prefill_len=64, alpha=4,
+                attn_pim=True, spec_len=SPEC_LEN, draft=draft, device=DEV)
+    return PapiEngine(cfg, params, **{**base, **kw})
+
+
+def _submit_main(eng, cfg) -> None:
+    """Phase 4's 8 requests (PROMPT_LENS, budgets 8 + 8 i, seed 0)."""
+    rng = np.random.default_rng(0)
+    for i, plen in enumerate(PROMPT_LENS):
+        eng.submit(ServeRequest(i, rng.integers(3, cfg.vocab_size,
+                                                size=plen).tolist(),
+                                max_new_tokens=8 + 8 * i))
+
+
+def _same_tokens(got: dict, want: dict) -> tuple[int, int]:
+    """(tokens equal position by position, tokens in `want`)."""
+    same = sum(sum(a == b for a, b in zip(got.get(i, []), t))
+               for i, t in want.items())
+    return same, sum(len(t) for t in want.values())
+
+
+def _ran_variants(eng) -> list[str]:
+    """The FC variant each decoding iteration ran: the scheduler's
+    assignment when the step began (its events: the initial schedule, then
+    one per iteration; set_tlp adds a flip between two)."""
+    ran, cur, it = [], eng.scheduler.events[0].assignment, 0
+    for ev in eng.scheduler.events[1:]:
+        if ev.iteration == it:          # a set_tlp flip before step it+1
+            cur = ev.assignment
+            continue
+        ran.append(cur)
+        cur, it = ev.assignment, ev.iteration
+    return ran
+
+
+def _serve_spec(cfg, params, draft, label, plain, **kw) -> dict:
+    """One speculative run of phase 4f with the launch counts set to 0
+    just before `run()` and read just after."""
+    eng = _spec_engine(cfg, params, draft, **kw)
+    _submit_main(eng, cfg)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(max_iterations=500)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    by_m = dict(fc_mod.LAUNCHES_BY_M)
+    paged = eng.kv is not None
+    attn_by_t = dict((paged_mod if paged else attn_mod).LAUNCHES_BY_ROWS)
+
+    streams = {r.req_id: r.tokens for r in results}
+    reasons = sorted(r.finished_reason for r in results)
+    check(len(results) == 8 and all(r in ("eos", "length") for r in reasons),
+          f"{label}: 8 requests finished ({reasons})")
+    toks = [t for r in results for t in r.tokens]
+    check(all(0 <= t < cfg.vocab_size for t in toks),
+          f"{label}: {len(toks)} tokens within the vocabulary")
+    spec_its = [s for s in eng.stats if s.admitted == 0]
+    check(bool(spec_its) and all(s.transfers == 1 for s in spec_its),
+          f"{label}: {len(spec_its)} speculative iterations without "
+          "admission, one host transfer each")
+    ran = _ran_variants(eng)
+    n_pim = ran.count("pim")
+    L = cfg.num_layers
+    # each pim iteration: k draft steps at m = 8, one verify at m = 8 k,
+    # 4 grouped launches per layer each
+    check(launches["fc_gemv"] == 4 * L * (SPEC_LEN + 1) * n_pim
+          and by_m.get(8 * SPEC_LEN, 0) == 4 * L * n_pim,
+          f"{label}: fc_gemv launched {launches['fc_gemv']} times ({by_m} "
+          f"by m) in {n_pim} pim iterations of {len(ran)}: 4 x {L} layers "
+          f"x ({SPEC_LEN} draft steps + the verify at m = {8 * SPEC_LEN})")
+    attn = "paged_decode_attention" if paged else "decode_attention"
+    other = "decode_attention" if paged else "paged_decode_attention"
+    check(attn_by_t.get(SPEC_LEN, 0) == L * len(ran)
+          and attn_by_t.get(1, 0) == L * SPEC_LEN * len(ran)
+          and launches[other] == 0 and launches["ssd_scan"] == 0,
+          f"{label}: {attn} calls by window t {attn_by_t}: {L} at t = "
+          f"{SPEC_LEN} (the verify) and {L * SPEC_LEN} at t = 1 (the draft) "
+          f"per iteration, over {len(ran)} iterations")
+    if paged:
+        alloc = eng.kv.alloc
+        alloc.check()
+        check(alloc.mapped_count == 0 and alloc.reserved_unmapped == 0
+              and alloc.free_count == alloc.num_pages,
+              f"{label}: pool drained (watermark {alloc.watermark} of "
+              f"{alloc.num_pages} pages)")
+    acc = [s.accepted for s in eng.stats]
+    same, total = _same_tokens(streams, plain)
+    print(f"      {label}: {len(toks)} tokens in {eng.iteration} iterations "
+          f"({n_pim} pim), {wall:.3f} s, {len(toks) / wall:.1f} tok/s; mean "
+          f"accepted per window {statistics.mean(acc):.3f}; {same} of "
+          f"{total} tokens equal the TLP = 1 run's; median iteration "
+          f"{statistics.median(s.wall_s for s in spec_its) * 1e3:.2f} ms",
+          flush=True)
+    return {"streams": streams, "launches": launches,
+            "accepted": statistics.mean(acc), "tok_s": len(toks) / wall}
+
+
+def phase_spec(params, plain: dict) -> dict:
+    """Phase 4f: speculative serving (spec_len 4, attn_pim) of phase 4's
+    8 requests at full width, bf16: dense and paged, at alpha 4 (pu at m =
+    32) and 99 (pim: fc_gemv at m = 32), with the perfect draft (the target
+    itself) and a seed-1 draft of the same config.  Returns the launches
+    summed over the runs."""
+    cfg = get_config("qwen2-0.5b")
+    seed1 = init_params(cfg, torch.Generator(device=DEV).manual_seed(1))
+    runs = {}
+    for layout in ("dense", "paged"):
+        for alpha in (4, 99):
+            for name, d in (("perfect draft", params), ("seed-1 draft",
+                                                        seed1)):
+                label = f"spec {layout} alpha={alpha} {name}"
+                runs[layout, alpha, name] = _serve_spec(
+                    cfg, params, (cfg, d), label, plain, alpha=alpha,
+                    kv_layout=layout, page_size=16)
+    for alpha in (4, 99):
+        for name in ("perfect draft", "seed-1 draft"):
+            check(runs["paged", alpha, name]["streams"]
+                  == runs["dense", alpha, name]["streams"],
+                  f"spec alpha={alpha} {name}: paged streams equal dense "
+                  "streams")
+    for layout in ("dense", "paged"):
+        acc = runs[layout, 99, "perfect draft"]["accepted"]
+        check(acc > 3.0, f"spec {layout}: the perfect draft accepts {acc:.3f} "
+              f"of {SPEC_LEN} per window")
+    check(any(r["launches"]["fc_gemv"] > 0 for k, r in runs.items()
+              if k[1] == 99), "spec alpha=99: fc_gemv launched")
+    del seed1
+    total = {}
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_tlp_register(params) -> None:
+    """Phase 4g: the paper's dynamic flip driven by TLP.  alpha 12 on 8
+    slots: at spec_len 1 the FC work has m = 8 <= 12 ("pim"); mid-run
+    `set_spec_len(4)` makes m = 32 > 12 ("pu"), a reschedule the scheduler
+    logs at once; as RLP decays to 3 (m = 12) it flips back."""
+    cfg = get_config("qwen2-0.5b")
+    eng = _spec_engine(cfg, params, (cfg, params), alpha=12, spec_len=1)
+    _submit_main(eng, cfg)
+    for _ in range(3):
+        eng.step()                  # admission, then two decode steps
+    before = fc_mod.LAUNCHES
+    eng.set_spec_len(SPEC_LEN)
+    flip = eng.scheduler.events[-1]
+    results = eng.run(max_iterations=500)
+    torch.cuda.synchronize()
+    ran = _ran_variants(eng)
+    print("      TLP register: scheduler events (iteration rlp tlp AI "
+          "assignment rescheduled): " + "; ".join(
+              f"{e.iteration} {e.rlp} {e.tlp} {e.ai_estimate:g} "
+              f"{e.assignment}{' FLIP' if e.rescheduled else ''}"
+              for e in eng.scheduler.events), flush=True)
+    check(eng.spec_len == SPEC_LEN and flip.rescheduled and flip.tlp == SPEC_LEN
+          and flip.assignment == "pu" and flip.ai_estimate == 8 * SPEC_LEN,
+          f"TLP register: set_spec_len({SPEC_LEN}) at RLP 8 flips pim -> pu "
+          f"at once (event: rlp {flip.rlp} tlp {flip.tlp} AI "
+          f"{flip.ai_estimate} {flip.assignment}, rescheduled "
+          f"{flip.rescheduled})")
+    check(ran[:3] == ["pim", "pim", "pim"] or ran[1:3] == ["pim", "pim"],
+          f"TLP register: the spec_len 1 iterations ran pim ({ran[:3]})")
+    check(ran[3] == "pu" and fc_mod.LAUNCHES > before,
+          f"TLP register: the first speculative iteration ran pu, and pim "
+          f"ran again as RLP decayed ({ran})")
+    check(len(results) == 8 and all(r.finished_reason in ("eos", "length")
+                                    for r in results),
+          "TLP register: 8 requests finished")
+
+
+def phase_spec_trace(params) -> None:
+    """Phase 5c: three steady speculative iterations (perfect draft,
+    spec_len 4, 8 live requests) per KV layout and FC variant under
+    torch.profiler: wall, device busy, FC-PIM and Attn-PIM device time and
+    launches (by m and by window t) per iteration."""
+    cfg = get_config("qwen2-0.5b")
+    rng = np.random.default_rng(5)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for layout, variant, alpha in (("dense", "pu", 0.0), ("dense", "pim", 99.0),
+                                   ("paged", "pu", 0.0), ("paged", "pim", 99.0)):
+        eng = _spec_engine(cfg, params, (cfg, params), alpha=alpha,
+                           kv_layout=layout)
+        for i in range(8):
+            eng.submit(ServeRequest(i, rng.integers(
+                3, cfg.vocab_size, size=32).tolist(), max_new_tokens=64))
+        for _ in range(3):
+            eng.step()                      # admission + warm iterations
+        torch.cuda.synchronize()
+        zero_counts()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_m = dict(fc_mod.LAUNCHES_BY_M)
+        by_t = dict((paged_mod if layout == "paged"
+                     else attn_mod).LAUNCHES_BY_ROWS)
+        kern = []
+        for evt in prof.key_averages():
+            dev = getattr(evt, "self_device_time_total", None)
+            if dev is None:
+                dev = getattr(evt, "self_cuda_time_total", 0)
+            if dev > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+                kern.append((dev, evt.key, evt.count))
+        if not kern:
+            print(f"      spec trace {layout} {variant}: profiler saw no device "
+                  "time (not measured)", flush=True)
+            continue
+        busy = sum(k[0] for k in kern)
+        attn = [k for k in kern if "attn_split" in k[1]
+                or "attn_merge" in k[1]]
+        fc = [k for k in kern if "fc_gemv" in k[1]]
+        top = sorted(kern, reverse=True)[:5]
+        ran = {s.fc_variant for s in eng.stats[-4:-1]}
+        print(f"      spec trace {layout} {variant} (ran {sorted(ran)}; "
+              f"accepted {[s.accepted for s in eng.stats[-3:]]}): 3 "
+              f"iterations {wall_us / 3e3:.2f} ms each, device busy "
+              f"{busy / 3e3:.2f} ms each ({busy / wall_us:.1%}); FC-PIM "
+              f"{sum(k[0] for k in fc) / 3e3:.4f} ms in "
+              f"{sum(k[2] for k in fc) // 3} CUDA launches each (calls by m "
+              f"over 3: {by_m}); Attn-PIM {sum(k[0] for k in attn) / 3e3:.4f}"
+              f" ms in {sum(k[2] for k in attn) // 3} CUDA launches each "
+              f"(calls by t over 3: {by_t}); top: "
+              + "; ".join(f"{name[:40]} {dev / 3e3:.3f} ms x{cnt // 3}"
+                          for dev, name, cnt in top), flush=True)
+        check(by_t.get(SPEC_LEN, 0) == 3 * cfg.num_layers,
+              f"spec trace {layout} {variant}: Attn-PIM at t = {SPEC_LEN} "
+              f"{by_t.get(SPEC_LEN, 0)} calls in 3 iterations")
+
+
+def phase_spec_parity() -> None:
+    """Phase 6c: lossless in f32.  Full width, 2 layers, the kernels on
+    (pim FC at alpha 99, Attn-PIM): the seed-1 draft's spec_len 4 streams
+    must equal the spec_len 1 streams, dense and paged.  On a divergence,
+    the first divergent position and the TLP = 1 top-1/top-2 logit margin
+    there."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(3))
+    draft = (cfg, init_params(cfg, torch.Generator(device=DEV).manual_seed(1)))
+    for layout in ("dense", "paged"):
+        out = {}
+        for k in (1, SPEC_LEN):
+            eng = _spec_engine(cfg, params, draft if k > 1 else None,
+                               alpha=99, spec_len=k, kv_layout=layout,
+                               eos_token=cfg.vocab_size)
+            _submit_main(eng, cfg)
+            out[k] = ({r.req_id: r.tokens for r in eng.run(500)},
+                      [s.accepted for s in eng.stats])
+        same, total = _same_tokens(out[SPEC_LEN][0], out[1][0])
+        ok = out[SPEC_LEN][0] == out[1][0]
+        note = ""
+        if not ok:
+            i = next(i for i in out[1][0] if out[1][0][i] != out[SPEC_LEN][0].get(i))
+            a, b = out[1][0][i], out[SPEC_LEN][0].get(i, [])
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            note = (f"; first divergence: request {i} token {j}, margin "
+                    f"{_top2_margin(cfg, params, i, a[:j]):.3e}")
+        check(ok, f"lossless f32 2 layers {layout}: spec_len {SPEC_LEN} "
+              f"(seed-1 draft, mean accepted "
+              f"{statistics.mean(out[SPEC_LEN][1]):.3f}) streams equal the "
+              f"spec_len 1 streams ({same} of {total} tokens){note}")
+
+
+def _top2_margin(cfg, params, req_id: int, prefix: list) -> float:
+    """The TLP = 1 top-1 minus top-2 logit after request `req_id`'s prompt
+    and `prefix` of its output, by one prefill over the whole sequence."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+               for n in PROMPT_LENS]
+    seq = prompts[req_id] + list(prefix)
+    cache = init_cache(cfg, 1, len(seq), DEV)
+    batch = {"tokens": torch.tensor([seq], dtype=torch.int32, device=DEV),
+             "prompt_lens": torch.tensor([len(seq)], dtype=torch.int32,
+                                         device=DEV)}
+    logits, _ = prefill(cfg, params, batch, cache)
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -1157,11 +1567,16 @@ def main() -> int:
     at = timed(phase_decode_attention)
     pa = timed(phase_paged_attention)
     ssd = timed(phase_ssd_scan)
-    launches, params = timed(phase_main_path)
+    timed(phase_alpha)
+    launches, params, plain = timed(phase_main_path)
     timed(phase_long_context, params)
+    spec_launches = timed(phase_spec, params, plain)
+    timed(phase_tlp_register, params)
     timed(phase_trace, params)
+    timed(phase_spec_trace, params)
     del params
     timed(phase_parity)
+    timed(phase_spec_parity)
     ssm_launches, ssm_params = timed(phase_ssm_paths)
     timed(phase_wave_trace, ssm_params)
     del ssm_params
@@ -1169,10 +1584,12 @@ def main() -> int:
     # the sum over every path's run, each with the counts set to 0 just
     # before it
     print(f"      launches by path: qwen2-0.5b dense and paged (phases 4, "
-          f"4b): {json.dumps(launches)}; "
+          f"4b): {json.dumps(launches)}; qwen2-0.5b speculative (phase 4f, "
+          f"8 runs): {json.dumps(spec_launches)}; "
           + "; ".join(f"{arch}: {json.dumps(ln)}"
                       for arch, ln in ssm_launches.items()), flush=True)
-    launches = {name: n + sum(ln[name] for ln in ssm_launches.values())
+    launches = {name: n + spec_launches[name]
+                + sum(ln[name] for ln in ssm_launches.values())
                 for name, n in launches.items()}
 
     rows = [

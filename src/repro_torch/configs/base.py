@@ -1,14 +1,28 @@
 """Model configuration: the port's own copy of the subset of
-`repro.configs.base` that the serving path reads — `ModelConfig` with its
-dense, SSM (`SSMConfig`, Mamba2) and hybrid (`HybridConfig`, zamba2)
-fields, `resolved_head_dim`, `group_size`, `num_attention_applications`
-and the `reduced()` smoke twin."""
+`repro.configs.base` that the serving path and the core read —
+`ModelConfig` with its dense, MoE (`MoEConfig`, read by the AI estimate
+and the device models only: the port serves no MoE model yet), SSM
+(`SSMConfig`, Mamba2) and hybrid (`HybridConfig`, zamba2) fields,
+`resolved_head_dim`, `group_size`, `num_attention_applications` and the
+`reduced()` smoke twin."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "vlm", "audio"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    top_k: int = 0
+    # per-expert FFN hidden dim (an MoE model's d_ff is 0)
+    d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
+    # load-balancing aux loss weight (Switch-style)
+    aux_loss_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +71,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     causal: bool = True
     decoder: bool = True
+    moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
     hybrid: HybridConfig | None = None
     dtype: str = "bfloat16"
@@ -115,6 +130,10 @@ class ModelConfig:
             tie_embeddings=self.tie_embeddings,
             causal=self.causal,
             decoder=self.decoder,
+            moe=(MoEConfig(num_experts=min(self.moe.num_experts, 4),
+                           top_k=min(self.moe.top_k, 2), d_ff=64,
+                           capacity_factor=self.moe.capacity_factor)
+                 if self.moe is not None else None),
             ssm=(SSMConfig(d_state=16, head_dim=32, expand=2,
                            conv_kernel=self.ssm.conv_kernel, chunk_size=32)
                  if self.ssm is not None else None),

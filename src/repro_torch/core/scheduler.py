@@ -12,6 +12,7 @@ host-side and O(batch).
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 
@@ -20,6 +21,7 @@ from repro_torch.core.ai import effective_parallelism
 
 FC_PU = "pu"
 FC_PIM = "pim"
+ATTN_PIM = "attn_pim"
 
 
 @dataclasses.dataclass
@@ -56,6 +58,23 @@ class PapiScheduler:
         self._log(rescheduled=False)
         return self._assignment
 
+    def set_tlp(self, tlp: int) -> None:
+        """The host writes the TLP register.  A TLP change is a monitored
+        parallelism change (§5.2.2), so the decision is re-made at once."""
+        self.tlp = int(tlp)
+        new = self._decide()
+        if new != self._assignment:
+            self.num_reschedules += 1
+            self._assignment = new
+            self._log(rescheduled=True)
+
+    def observe_outputs(self, output_tokens: Sequence[int],
+                        admitted: int = 0) -> str:
+        """After an iteration: count the <eos> tokens among the batch's new
+        tokens, fold in the admitted requests, and re-decide."""
+        finished = sum(1 for t in output_tokens if t == self.eos_token)
+        return self.observe_counts(finished, admitted)
+
     def observe_counts(self, finished, admitted: int = 0) -> str:
         """After each iteration: `finished` may be an int or an array of
         per-slot finish flags (summed here)."""
@@ -81,6 +100,11 @@ class PapiScheduler:
     @property
     def fc_assignment(self) -> str:
         return self._assignment
+
+    @property
+    def attention_assignment(self) -> str:
+        """Attention is always memory-bound (§4.1): pinned to Attn-PIM."""
+        return ATTN_PIM
 
     def _log(self, rescheduled: bool) -> None:
         self.events.append(SchedulerEvent(

@@ -23,7 +23,9 @@ device->host copy) nor from the KV capacity nor the dtype (so the dense and
 the paged kernel split alike and stay bit-equal).  `LAUNCHES` counts calls
 that ran the kernel, one per call: a call with more than one split issues
 two CUDA launches (the split pass and the merge), one with a single split
-issues one (`cuda_launches`).
+issues one (`cuda_launches`).  `LAUNCHES_BY_ROWS` counts the same calls by
+their window t (``q_rows``): 1 for a decode step, the speculation length
+for a verify window, the prefill window for a chunk wave.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ WAVES = 2
 SCRATCH_CAP = 64 * 2 ** 20
 
 LAUNCHES = 0
+LAUNCHES_BY_ROWS: dict[int, int] = {}
 _fn = None
 
 
@@ -178,4 +181,5 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "decode_attention")
     LAUNCHES += 1
+    LAUNCHES_BY_ROWS[q_rows] = LAUNCHES_BY_ROWS.get(q_rows, 0) + 1
     return out

@@ -7,7 +7,8 @@ that share x and K (q/k/v, gate/up) in ONE launch of the hand-written CUDA
 kernel (``csrc/fc_gemv.cu``); `fc_gemv(x, w)` is a group of one.  Tensors
 on the CPU take the plain PyTorch version `fc_gemv_ref`.  `LAUNCHES`
 counts kernel launches, one per call, grouped or not (CPU calls and
-`fc_gemv_ref` do not count), so a run can show the path went through it.
+`fc_gemv_ref` do not count), so a run can show the path went through it;
+`LAUNCHES_BY_M` counts the same launches by their rows m (slots x window).
 
 The kernel splits K over a thread-block cluster of `cluster` blocks of
 `k_slice` rows each and adds the ranks' partial sums inside the cluster,
@@ -46,6 +47,7 @@ STAGE_BYTES = 8192
 SMEM_MAX = 232448        # dynamic shared memory one block may take
 
 LAUNCHES = 0
+LAUNCHES_BY_M: dict[int, int] = {}
 _fn = None
 
 
@@ -151,6 +153,7 @@ def fc_gemv_group(x: torch.Tensor, ws: list[torch.Tensor]
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fc_gemv")
     LAUNCHES += 1
+    LAUNCHES_BY_M[m] = LAUNCHES_BY_M.get(m, 0) + 1
     return ys
 
 

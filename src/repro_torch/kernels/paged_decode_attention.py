@@ -18,6 +18,7 @@ length may name any page (the engine points them at the garbage page 0):
 the kernel never reads them and the plain version masks them.  `LAUNCHES`
 counts calls that ran the kernel, one per call; a call with more than one
 split issues two CUDA launches (the split pass and the merge).
+`LAUNCHES_BY_ROWS` counts the same calls by their window t (``q_rows``).
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from repro_torch.kernels.decode_attention import (DTYPES, HEAD_DIMS,
                                                   sm_count, split_scratch)
 
 LAUNCHES = 0
+LAUNCHES_BY_ROWS: dict[int, int] = {}
 _fn = None
 
 
@@ -120,4 +122,5 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention")
     LAUNCHES += 1
+    LAUNCHES_BY_ROWS[q_rows] = LAUNCHES_BY_ROWS.get(q_rows, 0) + 1
     return out

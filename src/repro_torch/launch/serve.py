@@ -5,17 +5,25 @@ trace with random weights made from ``--seed``.
         [--kv paged --page-size 16]
     python -m repro_torch.launch.serve --arch zamba2-1.2b --attn-pim
     python -m repro_torch.launch.serve --arch mamba2-1.3b
+    python -m repro_torch.launch.serve --arch qwen2-0.5b --attn-pim \\
+        --spec-len 4 --draft-arch qwen2-0.5b
 
 Requests follow `repro.launch.serve`: ``--requests`` draws from
 `core.traces.generate_trace(--task)` (default general-qa, 16 requests),
 the engine runs at capacity 256, prefill window 32 and α 6.0, and prompts
-are capped at capacity − 64 − 2 tokens (the output cap and the
-speculative window of one) with budgets capped at 64, from the same seed
-in the same order.  ``--capacity``, ``--prefill-len``, ``--max-prompt``
-and ``--alpha`` override those.
+are capped at capacity − 64 − max(spec_len, 1) − 1 tokens (the output
+cap and the speculative window) with budgets capped at 64, from the same
+seed in the same order.  ``--capacity``, ``--prefill-len``,
+``--max-prompt`` and ``--alpha`` override those.
+
+``--spec-len k --draft-arch ARCH`` decodes speculatively (TLP = k) with a
+draft of ARCH whose weights come from ``--seed + 1``, as in the reference;
+the launcher then prints the mean tokens accepted per window.
 
 The SSM (mamba2) and hybrid (zamba2) families reject prompts longer than
-``--prefill-len`` and refuse ``--kv paged``, as the reference does.
+``--prefill-len``, refuse ``--kv paged``, as the reference does, and
+refuse a draft with ``--spec-len`` above 1 (their SSM state has no
+rewind).
 
 Runs on the card (``--device cpu`` for the plain PyTorch path).  Prints
 the per-iteration scheduler decisions — RLP, TLP, the AI estimate and the
@@ -36,16 +44,14 @@ from repro_torch.core.traces import generate_trace
 from repro_torch.models import init_params
 from repro_torch.serving import PapiEngine, ServeRequest
 
-# the speculative window the prompt cap leaves room for (spec_len 1 until
-# speculative decoding is ported) and the generation budget's cap
-SPEC_LEN = 1
+# the generation budget's cap
 MAX_NEW = 64
 
 
-def default_max_prompt(capacity: int) -> int:
+def default_max_prompt(capacity: int, spec_len: int = 1) -> int:
     """The reference's prompt cap: the slab less the output cap and the
     speculative window."""
-    return capacity - MAX_NEW - max(SPEC_LEN, 1) - 1
+    return capacity - MAX_NEW - max(spec_len, 1) - 1
 
 
 def make_requests(task: str, n: int, vocab: int, seed: int,
@@ -75,8 +81,15 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-len", type=int, default=32,
                     help="prefill window; longer prompts are chunked")
     ap.add_argument("--max-prompt", type=int, default=None,
-                    help="prompt cap; default capacity - 64 - 2")
+                    help="prompt cap; default capacity - 64 - "
+                         "max(spec_len, 1) - 1")
     ap.add_argument("--alpha", type=float, default=6.0)
+    ap.add_argument("--spec-len", type=int, default=1,
+                    help="speculation length (TLP); above 1 with "
+                         "--draft-arch")
+    ap.add_argument("--draft-arch", default=None,
+                    help="draft model for speculative decoding (weights "
+                         "from --seed + 1)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--attn-pim", action="store_true",
                     help="every decode-path attention through the Attn-PIM "
@@ -101,13 +114,19 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen)
+    draft = None
+    if args.draft_arch:
+        dcfg = get_config(args.draft_arch)
+        dgen = torch.Generator(device=device).manual_seed(args.seed + 1)
+        draft = (dcfg, init_params(dcfg, dgen))
     eng = PapiEngine(cfg, params, max_slots=args.max_slots,
                      cache_capacity=args.capacity,
                      prefill_len=args.prefill_len, alpha=args.alpha,
+                     spec_len=args.spec_len, draft=draft,
                      attn_pim=args.attn_pim, kv_layout=args.kv,
                      page_size=args.page_size, max_blocks=args.max_blocks,
                      device=device)
-    max_prompt = (default_max_prompt(args.capacity)
+    max_prompt = (default_max_prompt(args.capacity, args.spec_len)
                   if args.max_prompt is None else args.max_prompt)
     for r in make_requests(args.task, args.requests, cfg.vocab_size,
                            args.seed, max_prompt):
@@ -124,16 +143,22 @@ def main(argv=None) -> None:
           f"{dict(sorted(by_reason.items()))} on {device}")
     print(f"tokens: {tok}  wall: {wall:.2f}s  tok/s: {tok / max(wall, 1e-9):.1f}")
     print(f"reschedules: {eng.scheduler.num_reschedules}")
+    if draft is not None and args.spec_len > 1:
+        acc = [s.accepted for s in eng.stats if s.new_tokens]
+        mean = float(np.mean(acc)) if acc else 0.0
+        print(f"speculation: spec_len {args.spec_len}, draft "
+              f"{args.draft_arch}, mean accepted per window {mean:.2f} "
+              f"over {len(acc)} iterations")
     if eng.kv is not None:
         st = eng.kv.stats()
         frag = max((s.kv_fragmentation for s in eng.stats), default=0.0)
         print(f"kv pages: watermark {st.watermark}/{st.num_pages} "
               f"({st.page_size} tokens/page), peak fragmentation "
               f"{frag:.1%}")
-    print("\niter  rlp tlp    AI  fc_path  new_toks")
+    print("\niter  rlp tlp    AI  fc_path  new_toks  accepted")
     for s in eng.stats:
         print(f"{s.iteration:5d} {s.rlp:4d} {s.tlp:3d} {s.ai_estimate:5.1f}  "
-              f"{s.fc_variant:7s} {s.new_tokens:5d}")
+              f"{s.fc_variant:7s} {s.new_tokens:5d}  {s.accepted:8.2f}")
 
 
 if __name__ == "__main__":

@@ -50,11 +50,12 @@ class PSpec:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.family not in FAMILIES or cfg.mlp != "swiglu"
-            or cfg.norm != "rmsnorm" or not cfg.tie_embeddings):
+    if (cfg.family not in FAMILIES or cfg.moe is not None
+            or cfg.mlp != "swiglu" or cfg.norm != "rmsnorm"
+            or not cfg.tie_embeddings):
         raise NotImplementedError(
             f"{cfg.name}: the port serves {'/'.join(FAMILIES)} models with "
-            "swiglu/rmsnorm and tied embeddings only")
+            "swiglu/rmsnorm, tied embeddings and no MoE only")
 
 
 def _attn_spec(cfg: ModelConfig, residual_std: float) -> dict:

@@ -1,6 +1,7 @@
 """PAPI serving engine of the port: offline continuous batching with
-dynamic FC-path scheduling over a dense KV slab or a paged KV pool —
-`repro.serving.engine`'s `PapiEngine.submit/run/step` at TLP = 1.
+dynamic FC-path scheduling over a dense KV slab or a paged KV pool, and
+lossless greedy speculative decoding (TLP > 1) with a draft model —
+`repro.serving.engine`'s `PapiEngine.submit/run/step/set_spec_len`.
 
 Each iteration:
   1. admits waiting requests into free KV slots: chunk 0 of every admitted
@@ -8,41 +9,60 @@ Each iteration:
      `prefill_len`-token chunks of long prompts through `prefill_chunk`
      waves (the decode path at the running offset, masked KV writes); only
      the final chunk's logits give the first token, and the whole admission
-     costs one device->host copy;
-  2. runs one decode step for every slot (inactive slots decode garbage at
-     pos = 1 that is never read) with greedy sampling on the device, and
-     fetches the [slots] token vector — the iteration's ONE host transfer;
+     costs one device->host copy.  With a draft model its cache is
+     prefilled in the same waves, at the same offsets;
+  2. decodes every slot (inactive slots decode garbage at pos = 1 that is
+     never read) with greedy sampling on the device: one decode step at
+     TLP = 1, or, with ``spec_len = k > 1`` and a draft, one speculative
+     iteration — k draft steps at t = 1, one target `decode_step` over the
+     window ``[last, proposals[:-1]]`` at t = k (the verify), the
+     accept-longest-prefix (`sampler.accept_speculative`) and the rewind
+     of both caches' positions, all on the device.  The iteration's ONE
+     host transfer fetches the tokens (with the accepted counts and the
+     eos flags when speculating);
   3. feeds the finish flags to `core.scheduler.PapiScheduler`, which
      compares AI ~= RLP * TLP with alpha and picks "pu" (matmul) or "pim"
-     (`fc_gemv`) for the next iteration's FC projections.
+     (`fc_gemv`) for the next iteration's FC projections (the draft's
+     included).  `set_spec_len` writes the TLP register.
+
+``fused=False`` keeps the reference's host loop as the oracle of the
+speculative iteration: one fetch per draft step and one for the verify.
 
 ``attn_pim=True`` routes every decode-path attention — plain decode and
-chunk waves alike — through the Attn-PIM kernel.  Admission runs under the
-ambient FC variant ("pu"), as in the reference.
+chunk waves and verify windows alike — through the Attn-PIM kernel.
+Admission runs under the ambient FC variant ("pu"), as in the reference.
 
 The SSM (mamba2) and hybrid (zamba2) families carry per-slot SSM state
 that has no sequence dim to mask, so they take no chunk waves: a prompt
 longer than ``prefill_len`` is rejected honestly, as in the reference.
 Every admission wave's prefill runs each SSM layer's chunked scan through
-the `ssd_scan` kernel.
+the `ssd_scan` kernel.  They take no speculation either: a verify window
+advances each layer's SSM state by k tokens, and a partial accept rewinds
+only the KV position, so the reference's speculative streams on these
+families leave its TLP = 1 streams.  The engine refuses ``spec_len > 1``
+with a draft there instead.
 
 ``kv_layout="paged"`` holds the KV cache in a pool of ``page_size``-token
 pages (one Attn-PIM bank row each; `serving.kv_pages`), by default the
 dense slab's bytes: ``max_slots * cache_capacity / page_size`` pages plus
 the garbage page 0.  Admission is budgeted by pages from that one pool: a
 prompt longer than the table can hold is rejected; a request whose prompt,
-budget and decode window do not fit the pages available right now DEFERS
-(the queue keeps its order); otherwise its whole prompt's pages are mapped
-up front and the rest of its budget is reserved.  Each decode maps the page
-its next KV row needs (`ensure`), and the block tables go host->device only
-after a row changed.  A request longer than a dense slot completes.  There
+budget and decode window (``max(spec_len, 1)`` rows) do not fit the pages
+available right now DEFERS (the queue keeps its order); otherwise its
+whole prompt's pages are mapped up front and the rest of its budget is
+reserved.  Each decode maps the pages its next KV rows need (`ensure`), a
+partial accept returns the pages past the accepted prefix (`rewind`; the
+reservation keeps them claimable), and the block tables go host->device
+only after a row changed.  The draft's KV is a second pool indexed by the
+same block tables.  A request longer than a dense slot completes.  There
 is no pool-pressure preemption yet: a deferred head waits for running
 requests to finish, and the reservation arithmetic guarantees that it
 then clears (every admitted request's growth is already reserved).
 
-Not ported yet: speculative decoding, `serve()`, faults and the degraded
-path, preemption, deadlines, the journal, telemetry, the sanitizer and
-mesh execution.
+Not ported yet: `serve()` and the mixed wave, faults and the degraded
+path, preemption, deadlines, the journal, telemetry, the sanitizer, mesh
+execution, and speculation on the SSM and hybrid families (a state
+rewind).
 """
 from __future__ import annotations
 
@@ -60,7 +80,7 @@ from repro_torch.models import (attn_impl, decode_step, fc_variant,
                                 init_cache, init_paged_cache, prefill_chunk,
                                 prefill_to_pages, prefill_to_slots)
 from repro_torch.serving.kv_pages import PagedKVManager
-from repro_torch.serving.sampler import greedy
+from repro_torch.serving.sampler import accept_speculative, greedy
 
 
 @dataclasses.dataclass
@@ -88,6 +108,7 @@ class IterStats:
     fc_variant: str
     new_tokens: int
     wall_s: float
+    accepted: float = 0.0  # mean accepted tokens per decoding slot
     transfers: int = 0     # device->host copies this iteration
     admitted: int = 0      # requests admitted to slots this iteration
     # paged KV layout only (zeros under the dense layout):
@@ -98,11 +119,17 @@ class IterStats:
 
 
 class PapiEngine:
-    """Serving engine on one device (``cuda`` unless ``device="cpu"``)."""
+    """Serving engine on one device (``cuda`` unless ``device="cpu"``).
+
+    ``draft=(cfg, params)`` and ``spec_len > 1`` turn on speculative
+    decoding; the draft needs the target's vocabulary and its params on
+    the engine's device."""
 
     def __init__(self, cfg: ModelConfig, params: dict, *, max_slots: int = 8,
                  cache_capacity: int = 256, prefill_len: int = 64,
-                 alpha: float = 32.0, eos_token: int = 2,
+                 alpha: float = 32.0, spec_len: int = 1,
+                 draft: tuple[ModelConfig, dict] | None = None,
+                 eos_token: int = 2, fused: bool = True,
                  attn_pim: bool = False, kv_layout: str = "dense",
                  page_size: int = 16, num_pages: int | None = None,
                  max_blocks: int | None = None,
@@ -113,10 +140,20 @@ class PapiEngine:
             raise ValueError(f"kv_layout must be 'dense' or 'paged', not "
                              f"{kv_layout!r}")
         self.device = resolve_device(device)
-        if params["embed"]["w"].device.type != self.device.type:
-            raise ValueError(f"params live on {params['embed']['w'].device}, "
-                             f"the engine on {self.device}")
+        for what, p in (("params", params),
+                        ("draft params", draft[1] if draft else None)):
+            if p is not None and p["embed"]["w"].device.type != self.device.type:
+                raise ValueError(f"{what} live on {p['embed']['w'].device}, "
+                                 f"the engine on {self.device}")
+        if draft is not None and draft[0].vocab_size != cfg.vocab_size:
+            raise ValueError(f"draft {draft[0].name} has vocabulary "
+                             f"{draft[0].vocab_size}, the target {cfg.name} "
+                             f"{cfg.vocab_size}: their tokens must agree")
         self.cfg, self.params = cfg, params
+        self.draft_cfg, self.draft_params = draft if draft else (None, None)
+        self._check_speculation(spec_len)
+        self.spec_len = spec_len
+        self.fused = fused
         self.max_slots = max_slots
         self.capacity = cache_capacity
         self.prefill_len = prefill_len
@@ -126,9 +163,9 @@ class PapiEngine:
         # sequence dim to mask, so stateful families keep single-window
         # prefill and reject longer prompts honestly
         self._can_chunk = cfg.family in ("dense", "moe", "vlm", "audio")
-        self.scheduler = PapiScheduler(cfg, alpha=alpha, tlp=1,
+        self.scheduler = PapiScheduler(cfg, alpha=alpha, tlp=spec_len,
                                        eos_token=eos_token)
-        self.scheduler.initial_schedule(0, 1)
+        self.scheduler.initial_schedule(0, spec_len)
         self.kv: PagedKVManager | None = None
         if kv_layout == "paged":
             # default pool: the dense slab's bytes plus the garbage page,
@@ -138,12 +175,16 @@ class PapiEngine:
             self.kv = PagedKVManager(num_pages=num_pages, page_size=page_size,
                                      max_slots=max_slots,
                                      max_blocks=max_blocks)
-            self.cache = init_paged_cache(cfg, max_slots, num_pages,
-                                          page_size, self.kv.max_blocks,
-                                          self.device)
+            # the draft's KV lives at the same logical positions: a second
+            # pool of the same geometry, indexed by the same block tables
+            self.cache, self.draft_cache = (
+                init_paged_cache(c, max_slots, num_pages, page_size,
+                                 self.kv.max_blocks, self.device)
+                if c is not None else None for c in (cfg, self.draft_cfg))
         else:
-            self.cache = init_cache(cfg, max_slots, cache_capacity,
-                                    self.device)
+            self.cache, self.draft_cache = (
+                init_cache(c, max_slots, cache_capacity, self.device)
+                if c is not None else None for c in (cfg, self.draft_cfg))
         # per-slot host state
         self.slot_req: list[ServeRequest | None] = [None] * max_slots
         self.slot_tokens: list[list[int]] = [[] for _ in range(max_slots)]
@@ -161,6 +202,24 @@ class PapiEngine:
     # ------------------------------------------------------------------ API
     def submit(self, req: ServeRequest) -> None:
         self.queue.append(req)
+
+    def set_spec_len(self, tlp: int) -> None:
+        """The host writes the TLP register (dynamic speculation length).
+
+        Admission reserved ``prompt + budget + window`` per live slot, so a
+        wider window re-checks them, or the verify's KV writes would run
+        past what was reserved: under pages the live reservations are
+        re-budgeted and the window clamped to what the free pool and the
+        table width cover; on the dense slab it is clamped to the smallest
+        live slot's headroom (a write past the capacity would clamp down
+        onto live KV).  Narrower is always affordable; on a clamp the
+        scheduler gets a smaller TLP than was asked for."""
+        self._check_speculation(tlp)
+        if tlp != self.spec_len:
+            tlp = (self._rebudget_spec_window(tlp) if self.kv is not None
+                   else self._clamp_spec_window_dense(tlp))
+        self.spec_len = tlp
+        self.scheduler.set_tlp(tlp)
 
     @property
     def active_slots(self) -> list[int]:
@@ -182,6 +241,58 @@ class PapiEngine:
         return self.results
 
     # ------------------------------------------------------------- internals
+    def _check_speculation(self, tlp: int) -> None:
+        """Refuse speculation where a partial accept cannot rewind: the SSM
+        state of the SSM and hybrid families has no position to rewind."""
+        if tlp > 1 and self.draft_cfg is not None:
+            ssm = [c.name for c in (self.cfg, self.draft_cfg)
+                   if c.family in ("ssm", "hybrid")]
+            if ssm:
+                raise ValueError(
+                    f"speculative decoding (spec_len={tlp}) on {ssm}: a "
+                    "verify window advances the SSM state by spec_len "
+                    "tokens and a partial accept would leave it unrewound "
+                    "(only the KV position rewinds), so the streams would "
+                    "not be lossless")
+
+    @property
+    def _speculating(self) -> bool:
+        return self.spec_len > 1 and self.draft_cfg is not None
+
+    def _clamp_spec_window_dense(self, tlp: int) -> int:
+        """Dense slab: admission kept ``prompt + budget + old window <=
+        capacity`` per live slot, so the widest window every live slot can
+        hold is its remaining headroom."""
+        want = max(tlp, 1)
+        for s in self.active_slots:
+            headroom = (self.capacity - int(self.slot_prompt[s])
+                        - int(self.slot_budget[s]))
+            want = min(want, max(headroom, 1))
+        return want if want != max(tlp, 1) else tlp
+
+    def _rebudget_spec_window(self, tlp: int) -> int:
+        """Pages: move the live slots' reservations from the old window to
+        `tlp`'s, and return the (possibly clamped) window every live slot
+        can hold within the free pool and the block-table width."""
+        old_win = max(self.spec_len, 1)
+        live = self.active_slots
+
+        def budget(s: int, win: int) -> int:
+            base = int(self.slot_prompt[s]) + int(self.slot_budget[s])
+            return self.kv.pages_for(base + win)
+
+        def delta(s: int, new_win: int) -> int:
+            return budget(s, new_win) - budget(s, old_win)
+
+        want = max(tlp, 1)
+        while want > old_win and (
+                sum(delta(s, want) for s in live) > self.kv.alloc.available
+                or any(budget(s, want) > self.kv.max_blocks for s in live)):
+            want -= 1
+        for s in live:
+            self.kv.alloc.reserve_more(s, delta(s, want))
+        return want if want != max(tlp, 1) else tlp
+
     def _fetch(self, *tensors: torch.Tensor):
         """The engine's one counted device->host copy: int tensors are
         flattened into one buffer, copied once, and split on the host."""
@@ -204,7 +315,10 @@ class PapiEngine:
         check on the no-change path, a host->device copy after a row
         changed, never a device->host one."""
         if self.kv is not None:
-            self.cache["block_tables"] = self.kv.tables.device(self.device)
+            tables = self.kv.tables.device(self.device)
+            for cache in (self.cache, self.draft_cache):
+                if cache is not None:
+                    cache["block_tables"] = tables
 
     def _attn_scope(self):
         return attn_impl("pim" if self.attn_pim else "xla")
@@ -232,6 +346,7 @@ class PapiEngine:
     def _admit_wave(self) -> tuple[int, bool]:
         free = [i for i, r in enumerate(self.slot_req) if r is None]
         batch_rows: list[tuple[int, ServeRequest]] = []
+        window = max(self.spec_len, 1)
         while self.queue and free:
             req = self.queue[0]
             p = len(req.prompt)        # the FULL prompt — never truncated
@@ -240,23 +355,25 @@ class PapiEngine:
                 # window: reject instead of dropping the prompt head
                 self._emit(self.queue.pop(0), [], "rejected")
                 continue
-            # a slot holds prompt + budget + the TLP = 1 decode window
+            # a slot holds prompt + budget + a full decode window past the
+            # last new token (the verify writes `window` rows)
             room = (self.kv.max_context if self.kv is not None
-                    else self.capacity) - p - 1
+                    else self.capacity) - p - window
             if room < 1:
                 # it cannot hold the prompt and one token: reject honestly
                 # instead of truncating
                 self._emit(self.queue.pop(0), [], "rejected")
                 continue
             budget = max(1, min(req.max_new_tokens, room))
-            if self.kv is not None and not self.kv.can_admit(p + budget + 1):
+            if self.kv is not None and not self.kv.can_admit(
+                    p + budget + window):
                 break                  # pool busy: defer, keep the order
             self.queue.pop(0)
             slot = free.pop(0)
             if self.kv is not None:
                 # the prompt's pages are mapped now, the rest of the budget
                 # reserved and mapped as decoding grows
-                self.kv.admit(slot, p + budget + 1, p)
+                self.kv.admit(slot, p + budget + window, p)
             self.slot_budget[slot] = budget
             batch_rows.append((slot, req))
         if not batch_rows:
@@ -274,11 +391,16 @@ class PapiEngine:
             self.slot_prompt[slot] = len(req.prompt)
         batch = {"tokens": self._to_device(tokens),
                  "prompt_lens": self._to_device(lens)}
+        src_dev = self._to_device(src)
         self._sync_tables()    # paged: the admitted rows just mapped pages
         to_cache = prefill_to_pages if self.kv is not None else prefill_to_slots
         with self._attn_scope():
             first, self.cache = to_cache(self.cfg, self.params, batch,
-                                         self.cache, self._to_device(src))
+                                         self.cache, src_dev)
+            if self.draft_cfg is not None:
+                _, self.draft_cache = to_cache(
+                    self.draft_cfg, self.draft_params, batch,
+                    self.draft_cache, src_dev)
             # chunks 1..: every wave advances each pending slot by one
             # (ragged-tail-masked) window; nothing host-side depends on a
             # wave's result, so all waves run back to back and admission
@@ -299,9 +421,14 @@ class PapiEngine:
                     if offs[slot] == len(req.prompt):
                         final.append(slot)
                         del pending[slot]
-                nxt, self.cache = prefill_chunk(
-                    self.cfg, self.params, self.cache,
-                    self._to_device(ctoks), self._to_device(clens))
+                ct, cl = self._to_device(ctoks), self._to_device(clens)
+                nxt, self.cache = prefill_chunk(self.cfg, self.params,
+                                                self.cache, ct, cl)
+                if self.draft_cfg is not None:
+                    # the draft's KV covers the same prompt positions
+                    _, self.draft_cache = prefill_chunk(
+                        self.draft_cfg, self.draft_params, self.draft_cache,
+                        ct, cl)
                 if final:
                     wave_finals.append((nxt, final))
         got = self._fetch(first, *(nxt for nxt, _ in wave_finals))
@@ -332,16 +459,84 @@ class PapiEngine:
                 admitted += 1              # counts toward RLP
         return admitted, instant_finish
 
-    def _decode_all(self) -> np.ndarray:
-        """One fused plain decode step for all slots: decode_step + greedy
-        on the device, then the iteration's single host fetch."""
-        variant = self.scheduler.fc_assignment
-        with fc_variant(variant), self._attn_scope():
-            last = self._to_device(self.slot_last)
-            logits, self.cache = decode_step(self.cfg, self.params,
-                                             self.cache, last[:, None])
+    def _decode_all(self) -> tuple[np.ndarray, np.ndarray]:
+        """One decoding iteration for all slots, under the scheduler's FC
+        variant.  Returns (tokens [slots, <= spec_len], accepted [slots])."""
+        with fc_variant(self.scheduler.fc_assignment), self._attn_scope():
+            if not self._speculating:
+                # the fused plain step: decode_step + greedy on the device,
+                # then the iteration's single host fetch
+                last = self._to_device(self.slot_last)
+                logits, self.cache = decode_step(self.cfg, self.params,
+                                                 self.cache, last[:, None])
+                nxt = np.asarray(self._fetch(greedy(logits[:, -1])))
+                return nxt[:, None], np.ones(self.max_slots)
+            if self.fused:
+                return self._speculative_iteration_fused()
+            return self._speculative_iteration_host()
+
+    def _rewind(self, accepted: torch.Tensor) -> None:
+        """The target advanced k for every slot: rewind it to the accepted
+        prefix, and the draft (k steps ahead) to the target."""
+        self.cache["pos"] = self.cache["pos"] - (self.spec_len - accepted)
+        self.draft_cache["pos"] = torch.minimum(self.draft_cache["pos"],
+                                                self.cache["pos"])
+
+    def _speculative_iteration_fused(self) -> tuple[np.ndarray, np.ndarray]:
+        """Draft, verify, accept and rewind on the device; the host fetches
+        one (out, accepted, finished_eos) bundle."""
+        k = self.spec_len
+        last = self._to_device(self.slot_last)
+        # 1) the draft proposes autoregressively, k steps at t = 1: the
+        # extra step writes the KV of the window's last token, so a full
+        # accept leaves the two caches in step
+        tok, props = last, []
+        for _ in range(k):
+            logits, self.draft_cache = decode_step(
+                self.draft_cfg, self.draft_params, self.draft_cache,
+                tok[:, None])
+            tok = greedy(logits[:, -1])
+            props.append(tok)
+        window = torch.stack([last] + props[:-1], dim=1)          # [slots, k]
+        # 2) the target verifies the window in one decode step (TLP = k)
+        logits, self.cache = decode_step(self.cfg, self.params, self.cache,
+                                         window)
+        # 3) accept the longest matching prefix, rewind both caches
+        out, accepted = accept_speculative(window, greedy(logits))
+        self._rewind(accepted)
+        in_window = (torch.arange(k, device=self.device)[None, :]
+                     < accepted[:, None])
+        finished_eos = ((out == self.eos_token) & in_window).any(dim=1)
+        out_h, acc_h, _ = self._fetch(out, accepted, finished_eos)
+        return out_h, acc_h.astype(np.float64)
+
+    def _speculative_iteration_host(self) -> tuple[np.ndarray, np.ndarray]:
+        """The reference's host loop, the oracle of the fused iteration:
+        one fetch per draft step, one for the verify, the accept on the
+        host."""
+        k = self.spec_len
+        proposals = [self.slot_last.copy()]
+        last = self._to_device(self.slot_last)[:, None]
+        for _ in range(k):
+            logits, self.draft_cache = decode_step(
+                self.draft_cfg, self.draft_params, self.draft_cache, last)
             nxt = greedy(logits[:, -1])
-        return np.asarray(self._fetch(nxt))
+            proposals.append(np.asarray(self._fetch(nxt)))
+            last = nxt[:, None]
+        window = np.stack(proposals[:k], axis=1)                  # [slots, k]
+        logits, self.cache = decode_step(self.cfg, self.params, self.cache,
+                                         self._to_device(window))
+        target = np.asarray(self._fetch(greedy(logits)))          # [slots, k]
+        accepted = np.zeros(self.max_slots, np.int64)
+        out = np.zeros((self.max_slots, k), np.int32)
+        for s in range(self.max_slots):
+            n = 0
+            while n < k - 1 and window[s, n + 1] == target[s, n]:
+                n += 1
+            accepted[s] = n + 1                        # +1: the free token
+            out[s, :n + 1] = target[s, :n + 1]
+        self._rewind(self._to_device(accepted.astype(np.int32)))
+        return out, accepted.astype(np.float64)
 
     def step(self) -> None:
         t0 = time.perf_counter()
@@ -353,43 +548,57 @@ class PapiEngine:
             self.iteration += 1
             return
 
+        speculating = self._speculating
         if self.kv is not None:
-            # map the page of the KV row this step writes (position pos);
-            # cannot fail: admission reserved prompt + budget + window
+            # map the pages of the KV rows this iteration writes (positions
+            # pos..pos+tlp-1); cannot fail: admission reserved prompt +
+            # budget + window
+            tlp = self.spec_len if speculating else 1
             for s in decoding:
-                self.kv.ensure(s, self._slot_pos(s) + 1)
+                self.kv.ensure(s, self._slot_pos(s) + tlp)
             self._sync_tables()
-        out = self._decode_all()
+        out, accepted = self._decode_all()
 
-        # host-side bookkeeping: append tokens, detect eos / length
+        # host-side bookkeeping: append up to `accepted` tokens per slot,
+        # stopping at eos or at the budget
         finished = np.zeros(self.max_slots, bool)
         new_tokens = 0
         for s in decoding:
             req = self.slot_req[s]
-            tok = int(out[s])
-            self.slot_tokens[s].append(tok)
-            new_tokens += 1
-            if tok == self.eos_token or (
-                    len(self.slot_tokens[s]) >= self.slot_budget[s]):
-                reason = "eos" if tok == self.eos_token else "length"
-                self._emit(req, self.slot_tokens[s], reason)
-                self.slot_req[s] = None
-                self.slot_tokens[s] = []
-                self.slot_last[s] = 0
-                finished[s] = True
-                if self.kv is not None:
-                    self.kv.release(s)
+            n_acc = int(accepted[s])
+            for j in range(n_acc):
+                tok = int(out[s, j])
+                self.slot_tokens[s].append(tok)
+                new_tokens += 1
+                if tok == self.eos_token or (
+                        len(self.slot_tokens[s]) >= self.slot_budget[s]):
+                    reason = "eos" if tok == self.eos_token else "length"
+                    self._emit(req, self.slot_tokens[s], reason)
+                    self.slot_req[s] = None
+                    self.slot_tokens[s] = []
+                    self.slot_last[s] = 0
+                    finished[s] = True
+                    if self.kv is not None:
+                        self.kv.release(s)
+                    break
             else:
-                self.slot_last[s] = tok
+                self.slot_last[s] = self.slot_tokens[s][-1]
+                if self.kv is not None and speculating and (
+                        n_acc < self.spec_len):
+                    # the rewind returned the position to the accepted
+                    # prefix; pages past it hold only the rejected tail
+                    self.kv.rewind(s, self._slot_pos(s))
 
-        # park inactive slots at pos = 1 so their garbage decode never
-        # creeps past the capacity (fixed-shape mask, as the reference)
+        # park inactive slots at pos = 1 in both caches so their garbage
+        # decode never creeps past the capacity (fixed-shape mask, as the
+        # reference)
         inactive = np.array([r is None for r in self.slot_req])
         if inactive.any():
-            self.cache["pos"] = torch.where(
-                self._to_device(inactive),
-                torch.ones((), dtype=torch.int32, device=self.device),
-                self.cache["pos"])
+            mask = self._to_device(inactive)
+            one = torch.ones((), dtype=torch.int32, device=self.device)
+            for cache in (self.cache, self.draft_cache):
+                if cache is not None:
+                    cache["pos"] = torch.where(mask, one, cache["pos"])
 
         # the PAPI runtime scheduling step (§5.2.2)
         self.scheduler.observe_counts(finished, admitted)
@@ -409,10 +618,10 @@ class PapiEngine:
             fc_variant=self.scheduler.fc_assignment,
             new_tokens=new_tokens,
             wall_s=time.perf_counter() - t0,
+            accepted=float(np.mean(accepted[decoding])),
             transfers=self.host_transfers - transfers0,
             admitted=admitted,
             **pool,
         ))
-
 
 __all__ = ["IterStats", "PapiEngine", "ServeRequest", "ServeResult"]

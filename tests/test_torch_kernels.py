@@ -18,7 +18,10 @@ early rows, g = 1 at every head dim, two calls bit-equal) and
 `ssd_scan`'s (against its plain version at the smoke shapes and at
 mamba2-1.3b's and zamba2-1.2b's (hp, n) over two and three 256-row chunks,
 1e-4 in f32 and 5e-2 in bf16 as in tests/test_kernels.py, the state at
-1e-4; two calls bit-equal, two CUDA launches a call).  The planners (the
+1e-4; two calls bit-equal, two CUDA launches a call), and the speculative
+verify window's shapes (both attention kernels at q_rows = 4, the paged
+one bit-equal to the dense one, and `fc_gemv_group` at m = 32 over
+qwen2-0.5b's projection groups).  The planners (the
 attention kernels' split count, `fc_gemv`'s K split and column tile) are
 pure Python and are held here on the CPU.  JAX is imported only
 by the cases that need it, so the ``gpu`` cases also run where the card
@@ -825,3 +828,62 @@ def test_ssd_scan_kernel_raises_on_a_chunk_past_shared_memory(cuda):
                             B[:, :512], C[:, :512], chunk=256)
     torch.cuda.synchronize()
     assert ssd_mod.LAUNCHES == before + 1 and bool(torch.isfinite(y).all())
+
+
+# ---------------------------------------------------------------------------
+# the speculative verify window's shapes (spec_len 4 on 8 slots): both
+# attention kernels at q_rows = 4 with qwen2-0.5b's geometry, and FC-PIM at
+# m = 32 rows over qwen2's projections
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_decode_attention_kernel_at_the_verify_window(cuda, dtype, tol):
+    dt = getattr(torch, dtype)
+    lens = [4, 5, 36, 100, 513, 1000, 2047, 2048]
+    q, k, v, ln = _attn_inputs(17, 8, 2, 7, 64, 2048, 4, lens)
+    q, k, v = (torch.from_numpy(a).to(cuda, dt) for a in (q, k, v))
+    ln = torch.from_numpy(ln).to(cuda)
+    before = attn_mod.LAUNCHES
+    got = attn_mod.decode_attention(q, k, v, ln, q_rows=4)
+    torch.cuda.synchronize()
+    assert attn_mod.LAUNCHES == before + 1
+    torch.testing.assert_close(
+        got.float(), attn_mod.decode_attention_ref(q, k, v, ln, 4).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("page", [16, 32])
+def test_paged_decode_attention_kernel_at_the_verify_window(cuda, page, dtype,
+                                                            tol):
+    dt = getattr(torch, dtype)
+    args = _paged_on_card(cuda, dt, 4, page, 40 + page, max_len=1000)
+    before = paged_mod.LAUNCHES
+    got = paged_mod.paged_decode_attention(*args, q_rows=4)
+    torch.cuda.synchronize()
+    assert paged_mod.LAUNCHES == before + 1
+    torch.testing.assert_close(
+        got.float(), paged_mod.paged_decode_attention_ref(*args, 4).float(),
+        rtol=tol, atol=tol)
+    k = paged_mod.gather_kv_pages(args[1], args[4]).contiguous()
+    v = paged_mod.gather_kv_pages(args[2], args[4]).contiguous()
+    assert torch.equal(got, attn_mod.decode_attention(args[0], k, v, args[3],
+                                                      q_rows=4))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("K,ns", [(896, [896, 128, 128]), (896, [896]),
+                                  (896, [4864, 4864]), (4864, [896])])
+def test_fc_gemv_kernel_at_the_verify_window(cuda, K, ns, dtype, tol):
+    dt = getattr(torch, dtype)
+    x, ws = _fc_on_card(cuda, dt, 32, K, ns, 32 + K)
+    before = fc_mod.LAUNCHES
+    got = fc_mod.fc_gemv_group(x, ws)
+    torch.cuda.synchronize()
+    assert fc_mod.LAUNCHES == before + 1
+    for y, w in zip(got, ws):
+        torch.testing.assert_close(y.float(), fc_mod.fc_gemv_ref(x, w).float(),
+                                   rtol=tol, atol=tol)

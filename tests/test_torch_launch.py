@@ -7,7 +7,9 @@ seeded generator, prompts capped at capacity − 64 − 2, budgets at 64) with
 the reference's defaults (16 requests, α 6.0, capacity 256, prefill 32).
 The reference's request list is captured from its own `main()`, with its
 trace run replaced by a recorder; the port's from its `main()`, with the
-engine replaced by a recorder.
+engine replaced by a recorder.  With ``--spec-len 3 --draft-arch
+qwen2-0.5b-smoke`` the cap leaves room for the window (capacity − 64 − 4)
+and the draft's weights come from seed + 1, as in the reference.
 """
 import dataclasses
 import sys
@@ -135,3 +137,32 @@ def test_launcher_default_run_serves_the_reference_trace(capsys):
     serve_cli.main(["--arch", "qwen2-0.5b-smoke", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "completed 16 requests" in out and "fc_path" in out
+
+
+SPEC = ("--spec-len", "3", "--draft-arch", "qwen2-0.5b-smoke")
+
+
+def test_launcher_spec_requests_match_reference_recipe(monkeypatch):
+    """With a speculative window of 3 the prompt cap leaves room for it
+    (capacity - 64 - 3 - 1), as the reference launcher's does; the engine
+    gets the window and a draft of the named arch."""
+    want = _reference_requests(monkeypatch, *SPEC)
+    kw, got = _port_launch(monkeypatch, *SPEC)
+    assert got == want and len(got) == 16
+    assert max(len(p) for p, _ in got) <= serve_cli.default_max_prompt(256, 3)
+    assert serve_cli.default_max_prompt(256, 3) == 256 - 64 - 3 - 1
+    assert kw["spec_len"] == 3
+    dcfg, dparams = kw["draft"]
+    assert dcfg == get_config("qwen2-0.5b-smoke")
+    # the draft's weights come from seed + 1
+    from repro_torch.models import init_params
+    want_w = init_params(dcfg, torch.Generator().manual_seed(1))
+    assert torch.equal(dparams["embed"]["w"], want_w["embed"]["w"])
+
+
+def test_launcher_serves_speculatively(capsys):
+    serve_cli.main(["--arch", "qwen2-0.5b-smoke", "--device", "cpu",
+                    "--requests", "4", *SPEC])
+    out = capsys.readouterr().out
+    assert "completed 4 requests" in out
+    assert "mean accepted per window" in out
