@@ -36,6 +36,11 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      speculative verify window's shapes ride along: fc_gemv at m = 32 (8
      slots x spec_len 4, checked and timed) and both attention kernels at
      t = 4 (the main geometry and the split edges);
+     serve()'s mixed wave rides along: fc_gemv at m = 256 and 512 (8 slots
+     x a prefill window of 32 or 64) for each qwen2 group, checked and timed,
+     and both attention kernels at t = 64 with lens past the 2048-token
+     capacity (decode rows near a slot's end), f32 and bf16, the paged one
+     over 2048-token tables and bit-equal to the dense kernel;
      3e: the reference's α calibration (`calibrate_alpha_measured`) on one
      qwen2-0.5b layer's and one zamba2-1.2b application's FC work (7
      torch.matmul calls against 4 fc_gemv launches, weights rotated past
@@ -71,12 +76,28 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      4g: the TLP register at α 12: spec_len 1 runs "pim" (m = 8),
      `set_spec_len(4)` flips to "pu" (m = 32) at once, and "pim" returns as
      RLP decays; prints the scheduler's events;
+     4h: `PapiEngine.serve()` (continuous batching) on phase 4's requests
+     arriving on the launcher's seeded Poisson schedule at 0.5 a step,
+     dense and paged, α 4 and 99: every request finishes, mixed iterations
+     (prefill and decode slots both live) exist, each iteration takes one
+     fetch for its wave or decode step plus one for an admitted prompt that
+     fits the window (a mixed iteration no more than a decode one),
+     fc_gemv launched 4 x 24 times at m = 512 for each mixed wave that ran
+     "pim", Attn-PIM at t = 64 once per layer and wave, paged streams equal
+     dense ones, the pool drains; prints tokens/s, TTFT and TPOT p50/p99 in
+     seconds and iterations, and the tokens equal to phase 4's;
+     4i: speculative `serve()` (spec_len 4, the perfect draft, α 99), dense
+     and paged: every request finishes, one fetch per speculative iteration
+     plus one per chunk wave that completes a prompt, chunk waves under
+     "pu" (no fc_gemv at m = 512); prints accepted per window;
   5. trace five steady iterations per KV layout and FC variant with
      torch.profiler (device busy share, top kernels, FC-PIM's and
      Attn-PIM's device time and CUDA launches per iteration); 5b: one admission
      wave of each SSM model (busy share, ssd_scan's share over both of its
      CUDA kernels); 5c: three steady speculative iterations per layout and
-     FC variant (the same, with calls by m and by window t);
+     FC variant (the same, with calls by m and by window t); 5d: three
+     mixed waves (4 decode rows, 4 prompts mid-prefill) at α 99 per layout
+     (the same, per wave);
   6. parity at full width, 2 layers, f32: one decode step's logits with the
      kernels (pim FC + Attn-PIM) against the plain path (pu + plain
      attention) within 1e-3, over a dense slab and over a paged cache;
@@ -85,6 +106,11 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      6c: lossless speculation in f32 (2 layers, the kernels on): the
      seed-1 draft's spec_len 4 streams equal the spec_len 1 streams, dense
      and paged (else the first divergence and the logit margin there);
+     6d: f32, 2 layers, the kernels on: the `serve()` streams of phase 4h's
+     schedule equal the offline `run()` streams, dense and paged (else the
+     first divergence and the margin there); and one mixed wave whose
+     decode rows sit within the window of the capacity (lens past the
+     slab) against the plain path within 1e-3, dense and paged;
   7. print the `kernels` JSON line, the card line, and last the device JSON.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -122,11 +148,13 @@ from repro_torch.kernels import fc_gemv as fc_mod  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as paged_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.ops import fc_layer_runners  # noqa: E402
+from repro_torch.launch.serve import arrival_schedule  # noqa: E402
 from repro_torch.models import (attn_impl, decode_step, fc_variant,  # noqa: E402
                                 init_cache, init_paged_cache, init_params,
-                                prefill, prefill_to_pages, prefill_to_slots,
-                                ssd_impl)
-from repro_torch.serving import PapiEngine, ServeRequest  # noqa: E402
+                                mixed_step, prefill, prefill_to_pages,
+                                prefill_to_slots, ssd_impl)
+from repro_torch.serving import (PapiEngine, ServeRequest,  # noqa: E402
+                                 latency_summary)
 
 DEV = torch.device("cuda")
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -139,6 +167,9 @@ FC_GROUPS = [(896, [896, 128, 128]), (896, [896]), (896, [4864, 4864]),
              (4864, [896])]
 ZAMBA_FC_GROUPS = [(2048, [2048, 2048, 2048]), (2048, [2048]),
                    (2048, [8192, 8192]), (8192, [2048])]
+# the rows of serve()'s mixed wave: max_slots x prefill_len at the
+# launcher's defaults (8 x 32) and at phase 4h's engine (8 x 64)
+MIXED_MS = (256, 512)
 L2_BYTES = 50 * 2 ** 20
 FAILURES: list[str] = []
 
@@ -308,6 +339,26 @@ def phase_fc_gemv() -> dict:
                       f"fc_gemv_group {str(dtype)[6:]} m={m} K={K} N={ns}: "
                       f"{one} launch, bit-equal to single launches and to "
                       "a second run")
+        # serve()'s mixed wave under "pim": every projection at m =
+        # max_slots x prefill_len (8 x 32 at the launcher's defaults, 8 x 64
+        # at phase 4h's engine), m_rows(m) = 64 rows a pass over the weights
+        for K, ns in FC_GROUPS:
+            for m in MIXED_MS:
+                x = torch.randn(m, K, generator=gen, device=DEV).to(dtype)
+                ws = [(torch.randn(K, n, generator=gen, device=DEV)
+                       / math.sqrt(K)).to(dtype) for n in ns]
+                ys = fc_mod.fc_gemv_group(x, ws)
+                torch.cuda.synchronize()
+                errs = [max_err(y, fc_mod.fc_gemv_ref(x, w))
+                        for y, w in zip(ys, ws)]
+                if dtype == torch.bfloat16:
+                    worst = max([worst] + [e for e, _, _ in errs])
+                check(all(ok for _, ok, _ in errs)
+                      and all(y.shape == (m, n) for y, n in zip(ys, ns)),
+                      f"fc_gemv_group {str(dtype)[6:]} m={m} K={K} N={ns} "
+                      f"(the mixed wave, {-(-m // fc_mod.m_rows(m))} passes "
+                      f"over the weights): max_abs_err "
+                      f"{max(e for e, _, _ in errs):.3e} (tol {errs[0][2]})")
     # timing at the decode path's m = max_slots = 8, bf16: one qwen2 layer's
     # FC groups (the row), one application of zamba2's shared block (printed)
     result = _fc_group_times(gen, FC_GROUPS, "one qwen2-0.5b layer")
@@ -316,6 +367,9 @@ def phase_fc_gemv() -> dict:
     # the speculative verify window: 8 slots x spec_len 4
     _fc_group_times(gen, FC_GROUPS, "one qwen2-0.5b layer, verify window",
                     m=32)
+    for m in MIXED_MS:
+        _fc_group_times(gen, FC_GROUPS, "one qwen2-0.5b layer, mixed wave",
+                        m=m)
     return {"max_abs_err": worst, **result}
 
 
@@ -359,6 +413,13 @@ ATTN_CASES = [
     ("zamba2-1.2b", 1, [1, 12, 33, 512, 100, 300, 576, 64],
      dict(nkv=32, g=1, S=1024)),
 ]
+
+
+# lens of a qwen2-0.5b chunk wave (t=64) whose decode rows sit near the end
+# of their 2048-token slots: a decode row at position p has lens = p + 64,
+# up to 2047 + 64 = 2111, past the capacity; the kernels clamp to it, as the
+# plain version's mask does
+CAPACITY_EDGE_LENS = [2049, 2110, 2111, 2048, 65, 513, 1000, 200]
 
 
 def plan_note(b, nkv, rows) -> str:
@@ -419,6 +480,18 @@ def phase_decode_attention() -> dict:
                   f"({plan_note(len(lens), 2, 7 * t)}) lens={lens}: "
                   f"max_abs_err {err:.3e} (tol {tol}), lens 0 -> zeros, "
                   "two calls bit-equal")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, ln = _attn_inputs(gen, dtype, 64, CAPACITY_EDGE_LENS)
+        got = attn_mod.decode_attention(q, k, v, ln, q_rows=64)
+        torch.cuda.synchronize()
+        err, ok, tol = max_err(
+            got, attn_mod.decode_attention_ref(q, k, v, ln, 64))
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
+        check(ok and bool(torch.isfinite(got).all()),
+              f"decode_attention {str(dtype)[6:]} qwen2-0.5b t=64 lens past "
+              f"the capacity S=2048 lens={CAPACITY_EDGE_LENS}: max_abs_err "
+              f"{err:.3e} (tol {tol})")
     result = {"max_abs_err": worst}
     for arch, t, lens, geo in ATTN_CASES:
         sets = [_attn_inputs(gen, torch.bfloat16, t, lens, **geo)
@@ -544,6 +617,34 @@ def phase_paged_attention() -> dict:
                       "bit-equal to the dense kernel, table entries past "
                       "each length never read, lens 0 -> zeros")
                 del kp, vp, clean, dirty
+    for dtype in (torch.float32, torch.bfloat16):
+        for page in (16, 32):
+            # tables of 2048 // page entries: a capacity of S = 2048
+            kp, vp, clean, _ = _paged_pool(gen, dtype, CAPACITY_EDGE_LENS,
+                                           page)
+            tab = clean[:, :2048 // page].contiguous()
+            q = torch.randn(8, 2, 64 * 7, 64, generator=gen,
+                            device=DEV).to(dtype)
+            ln = torch.tensor(CAPACITY_EDGE_LENS, dtype=torch.int32,
+                              device=DEV)
+            got = paged_mod.paged_decode_attention(q, kp, vp, ln, tab,
+                                                   q_rows=64)
+            dense = attn_mod.decode_attention(
+                q, paged_mod.gather_kv_pages(kp, tab).contiguous(),
+                paged_mod.gather_kv_pages(vp, tab).contiguous(), ln,
+                q_rows=64)
+            torch.cuda.synchronize()
+            err, ok, tol = max_err(got, paged_mod.paged_decode_attention_ref(
+                q, kp, vp, ln, tab, 64))
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+            check(ok and bool(torch.isfinite(got).all())
+                  and torch.equal(got, dense),
+                  f"paged_decode_attention {str(dtype)[6:]} page={page} t=64 "
+                  f"lens past the capacity 2048 lens={CAPACITY_EDGE_LENS}: "
+                  f"max_abs_err {err:.3e} (tol {tol}), bit-equal to the "
+                  "dense kernel")
+            del kp, vp, clean
     kp, vp, clean, _ = _paged_pool(gen, torch.bfloat16, [0, 5, 0, 9, 1, 2,
                                                          3, 4], 16)
     q = torch.randn(8, 2, 7, 64, generator=gen, device=DEV).to(torch.bfloat16)
@@ -1542,6 +1643,359 @@ def _top2_margin(cfg, params, req_id: int, prefix: list) -> float:
 
 
 # ---------------------------------------------------------------------------
+# serve(): the continuous-batching front end
+ARRIVAL_RATE = 0.5      # requests per iteration, as `--arrivals 0.5`
+MIXED_M = 8 * 64        # a mixed wave's FC rows: max_slots x prefill_len
+
+
+def _main_schedule(cfg) -> list:
+    """Phase 4's 8 requests on the launcher's seeded Poisson schedule: the
+    prompts from default_rng(0), then the arrival gaps from the same
+    generator (`launch.serve.arrival_schedule`)."""
+    rng = np.random.default_rng(0)
+    reqs = [ServeRequest(i, rng.integers(3, cfg.vocab_size,
+                                         size=plen).tolist(),
+                         max_new_tokens=8 + 8 * i)
+            for i, plen in enumerate(PROMPT_LENS)]
+    return arrival_schedule(reqs, ARRIVAL_RATE, rng)
+
+
+def _consume(events, label: str) -> dict:
+    """{req_id: ServeResult} of a serve() run, with the streamed tokens held
+    equal to each result's."""
+    streams, finals = {}, {}
+    for ev in events:
+        if ev.finished:
+            finals[ev.req_id] = ev.result
+        else:
+            streams.setdefault(ev.req_id, []).append(ev.token)
+    check(all(streams.get(i, []) == r.tokens for i, r in finals.items()),
+          f"{label}: the streamed tokens equal each result's")
+    return finals
+
+
+def _expected_transfers(eng, st, chunk_wave: bool) -> int:
+    """The fetches iteration `st` should take: one when it admitted a
+    prompt that fits the window (its first token), one for the decode or
+    the mixed wave, and, when speculating, one for a chunk wave that
+    completed a prompt."""
+    it = st.iteration - 1
+    reqs = {r.req_id: r for r in eng.results}
+    short = any(eng.admit_iteration.get(i) == it
+                and r.prompt_len <= eng.prefill_len for i, r in reqs.items())
+    if not chunk_wave:
+        return int(short) + 1
+    final = any(eng.first_token_iteration.get(i) == it
+                and r.prompt_len > eng.prefill_len for i, r in reqs.items())
+    return int(short) + int(final) + int(st.decode_slots > 0)
+
+
+def _latency_line(label, finals, wall) -> str:
+    summ = latency_summary(finals.values())
+    toks = sum(len(r.tokens) for r in finals.values())
+    return (f"      {label}: {toks} tokens in {wall:.3f} s, "
+            f"{toks / wall:.1f} tok/s; " + ", ".join(
+                f"{f} p50 {summ[f]['p50']:.4g} p99 {summ[f]['p99']:.4g}"
+                for f in ("ttft_s", "tpot_s", "ttft_iters",
+                          "queue_delay_iters")))
+
+
+def _serve_live(cfg, params, label, plain, spec: bool, **kw) -> dict:
+    """One serve() run of phases 4h / 4i with the launch counts set to 0
+    just before the stream starts and read just after it ends."""
+    base = dict(max_slots=8, cache_capacity=2048, prefill_len=64,
+                attn_pim=True, device=DEV)
+    if spec:
+        base.update(spec_len=SPEC_LEN, draft=(cfg, params))
+    eng = PapiEngine(cfg, params, **{**base, **kw})
+    sched = _main_schedule(cfg)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    finals = _consume(eng.serve(sched, max_iterations=500), label)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    by_m = dict(fc_mod.LAUNCHES_BY_M)
+    paged = eng.kv is not None
+    by_t = dict((paged_mod if paged else attn_mod).LAUNCHES_BY_ROWS)
+
+    reasons = sorted(r.finished_reason for r in finals.values())
+    check(len(finals) == 8 and all(r in ("eos", "length") for r in reasons),
+          f"{label}: 8 requests finished ({reasons})")
+    toks = [t for r in finals.values() for t in r.tokens]
+    check(all(0 <= t < cfg.vocab_size for t in toks),
+          f"{label}: {len(toks)} tokens within the vocabulary")
+    ran = _ran_variants(eng)
+    waves = [s for s in eng.stats if s.prefill_slots]
+    mixed = [s for s in waves if s.decode_slots]
+    plain_its = [s for s in eng.stats
+                 if s.decode_slots and not s.prefill_slots]
+    check(bool(mixed), f"{label}: {len(mixed)} mixed iterations (prefill and "
+          f"decode slots both live) of {len(eng.stats)}")
+    bad = [(s.iteration, s.transfers, _expected_transfers(eng, s, spec))
+           for s in eng.stats
+           if s.transfers != _expected_transfers(eng, s, spec)]
+    quiet = {k: sorted({s.transfers for s in its if not s.admitted})
+             for k, its in (("mixed", mixed), ("decode", plain_its))}
+    what = ("one per speculative iteration, one per chunk wave that "
+            "completes a prompt" if spec else "one per wave or decode step")
+    check(not bad and (spec or quiet["mixed"] in ([], [1])),
+          f"{label}: transfers {what}, one per admission of a short prompt "
+          f"(iterations that admit nothing: {quiet}; off: {bad})")
+    L = cfg.num_layers
+    wave_pim = sum(1 for s in waves if ran[s.iteration - 1] == "pim")
+    if spec:
+        # chunk waves run the ambient FC variant ("pu"), as admission does,
+        # on the target and on the draft (here of the target's depth)
+        check(by_m.get(MIXED_M, 0) == 0
+              and by_t.get(64, 0) == 2 * L * len(waves),
+              f"{label}: {len(waves)} chunk waves, each under pu (no fc_gemv "
+              f"at m = {MIXED_M}: {by_m.get(MIXED_M, 0)}) and Attn-PIM at "
+              f"t = 64 once per layer of the target and of the draft "
+              f"({by_t})")
+    else:
+        check(by_m.get(MIXED_M, 0) == 4 * L * wave_pim
+              and by_t.get(64, 0) == L * len(waves),
+              f"{label}: fc_gemv at m = {MIXED_M} launched "
+              f"{by_m.get(MIXED_M, 0)} times = 4 x {L} layers x {wave_pim} "
+              f"mixed waves that ran pim (of {len(waves)}); Attn-PIM at "
+              f"t = 64 {by_t.get(64, 0)} calls ({by_m} by m)")
+    attn = "paged_decode_attention" if paged else "decode_attention"
+    other = "decode_attention" if paged else "paged_decode_attention"
+    check(launches[attn] > 0 and launches[other] == 0
+          and launches["ssd_scan"] == 0, f"{label}: launches {launches}")
+    if paged:
+        alloc = eng.kv.alloc
+        alloc.check()
+        check(alloc.mapped_count == 0 and alloc.reserved_unmapped == 0
+              and alloc.free_count == alloc.num_pages,
+              f"{label}: pool drained (watermark {alloc.watermark} of "
+              f"{alloc.num_pages} pages)")
+    streams = {i: r.tokens for i, r in finals.items()}
+    same, total = _same_tokens(streams, plain)
+    line = _latency_line(label, finals, wall)
+    line += (f"; {len(eng.stats)} iterations, {len(mixed)} mixed, "
+             f"{len(waves)} waves"
+             + ("" if spec else f" ({wave_pim} on pim)")
+             + f"; {same} of {total} tokens equal phase 4's offline streams")
+    if mixed and plain_its:
+        line += (f"; median wall: mixed iteration "
+                 f"{statistics.median(s.wall_s for s in mixed) * 1e3:.2f} ms, "
+                 "decode iteration "
+                 f"{statistics.median(s.wall_s for s in plain_its) * 1e3:.2f}"
+                 " ms")
+    if spec:
+        acc = [s.accepted for s in eng.stats if s.decode_slots]
+        line += f"; mean accepted per window {statistics.mean(acc):.3f}"
+    print(line, flush=True)
+    return {"streams": streams, "launches": launches}
+
+
+def phase_serve(params, plain: dict) -> dict:
+    """Phases 4h and 4i: `PapiEngine.serve` at full width, bf16, on phase
+    4's requests arriving at 0.5 a step.  4h: TLP = 1, dense and paged, at
+    alpha 4 and 99; 4i: spec_len 4 with the perfect draft, dense and paged
+    (alpha 99).  Paged streams must equal dense ones.  Returns the launches
+    summed over the runs."""
+    cfg = get_config("qwen2-0.5b")
+    runs = {}
+    for layout in ("dense", "paged"):
+        for alpha in (4, 99):
+            runs[layout, alpha] = _serve_live(
+                cfg, params, f"serve {layout} alpha={alpha}", plain, False,
+                alpha=alpha, kv_layout=layout)
+        runs[layout, "spec"] = _serve_live(
+            cfg, params, f"serve spec {layout} alpha=99 perfect draft", plain,
+            True, alpha=99, kv_layout=layout)
+    for key in (4, 99, "spec"):
+        check(runs["paged", key]["streams"] == runs["dense", key]["streams"],
+              f"serve {key}: paged streams equal dense streams")
+    total: dict = {}
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_serve_trace(params) -> None:
+    """Phase 5d: three mixed waves at alpha 99 under torch.profiler, per KV
+    layout: 4 requests decoding and 4 prompts of 320 tokens mid-prefill
+    (chunk 0 and 1 ran at admission, the traced waves take chunks 2-4).
+    The engine is stepped directly with `stream_chunks` on, as serve()
+    runs it."""
+    cfg = get_config("qwen2-0.5b")
+    rng = np.random.default_rng(12)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    L = cfg.num_layers
+    for layout in ("dense", "paged"):
+        eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
+                         prefill_len=64, alpha=99.0, attn_pim=True,
+                         kv_layout=layout, device=DEV)
+        eng.stream_chunks = True
+        for i in range(4):
+            eng.submit(ServeRequest(i, rng.integers(
+                3, cfg.vocab_size, size=32).tolist(), max_new_tokens=64))
+        eng.step()
+        eng.step()
+        for i in range(4, 8):
+            eng.submit(ServeRequest(i, rng.integers(
+                3, cfg.vocab_size, size=320).tolist(), max_new_tokens=16))
+        eng.step()                   # admission, chunk 0 and the first wave
+        torch.cuda.synchronize()
+        zero_counts()
+        fc_by_wave = []                 # the wrapper's fc_gemv launches
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for i in range(3):
+                with torch.profiler.record_function(f"serve_wave_{i}"):
+                    eng.step()
+                fc_by_wave.append(fc_mod.LAUNCHES - sum(fc_by_wave))
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_m = dict(fc_mod.LAUNCHES_BY_M)
+        by_t = dict((paged_mod if layout == "paged"
+                     else attn_mod).LAUNCHES_BY_ROWS)
+        traced = eng.stats[-3:]
+        check(all(s.prefill_slots == 4 and s.decode_slots == 4
+                  and s.fc_variant == "pim" for s in traced)
+              and by_m.get(MIXED_M, 0) == 3 * 4 * L
+              and by_t.get(64, 0) == 3 * L,
+              f"serve trace {layout}: 3 mixed waves of 4 prefill and 4 decode "
+              f"rows on pim; fc_gemv by m {by_m}, Attn-PIM by t {by_t}")
+        kern = []
+        for evt in prof.key_averages():
+            dev = getattr(evt, "self_device_time_total", None)
+            if dev is None:
+                dev = getattr(evt, "self_cuda_time_total", 0)
+            # the wave ranges' device-side copies are spans, not kernels
+            if (dev > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                    and not evt.key.startswith("serve_wave_")):
+                kern.append((dev, evt.key, evt.count))
+        if not kern:
+            print(f"      serve trace {layout}: profiler saw no device time "
+                  "(not measured)", flush=True)
+            continue
+        busy = sum(k[0] for k in kern)
+        attn = [k for k in kern if "attn_split" in k[1]
+                or "attn_merge" in k[1]]
+        fc = [k for k in kern if "fc_gemv" in k[1]]
+        top = sorted(kern, reverse=True)[:5]
+        # each wave ends in a synchronizing fetch, so a kernel of wave i
+        # starts inside wave i's host range
+        evts = prof.events()
+        spans = sorted((e.time_range.start, e.time_range.end) for e in evts
+                       if e.name.startswith("serve_wave_")
+                       and e.device_type == torch.autograd.DeviceType.CPU)
+        fc_starts = [e.time_range.start for e in evts
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "fc_gemv" in e.name]
+        seen = [sum(lo <= t <= hi for t in fc_starts) for lo, hi in spans]
+        print(f"      serve trace {layout} pim: 3 mixed waves "
+              f"{wall_us / 3e3:.2f} ms each, device busy {busy / 3e3:.2f} ms "
+              f"each ({busy / wall_us:.1%}); FC-PIM "
+              f"{sum(k[0] for k in fc) / 3e3:.4f} ms each over the "
+              f"{sum(k[2] for k in fc)} of {sum(fc_by_wave)} CUDA launches "
+              f"the profiler recorded in 3 waves (m = {MIXED_M}; per wave: "
+              f"wrapper {fc_by_wave}, profiler {seen}, "
+              f"{len(fc_starts) - sum(seen)} outside the waves); Attn-PIM "
+              f"{sum(k[0] for k in attn) / 3e3:.4f} ms in "
+              f"{sum(k[2] for k in attn)} CUDA launches over 3 waves "
+              "(t = 64); top: " + "; ".join(
+                  f"{name[:40]} {dev / 3e3:.3f} ms x{cnt}/3"
+                  for dev, name, cnt in top),
+              flush=True)
+
+
+def _edge_wave_cache(cfg, layout, gen, slots=8, cap=256, page=16):
+    """A cache of `cap` positions a slot (dense, or shuffled pages) filled
+    with random K/V: what the wave reads is the same on both paths."""
+    if layout == "dense":
+        cache = init_cache(cfg, slots, cap, DEV)
+    else:
+        cache = init_paged_cache(cfg, slots, slots * cap // page + 1, page,
+                                 cap // page, DEV)
+        cache["block_tables"] = (torch.randperm(
+            slots * cap // page, generator=gen, device=DEV) + 1).to(
+            torch.int32).reshape(slots, cap // page)
+    for key in ("k", "v"):
+        cache[key].copy_(torch.randn(cache[key].shape, generator=gen,
+                                     device=DEV))
+    return cache
+
+
+def phase_serve_parity() -> None:
+    """Phase 6d, f32, full width, 2 layers, kernels on (pim FC at alpha 99,
+    Attn-PIM): the serve() streams of phase 4's requests on their Poisson
+    schedule equal the offline run() streams, dense and paged (else the
+    first divergence and the logit margin there).  Then one mixed wave
+    whose decode rows sit within the window of the capacity (lens = pos +
+    64 past the 256-row slab) against the plain path, dense and paged."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(3))
+    for layout in ("dense", "paged"):
+        kw = dict(max_slots=8, cache_capacity=2048, prefill_len=64,
+                  alpha=99, attn_pim=True, kv_layout=layout,
+                  eos_token=cfg.vocab_size, device=DEV)
+        offline = PapiEngine(cfg, params, **kw)
+        _submit_main(offline, cfg)
+        want = {r.req_id: r.tokens for r in offline.run(500)}
+        eng = PapiEngine(cfg, params, **kw)
+        finals = _consume(eng.serve(_main_schedule(cfg), max_iterations=500),
+                          f"serve f32 2 layers {layout}")
+        got = {i: r.tokens for i, r in finals.items()}
+        mixed = sum(1 for s in eng.stats if s.prefill_slots and s.decode_slots)
+        same, total = _same_tokens(got, want)
+        note = ""
+        if got != want:
+            i = next(i for i in want if want[i] != got.get(i))
+            a, b = want[i], got.get(i, [])
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            note = (f"; first divergence: request {i} token {j}, margin "
+                    f"{_top2_margin(cfg, params, i, a[:j]):.3e}")
+        check(got == want and mixed > 0,
+              f"serve f32 2 layers {layout}: the serve() streams ({mixed} "
+              f"mixed iterations) equal the offline run() streams ({same} of "
+              f"{total} tokens){note}")
+
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    P, cap = 64, 256
+    # rows: decodes at 253 and 250 (their windows run past the slab), at
+    # 100 and 7; chunks pinned at 64 (full) and 128 (37 tokens); an idle
+    # row; a chunk that ends the slab (192 + 64 = 256)
+    lens = torch.tensor([1, 1, 1, 1, 64, 37, 0, 64], dtype=torch.int32,
+                        device=DEV)
+    pos = torch.tensor([253, 250, 100, 7, 5, 9, 1, 3], dtype=torch.int32,
+                       device=DEV)
+    pin = torch.tensor([0, 0, 0, 0, 1, 1, 0, 1], dtype=torch.bool, device=DEV)
+    pin_pos = torch.tensor([0, 0, 0, 0, 64, 128, 0, 192], dtype=torch.int32,
+                           device=DEV)
+    toks = torch.randint(3, cfg.vocab_size, (8, P), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    live = lens > 0
+    for layout in ("dense", "paged"):
+        cache = _edge_wave_cache(cfg, layout, gen)
+        cache["pos"] = pos.clone()
+        out = {}
+        for fcv, impl in (("pu", "xla"), ("pim", "pim")):
+            c = {k: v.clone() for k, v in cache.items()}
+            with fc_variant(fcv), attn_impl(impl):
+                out[fcv], c = mixed_step(cfg, params, c, toks, lens, pin,
+                                         pin_pos)
+            out[fcv + "_pos"] = c["pos"]
+        torch.cuda.synchronize()
+        err = (out["pim"][live] - out["pu"][live]).abs().max().item()
+        check(err <= 1e-3 and bool(torch.isfinite(out["pim"][live]).all())
+              and torch.equal(out["pim_pos"], out["pu_pos"]),
+              f"mixed wave f32 2 layers {layout}: decode rows at 253 and 250 "
+              f"(lens past the {cap}-row capacity), chunks and an idle row, "
+              f"kernels vs plain max_abs_err {err:.3e} (tol 1e-3)")
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     card = card_line()
     print(card, flush=True)
@@ -1572,11 +2026,14 @@ def main() -> int:
     timed(phase_long_context, params)
     spec_launches = timed(phase_spec, params, plain)
     timed(phase_tlp_register, params)
+    serve_launches = timed(phase_serve, params, plain)
     timed(phase_trace, params)
     timed(phase_spec_trace, params)
+    timed(phase_serve_trace, params)
     del params
     timed(phase_parity)
     timed(phase_spec_parity)
+    timed(phase_serve_parity)
     ssm_launches, ssm_params = timed(phase_ssm_paths)
     timed(phase_wave_trace, ssm_params)
     del ssm_params
@@ -1585,10 +2042,11 @@ def main() -> int:
     # before it
     print(f"      launches by path: qwen2-0.5b dense and paged (phases 4, "
           f"4b): {json.dumps(launches)}; qwen2-0.5b speculative (phase 4f, "
-          f"8 runs): {json.dumps(spec_launches)}; "
+          f"8 runs): {json.dumps(spec_launches)}; qwen2-0.5b serve() "
+          f"(phases 4h, 4i, 6 runs): {json.dumps(serve_launches)}; "
           + "; ".join(f"{arch}: {json.dumps(ln)}"
                       for arch, ln in ssm_launches.items()), flush=True)
-    launches = {name: n + spec_launches[name]
+    launches = {name: n + spec_launches[name] + serve_launches[name]
                 + sum(ln[name] for ln in ssm_launches.values())
                 for name, n in launches.items()}
 

@@ -20,6 +20,13 @@ seed in the same order.  ``--capacity``, ``--prefill-len``,
 draft of ARCH whose weights come from ``--seed + 1``, as in the reference;
 the launcher then prints the mean tokens accepted per window.
 
+``--arrivals RATE`` serves the same requests live through
+`PapiEngine.serve`: they arrive on a seeded Poisson schedule (RATE
+requests per iteration expected), drawn from the same generator after the
+prompts, as `repro.launch.serve` draws it; long prompts prefill a chunk
+per iteration beside the running decodes.  The launcher then prints each
+request's queue delay, TTFT and TPOT and the p50 / p99 summary.
+
 The SSM (mamba2) and hybrid (zamba2) families reject prompts longer than
 ``--prefill-len``, refuse ``--kv paged``, as the reference does, and
 refuse a draft with ``--spec-len`` above 1 (their SSM state has no
@@ -42,7 +49,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core.traces import generate_trace
 from repro_torch.models import init_params
-from repro_torch.serving import PapiEngine, ServeRequest
+from repro_torch.serving import PapiEngine, ServeRequest, latency_summary
 
 # the generation budget's cap
 MAX_NEW = 64
@@ -55,18 +62,64 @@ def default_max_prompt(capacity: int, spec_len: int = 1) -> int:
 
 
 def make_requests(task: str, n: int, vocab: int, seed: int,
-                  max_prompt: int) -> list[ServeRequest]:
+                  max_prompt: int, rng: np.random.Generator | None = None
+                  ) -> list[ServeRequest]:
     """The reference launcher's requests: lengths from
     `generate_trace(task, n, seed)`, prompt tokens from one
-    ``default_rng(seed)`` drawn request by request, prompts capped at
-    `max_prompt`, budgets at `MAX_NEW`."""
-    rng = np.random.default_rng(seed)
+    ``default_rng(seed)`` (or `rng`) drawn request by request, prompts
+    capped at `max_prompt`, budgets at `MAX_NEW`."""
+    rng = np.random.default_rng(seed) if rng is None else rng
     reqs = []
     for i, req in enumerate(generate_trace(task, n, seed)):
         prompt = rng.integers(3, vocab, size=min(req.input_len, max_prompt))
         reqs.append(ServeRequest(i, prompt.tolist(),
                                  max_new_tokens=min(req.output_len, MAX_NEW)))
     return reqs
+
+
+def arrival_schedule(reqs: list[ServeRequest], rate: float,
+                     rng: np.random.Generator) -> list[list[ServeRequest]]:
+    """The reference launcher's live schedule: request i arrives at
+    iteration ``cumsum(floor(Exponential(1 / rate)))[i]``, the gaps drawn
+    at once from `rng`; one list of arrivals per iteration."""
+    if not reqs:
+        return [[]]
+    arrive = np.cumsum(np.floor(
+        rng.exponential(1.0 / max(rate, 1e-9), len(reqs))).astype(int))
+    sched: list[list[ServeRequest]] = [[] for _ in range(int(arrive[-1]) + 1)]
+    for r, it in zip(reqs, arrive):
+        sched[int(it)].append(r)
+    return sched
+
+
+def serve_live(eng: PapiEngine, sched, max_iterations: int = 2000) -> list:
+    """Stream `sched` through `eng.serve`, printing each request's line as
+    it finishes and then the latency percentiles."""
+    results, streamed = [], 0
+    for ev in eng.serve(sched, max_iterations=max_iterations):
+        if not ev.finished:
+            streamed += 1
+            continue
+        res = ev.result
+        results.append(res)
+        line = (f"req {res.req_id:3d}: {len(res.tokens):3d} tokens "
+                f"({res.finished_reason}), queue {res.queue_delay_iters} "
+                f"iters, ttft {res.ttft_iters} iters")
+        if res.ttft_s is not None:
+            line += f" / {res.ttft_s * 1e3:.0f}ms"
+        if res.tpot_s is not None:
+            line += f", tpot {res.tpot_s * 1e3:.1f}ms"
+        print(line)
+    summ = latency_summary(results)
+    print(f"\nstreamed {streamed} tokens live over {summ['n']} requests; "
+          "latency percentiles:")
+    for field in ("queue_delay_iters", "ttft_iters", "ttft_s", "tpot_s"):
+        st = summ[field]
+        unit = "iters" if field.endswith("iters") else "s"
+        print(f"  {field:17s} p50 {st['p50']:9.3f}  p99 {st['p99']:9.3f}  "
+              f"({unit})")
+    print()
+    return results
 
 
 def main(argv=None) -> None:
@@ -106,6 +159,11 @@ def main(argv=None) -> None:
                     help="block-table width (--kv paged): caps per-request "
                          "context at max_blocks*page_size tokens; default = "
                          "the whole pool")
+    ap.add_argument("--arrivals", type=float, default=None, metavar="RATE",
+                    help="serve the requests live through PapiEngine.serve "
+                         "on a seeded Poisson schedule, RATE requests per "
+                         "iteration expected; prints queue delay, TTFT and "
+                         "TPOT per request and their p50 / p99")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -128,11 +186,16 @@ def main(argv=None) -> None:
                      device=device)
     max_prompt = (default_max_prompt(args.capacity, args.spec_len)
                   if args.max_prompt is None else args.max_prompt)
-    for r in make_requests(args.task, args.requests, cfg.vocab_size,
-                           args.seed, max_prompt):
-        eng.submit(r)
+    rng = np.random.default_rng(args.seed)
+    reqs = make_requests(args.task, args.requests, cfg.vocab_size, args.seed,
+                         max_prompt, rng=rng)
     t0 = time.perf_counter()
-    results = eng.run(max_iterations=2000)
+    if args.arrivals is not None:
+        results = serve_live(eng, arrival_schedule(reqs, args.arrivals, rng))
+    else:
+        for r in reqs:
+            eng.submit(r)
+        results = eng.run(max_iterations=2000)
     wall = time.perf_counter() - t0
 
     by_reason: dict[str, int] = {}

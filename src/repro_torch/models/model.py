@@ -560,6 +560,21 @@ def chunk_logits(cfg, params, cache: dict, tokens: torch.Tensor,
     return logits[:, 0], cache
 
 
+def mixed_step(cfg, params, cache: dict, tokens: torch.Tensor,
+               chunk_lens: torch.Tensor, pin_mask: torch.Tensor,
+               pin_pos: torch.Tensor):
+    """One continuous-batching wave: prefill chunks and single-token
+    decodes in the same [slots, P] window.  A decode is a chunk of length 1
+    holding the slot's last token.  A slot mid-prefill rides every other
+    step as a masked garbage row whose device position drifts, so the rows
+    in `pin_mask` are re-anchored to the host's chunk offset `pin_pos`
+    first; decode rows keep their device position.  Returns `chunk_logits`'
+    (logits [slots, V], cache)."""
+    cache["pos"] = torch.where(pin_mask, pin_pos.to(torch.int32),
+                               cache["pos"]).to(torch.int32)
+    return chunk_logits(cfg, params, cache, tokens, chunk_lens)
+
+
 def prefill_chunk(cfg, params, cache, tokens, chunk_lens):
     """`chunk_logits` followed by the greedy argmax."""
     logits, cache = chunk_logits(cfg, params, cache, tokens, chunk_lens)

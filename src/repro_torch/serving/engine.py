@@ -1,7 +1,7 @@
-"""PAPI serving engine of the port: offline continuous batching with
-dynamic FC-path scheduling over a dense KV slab or a paged KV pool, and
-lossless greedy speculative decoding (TLP > 1) with a draft model —
-`repro.serving.engine`'s `PapiEngine.submit/run/step/set_spec_len`.
+"""PAPI serving engine of the port: continuous batching with dynamic
+FC-path scheduling over a dense KV slab or a paged KV pool, and lossless
+greedy speculative decoding (TLP > 1) with a draft model —
+`repro.serving.engine`'s `PapiEngine.submit/run/serve/step/set_spec_len`.
 
 Each iteration:
   1. admits waiting requests into free KV slots: chunk 0 of every admitted
@@ -27,6 +27,19 @@ Each iteration:
 
 ``fused=False`` keeps the reference's host loop as the oracle of the
 speculative iteration: one fetch per draft step and one for the verify.
+
+`serve(arrivals)` is the live front end: a generator of `TokenEvent`s over
+an arrival stream polled once per iteration.  Under it admission does not
+stall on a long prompt: chunk 0 runs at admission and the slot enters
+MID-PREFILL (``slot_offset < slot_prompt``; under pages only chunk 0's
+pages are mapped up front).  Each later iteration advances every
+mid-prefill slot by one chunk: at TLP = 1 in ONE `models.mixed_step` wave
+with the ongoing decodes (a decode is a chunk of length 1), under the
+scheduler's FC variant and the engine's attention, with one fetch; when
+speculating, in a chunk wave of its own (ambient FC variant) before the
+fused speculative iteration.  Every request carries its queue delay, TTFT
+and TPOT (`serving.metrics`), in seconds and in iterations.  The streams
+equal the offline ``submit()`` + ``run()`` streams of the same requests.
 
 ``attn_pim=True`` routes every decode-path attention — plain decode and
 chunk waves and verify windows alike — through the Attn-PIM kernel.
@@ -59,10 +72,11 @@ is no pool-pressure preemption yet: a deferred head waits for running
 requests to finish, and the reservation arithmetic guarantees that it
 then clears (every admitted request's growth is already reserved).
 
-Not ported yet: `serve()` and the mixed wave, faults and the degraded
-path, preemption, deadlines, the journal, telemetry, the sanitizer, mesh
-execution, and speculation on the SSM and hybrid families (a state
-rewind).
+Not ported yet: preemption (and its resumed requests), `cancel()`,
+deadlines, faults, the finite-logits guard and the degraded wave, the
+watchdog (``stall_limit``), ``debug_invariants``, the journal, telemetry
+and the tracer, the sanitizer, mesh execution, and speculation on the SSM
+and hybrid families (a state rewind).
 """
 from __future__ import annotations
 
@@ -77,8 +91,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import PapiScheduler
 from repro_torch.models import (attn_impl, decode_step, fc_variant,
-                                init_cache, init_paged_cache, prefill_chunk,
-                                prefill_to_pages, prefill_to_slots)
+                                init_cache, init_paged_cache, mixed_step,
+                                prefill_chunk, prefill_to_pages,
+                                prefill_to_slots)
 from repro_torch.serving.kv_pages import PagedKVManager
 from repro_torch.serving.sampler import accept_speculative, greedy
 
@@ -97,6 +112,28 @@ class ServeResult:
     prompt_len: int
     iterations: int
     finished_reason: str = "length"
+    # latencies (serving/metrics.py): wall-clock seconds, None where the
+    # phase never happened; the *_iters twins count engine iterations
+    queue_delay_s: float | None = None   # submit -> first admission
+    ttft_s: float | None = None          # submit -> first token
+    tpot_s: float | None = None          # mean gap after the first token
+    queue_delay_iters: int | None = None
+    ttft_iters: int | None = None
+
+
+@dataclasses.dataclass
+class TokenEvent:
+    """One event of `PapiEngine.serve`: a committed token of a live
+    request, or (``finished=True``) its completion, which carries
+    ``token == -1``, ``index == len(result.tokens)``, the reason and the
+    `ServeResult`."""
+    req_id: int
+    token: int
+    index: int
+    iteration: int
+    finished: bool = False
+    reason: str | None = None
+    result: ServeResult | None = None
 
 
 @dataclasses.dataclass
@@ -116,6 +153,11 @@ class IterStats:
     kv_pages_free: int = 0       # pages on the free list
     kv_page_watermark: int = 0   # peak pages used over the engine lifetime
     kv_fragmentation: float = 0.0  # tail-of-page waste share of mapped rows
+    # continuous batching (arrivals and prefill_slots stay 0 under run()):
+    arrivals: int = 0        # requests that arrived this iteration
+    queued: int = 0          # queue depth after this iteration's admission
+    prefill_slots: int = 0   # slots mid-chunked-prefill this iteration
+    decode_slots: int = 0    # slots that ran a decode step this iteration
 
 
 class PapiEngine:
@@ -193,15 +235,31 @@ class PapiEngine:
         # admission-clamped generation budget; the caller's request is
         # never written back
         self.slot_budget = np.zeros(max_slots, np.int64)
+        # prompt tokens prefilled so far: a slot is MID-PREFILL while
+        # slot_offset < slot_prompt, which only serve() allows (offline
+        # admission runs a prompt's waves to the end)
+        self.slot_offset = np.zeros(max_slots, np.int64)
         self.queue: list[ServeRequest] = []
         self.results: list[ServeResult] = []
         self.stats: list[IterStats] = []
         self.iteration = 0
         self.host_transfers = 0
+        self.stream_chunks = False   # serve() turns it on for its lifetime
+        self._arrived_this_step = 0  # set by serve(), kept in IterStats
+        # latency stamps by req_id, wall clock and iteration; the first
+        # submission, admission and token win
+        self._submit_t: dict[int, float] = {}
+        self._admit_t: dict[int, float] = {}
+        self._first_tok_t: dict[int, float] = {}
+        self.submit_iteration: dict[int, int] = {}
+        self.admit_iteration: dict[int, int] = {}
+        self.first_token_iteration: dict[int, int] = {}
 
     # ------------------------------------------------------------------ API
     def submit(self, req: ServeRequest) -> None:
         self.queue.append(req)
+        self._submit_t.setdefault(req.req_id, self._now())
+        self.submit_iteration.setdefault(req.req_id, self.iteration)
 
     def set_spec_len(self, tlp: int) -> None:
         """The host writes the TLP register (dynamic speculation length).
@@ -226,19 +284,98 @@ class PapiEngine:
         return [i for i, r in enumerate(self.slot_req) if r is not None]
 
     def run(self, max_iterations: int = 10_000) -> list[ServeResult]:
+        """Step until the queue and the slots are empty.  Exhaustion of
+        `max_iterations` returns the in-flight requests as "aborted" with
+        their tokens so far and drains their pages (queued requests stay
+        queued)."""
         while (self.queue or self.active_slots) and (
                 self.iteration < max_iterations):
             self.step()
         if self.iteration >= max_iterations:
-            # exhaustion returns in-flight requests with tokens-so-far
             for s in self.active_slots:
-                self._emit(self.slot_req[s], self.slot_tokens[s], "aborted")
-                self.slot_req[s] = None
-                self.slot_tokens[s] = []
-                self.slot_last[s] = 0
-                if self.kv is not None:
-                    self.kv.release(s)
+                self._finish_slot(s, "aborted")
         return self.results
+
+    def serve(self, arrivals, *, max_iterations: int = 100_000):
+        """Continuous batching over a live arrival stream: a generator of
+        `TokenEvent`s.
+
+        ``arrivals`` is polled once per iteration; each item is the
+        requests arriving then (a `ServeRequest`, a list of them, or None),
+        and its end closes the stream: the loop then drains the queue and
+        the slots and returns.  Each iteration yields the tokens committed
+        in it (live slots first), then each finished request's tail and
+        final event.
+
+        Exhausting `max_iterations` finishes the in-flight requests as
+        "aborted" and still yields their final events.  Closing the
+        generator early (``break``, ``close()``) finishes them as "aborted"
+        too, in ``self.results`` (no event can be yielded then); the pool
+        drains, queued requests stay queued and the engine stays usable.
+        An exception out of `step()` re-raises with no such clean-up."""
+        arrivals = iter(arrivals)
+        streamed: dict[int, int] = {}   # req_id -> tokens already yielded
+        reported = len(self.results)    # results already turned into events
+        stream_open, completed, crashed = True, False, False
+        prev = self.stream_chunks
+        self.stream_chunks = True
+        try:
+            while True:
+                if stream_open:
+                    try:
+                        got = next(arrivals)
+                    except StopIteration:
+                        stream_open = False
+                    else:
+                        if got is None:
+                            got = []
+                        elif isinstance(got, ServeRequest):
+                            got = [got]
+                        for req in got:
+                            self.submit(req)
+                        self._arrived_this_step = len(got)
+                if not stream_open and not (self.queue or self.active_slots):
+                    completed = True
+                    return
+                if self.iteration >= max_iterations:
+                    for s in self.active_slots:
+                        self._finish_slot(s, "aborted")
+                    yield from self._drain_events(streamed, reported)
+                    completed = True
+                    return
+                self.step()
+                for s in self.active_slots:
+                    req, toks = self.slot_req[s], self.slot_tokens[s]
+                    sent = streamed.get(req.req_id, 0)
+                    for i in range(sent, len(toks)):
+                        yield TokenEvent(req.req_id, toks[i], i,
+                                         self.iteration)
+                    streamed[req.req_id] = max(sent, len(toks))
+                new_reported = len(self.results)
+                yield from self._drain_events(streamed, reported)
+                reported = new_reported
+        except GeneratorExit:
+            raise                 # early close: the finally aborts
+        except BaseException:
+            crashed = True        # a failure in step(): no clean-up
+            raise
+        finally:
+            self.stream_chunks = prev
+            if not completed and not crashed:
+                for s in self.active_slots:
+                    self._finish_slot(s, "aborted")
+
+    def _drain_events(self, streamed: dict[int, int], reported: int):
+        """For every result since `reported`: its tokens not yet streamed,
+        then its final event."""
+        for res in self.results[reported:]:
+            sent = streamed.pop(res.req_id, 0)
+            for i in range(sent, len(res.tokens)):
+                yield TokenEvent(res.req_id, res.tokens[i], i,
+                                 self.iteration)
+            yield TokenEvent(res.req_id, -1, len(res.tokens), self.iteration,
+                             finished=True, reason=res.finished_reason,
+                             result=res)
 
     # ------------------------------------------------------------- internals
     def _check_speculation(self, tlp: int) -> None:
@@ -326,11 +463,54 @@ class PapiEngine:
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
+    def _now(self) -> float:
+        return time.monotonic()
+
+    def _mark_admitted(self, req: ServeRequest) -> None:
+        self.admit_iteration.setdefault(req.req_id, self.iteration)
+        self._admit_t.setdefault(req.req_id, self._now())
+
+    def _note_first_token(self, req_id: int) -> None:
+        """The TTFT stamp: the request's first output token exists now."""
+        if req_id not in self._first_tok_t:
+            self._first_tok_t[req_id] = self._now()
+            self.first_token_iteration.setdefault(req_id, self.iteration)
+
+    def _latency_fields(self, req_id: int, n_tokens: int) -> dict:
+        """The result's latencies; a phase that never happened is None,
+        and so is TPOT below two tokens (no gap exists)."""
+        now = self._now()
+        t0, i0 = self._submit_t.get(req_id), self.submit_iteration.get(req_id)
+        ta, ia = self._admit_t.get(req_id), self.admit_iteration.get(req_id)
+        tf = self._first_tok_t.get(req_id)
+        i_f = self.first_token_iteration.get(req_id)
+        return dict(
+            queue_delay_s=(ta - t0) if (t0 is not None and ta is not None)
+            else None,
+            ttft_s=(tf - t0) if (t0 is not None and tf is not None) else None,
+            tpot_s=(((now - tf) / (n_tokens - 1)) if n_tokens > 1 else None)
+            if tf is not None else None,
+            queue_delay_iters=(ia - i0)
+            if (i0 is not None and ia is not None) else None,
+            ttft_iters=(i_f - i0)
+            if (i0 is not None and i_f is not None) else None,
+        )
+
     def _emit(self, req: ServeRequest, tokens: Sequence[int],
               reason: str) -> None:
-        self.results.append(ServeResult(req.req_id, list(tokens),
-                                        len(req.prompt), self.iteration,
-                                        reason))
+        self.results.append(ServeResult(
+            req.req_id, list(tokens), len(req.prompt), self.iteration, reason,
+            **self._latency_fields(req.req_id, len(tokens))))
+
+    def _finish_slot(self, s: int, reason: str) -> None:
+        """Finish live slot `s`: emit its tokens so far, free the slot and
+        drain its pages."""
+        self._emit(self.slot_req[s], self.slot_tokens[s], reason)
+        self.slot_req[s] = None
+        self.slot_tokens[s] = []
+        self.slot_last[s] = 0
+        if self.kv is not None:
+            self.kv.release(s)
 
     def _admit(self) -> int:
         """Fill free slots from the queue, one batched prefill per wave; a
@@ -372,9 +552,12 @@ class PapiEngine:
             slot = free.pop(0)
             if self.kv is not None:
                 # the prompt's pages are mapped now, the rest of the budget
-                # reserved and mapped as decoding grows
-                self.kv.admit(slot, p + budget + window, p)
+                # reserved and mapped as decoding grows; serve() maps only
+                # chunk 0's and lets each later wave map its own chunk
+                initial = min(p, self.prefill_len) if self.stream_chunks else p
+                self.kv.admit(slot, p + budget + window, initial)
             self.slot_budget[slot] = budget
+            self._mark_admitted(req)
             batch_rows.append((slot, req))
         if not batch_rows:
             return 0, False
@@ -401,63 +584,187 @@ class PapiEngine:
                 _, self.draft_cache = to_cache(
                     self.draft_cfg, self.draft_params, batch,
                     self.draft_cache, src_dev)
-            # chunks 1..: every wave advances each pending slot by one
-            # (ragged-tail-masked) window; nothing host-side depends on a
-            # wave's result, so all waves run back to back and admission
-            # ends in ONE device->host copy
-            pending = {slot: req for slot, req in batch_rows
-                       if len(req.prompt) > self.prefill_len}
-            offs = {slot: self.prefill_len for slot in pending}
-            wave_finals: list[tuple[torch.Tensor, list[int]]] = []
-            while pending:
-                ctoks = np.zeros((self.max_slots, self.prefill_len), np.int32)
-                clens = np.zeros(self.max_slots, np.int32)
-                final: list[int] = []
-                for slot, req in list(pending.items()):
-                    n = min(len(req.prompt) - offs[slot], self.prefill_len)
-                    ctoks[slot, :n] = req.prompt[offs[slot]:offs[slot] + n]
-                    clens[slot] = n
-                    offs[slot] += n
-                    if offs[slot] == len(req.prompt):
-                        final.append(slot)
-                        del pending[slot]
-                ct, cl = self._to_device(ctoks), self._to_device(clens)
-                nxt, self.cache = prefill_chunk(self.cfg, self.params,
-                                                self.cache, ct, cl)
-                if self.draft_cfg is not None:
-                    # the draft's KV covers the same prompt positions
-                    _, self.draft_cache = prefill_chunk(
-                        self.draft_cfg, self.draft_params, self.draft_cache,
-                        ct, cl)
-                if final:
-                    wave_finals.append((nxt, final))
-        got = self._fetch(first, *(nxt for nxt, _ in wave_finals))
-        if wave_finals:
-            first_h = np.array(got[0])
-            for (_, final), nxt_h in zip(wave_finals, got[1:]):
-                for slot in final:
-                    first_h[slot] = int(nxt_h[slot])
-        else:
-            first_h = np.array(got)
-
-        admitted = 0
-        instant_finish = False
-        for slot, req in batch_rows:
-            tok = int(first_h[slot])
-            self.slot_tokens[slot] = [tok]
-            self.slot_last[slot] = tok
-            if tok == self.eos_token or self.slot_budget[slot] <= 1:
-                reason = "eos" if tok == self.eos_token else "length"
-                self._emit(req, [tok], reason)
-                self.slot_tokens[slot] = []
-                self.slot_last[slot] = 0   # slot stays available
-                if self.kv is not None:
-                    self.kv.release(slot)
-                instant_finish = True
+            admitted = 0
+            if self.stream_chunks:
+                # serve(): a prompt longer than the window enters its slot
+                # mid-prefill and counts toward RLP now; later iterations
+                # advance it a chunk at a time beside the decodes.  Short
+                # prompts finish admission here, as offline.
+                for slot, req in batch_rows:
+                    if len(req.prompt) > self.prefill_len:
+                        self.slot_req[slot] = req
+                        self.slot_tokens[slot] = []
+                        self.slot_offset[slot] = self.prefill_len
+                        admitted += 1
+                batch_rows = [(slot, req) for slot, req in batch_rows
+                              if len(req.prompt) <= self.prefill_len]
+                if not batch_rows:
+                    return admitted, False
+                first_h = np.array(self._fetch(first))
             else:
-                self.slot_req[slot] = req
-                admitted += 1              # counts toward RLP
-        return admitted, instant_finish
+                first_h = self._admission_chunks(batch_rows, first)
+
+        for slot, req in batch_rows:
+            self.slot_req[slot] = req
+            self.slot_offset[slot] = len(req.prompt)
+        finished = self._finalize_first_tokens(
+            [slot for slot, _ in batch_rows], first_h)
+        # the slots still live count toward RLP
+        return admitted + len(batch_rows) - finished, finished > 0
+
+    def _admission_chunks(self, batch_rows, first: torch.Tensor
+                          ) -> np.ndarray:
+        """Offline admission's chunks 1..: every wave advances each pending
+        slot by one (ragged-tail-masked) window; nothing host-side depends
+        on a wave's result, so all waves run back to back and admission ends
+        in ONE device->host copy.  Returns the first tokens by slot."""
+        pending = {slot: req for slot, req in batch_rows
+                   if len(req.prompt) > self.prefill_len}
+        offs = {slot: self.prefill_len for slot in pending}
+        wave_finals: list[tuple[torch.Tensor, list[int]]] = []
+        while pending:
+            ctoks = np.zeros((self.max_slots, self.prefill_len), np.int32)
+            clens = np.zeros(self.max_slots, np.int32)
+            final: list[int] = []
+            for slot, req in list(pending.items()):
+                n = min(len(req.prompt) - offs[slot], self.prefill_len)
+                ctoks[slot, :n] = req.prompt[offs[slot]:offs[slot] + n]
+                clens[slot] = n
+                offs[slot] += n
+                if offs[slot] == len(req.prompt):
+                    final.append(slot)
+                    del pending[slot]
+            ct, cl = self._to_device(ctoks), self._to_device(clens)
+            nxt, self.cache = prefill_chunk(self.cfg, self.params,
+                                            self.cache, ct, cl)
+            if self.draft_cfg is not None:
+                # the draft's KV covers the same prompt positions
+                _, self.draft_cache = prefill_chunk(
+                    self.draft_cfg, self.draft_params, self.draft_cache,
+                    ct, cl)
+            if final:
+                wave_finals.append((nxt, final))
+        got = self._fetch(first, *(nxt for nxt, _ in wave_finals))
+        if not wave_finals:
+            return np.array(got)
+        first_h = np.array(got[0])
+        for (_, final), nxt_h in zip(wave_finals, got[1:]):
+            for slot in final:
+                first_h[slot] = int(nxt_h[slot])
+        return first_h
+
+    # ------------------------------------------------------ serve() waves
+    def _prefilling_slots(self) -> list[int]:
+        return [s for s in self.active_slots
+                if int(self.slot_offset[s]) < int(self.slot_prompt[s])]
+
+    def _tokens_written(self, s: int) -> int:
+        """KV rows live slot `s` holds: the chunk frontier while
+        mid-prefill, the decode position after."""
+        off = int(self.slot_offset[s])
+        return off if off < int(self.slot_prompt[s]) else self._slot_pos(s)
+
+    def _wave_rows(self, prefilling: list[int]):
+        """One chunk wave over the mid-prefill slots, each advanced by one
+        window from its offset: (tokens, lens, pin mask, pin positions, the
+        slots whose prompt it completes)."""
+        ctoks = np.zeros((self.max_slots, self.prefill_len), np.int32)
+        clens = np.zeros(self.max_slots, np.int32)
+        pin = np.zeros(self.max_slots, bool)
+        pin_pos = np.zeros(self.max_slots, np.int32)
+        finals: list[int] = []
+        for s in prefilling:
+            req = self.slot_req[s]
+            off, plen = int(self.slot_offset[s]), int(self.slot_prompt[s])
+            n = min(plen - off, self.prefill_len)
+            ctoks[s, :n] = req.prompt[off:off + n]
+            clens[s] = n
+            pin[s] = True
+            pin_pos[s] = off
+            if off + n == plen:
+                finals.append(s)
+        return ctoks, clens, pin, pin_pos, finals
+
+    def _finalize_first_tokens(self, finals: list[int],
+                               nxt_h: np.ndarray) -> int:
+        """These live slots' prompts are complete: commit each first token,
+        and finish at once on <eos> or a 1-token budget, which frees the
+        slot for the next admission.  Returns how many finished."""
+        finished = 0
+        for s in finals:
+            tok = int(nxt_h[s])
+            self._note_first_token(self.slot_req[s].req_id)
+            self.slot_tokens[s] = [tok]
+            self.slot_last[s] = tok
+            if tok == self.eos_token or self.slot_budget[s] <= 1:
+                self._finish_slot(
+                    s, "eos" if tok == self.eos_token else "length")
+                finished += 1
+        return finished
+
+    def _ensure_wave_pages(self, prefilling: list[int],
+                           clens: np.ndarray) -> None:
+        """Map the pages this wave's chunks write; cannot fail, admission
+        reserved the whole prompt, budget and window."""
+        if self.kv is not None:
+            for s in prefilling:
+                self.kv.ensure(s, int(self.slot_offset[s]) + int(clens[s]))
+
+    def _chunk_wave(self, prefilling: list[int]) -> None:
+        """Speculative serve: the chunks run as a wave of their own, under
+        the ambient FC variant as offline admission's chunks do, and the
+        decodes take the fused speculative iteration after it.  One fetch,
+        only when the wave completes a prompt."""
+        ctoks, clens, pin, pin_pos, finals = self._wave_rows(prefilling)
+        self._ensure_wave_pages(prefilling, clens)
+        self._sync_tables()
+        ct, cl, pm, pp = map(self._to_device, (ctoks, clens, pin, pin_pos))
+        with self._attn_scope():
+            logits, self.cache = mixed_step(self.cfg, self.params, self.cache,
+                                            ct, cl, pm, pp)
+            nxt = greedy(logits)
+            if self.draft_cfg is not None:
+                _, self.draft_cache = mixed_step(
+                    self.draft_cfg, self.draft_params, self.draft_cache, ct,
+                    cl, pm, pp)
+        for s in prefilling:
+            self.slot_offset[s] += int(clens[s])
+        if finals:
+            self._finalize_first_tokens(finals, np.asarray(self._fetch(nxt)))
+
+    def _mixed_wave_iteration(self, prefilling: list[int],
+                              decoding: list[int]
+                              ) -> tuple[np.ndarray, np.ndarray]:
+        """The TLP = 1 serve iteration: the decodes (chunks of length 1
+        holding each slot's last token) and the prefill chunks in ONE
+        `mixed_step` under the scheduler's FC variant, and one fetch.
+        Returns `_decode_all`'s (tokens, accepted)."""
+        ctoks, clens, pin, pin_pos, finals = self._wave_rows(prefilling)
+        chunk_lens = clens.copy()        # the prefill rows only, for the draft
+        for s in decoding:
+            ctoks[s, 0] = self.slot_last[s]
+            clens[s] = 1
+        self._ensure_wave_pages(prefilling, chunk_lens)
+        if self.kv is not None:
+            for s in decoding:
+                self.kv.ensure(s, self._slot_pos(s) + 1)
+        self._sync_tables()
+        ct, cl, pm, pp = map(self._to_device, (ctoks, clens, pin, pin_pos))
+        with fc_variant(self.scheduler.fc_assignment), self._attn_scope():
+            logits, self.cache = mixed_step(self.cfg, self.params, self.cache,
+                                            ct, cl, pm, pp)
+            nxt = greedy(logits)
+            if self.draft_cfg is not None and prefilling:
+                # the draft's KV covers the prompt positions (the TLP = 1
+                # decodes never advance the draft)
+                _, self.draft_cache = mixed_step(
+                    self.draft_cfg, self.draft_params, self.draft_cache, ct,
+                    self._to_device(chunk_lens), pm, pp)
+        out_h = np.asarray(self._fetch(nxt))
+        for s in prefilling:
+            self.slot_offset[s] += int(chunk_lens[s])
+        self._finalize_first_tokens(finals, out_h)
+        return out_h[:, None].astype(np.int32), np.ones(self.max_slots)
 
     def _decode_all(self) -> tuple[np.ndarray, np.ndarray]:
         """One decoding iteration for all slots, under the scheduler's FC
@@ -542,22 +849,41 @@ class PapiEngine:
         t0 = time.perf_counter()
         transfers0 = self.host_transfers
         admitted = self._admit()
-        decoding = self.active_slots
-        if not decoding:
+        arrived, self._arrived_this_step = self._arrived_this_step, 0
+        active = self.active_slots
+        if not active:
             self.scheduler.observe_counts(0, admitted)
             self.iteration += 1
             return
 
         speculating = self._speculating
-        if self.kv is not None:
-            # map the pages of the KV rows this iteration writes (positions
-            # pos..pos+tlp-1); cannot fail: admission reserved prompt +
-            # budget + window
-            tlp = self.spec_len if speculating else 1
-            for s in decoding:
-                self.kv.ensure(s, self._slot_pos(s) + tlp)
-            self._sync_tables()
-        out, accepted = self._decode_all()
+        prefilling = self._prefilling_slots() if self.stream_chunks else []
+        if prefilling and not speculating:
+            # serve() at TLP = 1: decodes and prefill chunks in ONE wave
+            # (it maps its own pages)
+            decoding = [s for s in active if s not in prefilling]
+            out, accepted = self._mixed_wave_iteration(prefilling, decoding)
+        else:
+            if prefilling:
+                # speculative serve(): advance the prefill frontier first,
+                # so that a slot whose prompt completes now rides the
+                # speculative iteration below, as after offline admission
+                self._chunk_wave(prefilling)
+            decoding = [s for s in self.active_slots
+                        if int(self.slot_offset[s])
+                        >= int(self.slot_prompt[s])]
+            out = np.zeros((self.max_slots, 1), np.int32)
+            accepted = np.zeros(self.max_slots)
+            if decoding:
+                if self.kv is not None:
+                    # map the pages of the KV rows this iteration writes
+                    # (positions pos..pos+tlp-1); cannot fail: admission
+                    # reserved prompt + budget + window
+                    tlp = self.spec_len if speculating else 1
+                    for s in decoding:
+                        self.kv.ensure(s, self._slot_pos(s) + tlp)
+                    self._sync_tables()
+                out, accepted = self._decode_all()
 
         # host-side bookkeeping: append up to `accepted` tokens per slot,
         # stopping at eos or at the budget
@@ -565,6 +891,8 @@ class PapiEngine:
         new_tokens = 0
         for s in decoding:
             req = self.slot_req[s]
+            if req is None:      # finished at once by this iteration's wave
+                continue
             n_acc = int(accepted[s])
             for j in range(n_acc):
                 tok = int(out[s, j])
@@ -572,14 +900,9 @@ class PapiEngine:
                 new_tokens += 1
                 if tok == self.eos_token or (
                         len(self.slot_tokens[s]) >= self.slot_budget[s]):
-                    reason = "eos" if tok == self.eos_token else "length"
-                    self._emit(req, self.slot_tokens[s], reason)
-                    self.slot_req[s] = None
-                    self.slot_tokens[s] = []
-                    self.slot_last[s] = 0
+                    self._finish_slot(
+                        s, "eos" if tok == self.eos_token else "length")
                     finished[s] = True
-                    if self.kv is not None:
-                        self.kv.release(s)
                     break
             else:
                 self.slot_last[s] = self.slot_tokens[s][-1]
@@ -605,7 +928,7 @@ class PapiEngine:
         self.iteration += 1
         pool = {}
         if self.kv is not None:
-            ps = self.kv.stats(sum(self._slot_pos(s)
+            ps = self.kv.stats(sum(self._tokens_written(s)
                                    for s in self.active_slots))
             pool = dict(kv_pages_used=ps.mapped, kv_pages_free=ps.free,
                         kv_page_watermark=ps.watermark,
@@ -618,10 +941,17 @@ class PapiEngine:
             fc_variant=self.scheduler.fc_assignment,
             new_tokens=new_tokens,
             wall_s=time.perf_counter() - t0,
-            accepted=float(np.mean(accepted[decoding])),
+            accepted=(float(np.mean(accepted[decoding])) if decoding
+                      else 0.0),
             transfers=self.host_transfers - transfers0,
             admitted=admitted,
+            arrivals=arrived,
+            queued=len(self.queue),
+            prefill_slots=len(prefilling),
+            decode_slots=len(decoding),
             **pool,
         ))
 
-__all__ = ["IterStats", "PapiEngine", "ServeRequest", "ServeResult"]
+
+__all__ = ["IterStats", "PapiEngine", "ServeRequest", "ServeResult",
+           "TokenEvent"]

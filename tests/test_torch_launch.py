@@ -9,7 +9,10 @@ The reference's request list is captured from its own `main()`, with its
 trace run replaced by a recorder; the port's from its `main()`, with the
 engine replaced by a recorder.  With ``--spec-len 3 --draft-arch
 qwen2-0.5b-smoke`` the cap leaves room for the window (capacity − 64 − 4)
-and the draft's weights come from seed + 1, as in the reference.
+and the draft's weights come from seed + 1, as in the reference.  With
+``--arrivals 0.5`` the live schedule (the iteration each request arrives
+at) equals the one the reference launcher hands its `serve()`, and the
+port's run on the CPU finishes every request.
 """
 import dataclasses
 import sys
@@ -43,6 +46,11 @@ class _EngineRecorder:
     def run(self, max_iterations):
         return []
 
+    def serve(self, arrivals, max_iterations):
+        self.schedule = [[(r.req_id, r.prompt, r.max_new_tokens) for r in tick]
+                         for tick in arrivals]
+        return iter(())
+
 
 def _port_launch(monkeypatch, *argv):
     """(engine keyword arguments, [(prompt, budget)]) of one launcher run."""
@@ -51,6 +59,36 @@ def _port_launch(monkeypatch, *argv):
     serve_cli.main(["--arch", "qwen2-0.5b-smoke", "--device", "cpu", *argv])
     eng, = _EngineRecorder.made
     return eng.kw, [(r.prompt, r.max_new_tokens) for r in eng.requests]
+
+
+def _port_schedule(monkeypatch, *argv):
+    _EngineRecorder.made = []
+    monkeypatch.setattr(serve_cli, "PapiEngine", _EngineRecorder)
+    serve_cli.main(["--arch", "qwen2-0.5b-smoke", "--device", "cpu", *argv])
+    eng, = _EngineRecorder.made
+    return eng.schedule
+
+
+def _reference_schedule(monkeypatch, *argv):
+    """The arrival schedule `repro.launch.serve.main` hands its engine's
+    `serve()` under ``--arrivals``: its trace run gets an engine stand-in
+    that records the schedule and serves nothing."""
+    ref = pytest.importorskip("repro.launch.serve")
+    got = []
+    run_trace = ref._run_trace
+
+    class Recorder:
+        def serve(self, sched, max_iterations):
+            got.extend([(r.req_id, list(r.prompt), r.max_new_tokens)
+                        for r in tick] for tick in sched)
+            return iter(())
+
+    monkeypatch.setattr(ref, "_run_trace", lambda args, eng, reqs, rng:
+                        run_trace(args, Recorder(), reqs, rng))
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", "qwen2-0.5b-smoke",
+                                      *argv])
+    ref.main()
+    return got
 
 
 def _reference_requests(monkeypatch, *argv):
@@ -166,3 +204,31 @@ def test_launcher_serves_speculatively(capsys):
     out = capsys.readouterr().out
     assert "completed 4 requests" in out
     assert "mean accepted per window" in out
+
+
+@pytest.mark.parametrize("argv", [("--arrivals", "0.5"),
+                                  ("--arrivals", "2", "--seed", "3",
+                                   "--requests", "12")])
+def test_launcher_arrival_schedule_matches_reference(monkeypatch, argv):
+    want = _reference_schedule(monkeypatch, *argv)
+    got = _port_schedule(monkeypatch, *argv)
+    assert got == want
+    assert sum(len(t) for t in got) == int(dict(zip(argv, argv[1:])).get(
+        "--requests", 16))
+    # the schedule's requests are the offline run's, in the same order
+    ids = [i for tick in got for i, _, _ in tick]
+    assert ids == sorted(ids)
+
+
+def test_arrival_schedule_of_no_requests_is_one_quiet_tick():
+    assert serve_cli.arrival_schedule([], 0.5,
+                                      np.random.default_rng(0)) == [[]]
+
+
+def test_launcher_arrivals_serves_every_request(capsys):
+    serve_cli.main(["--arch", "qwen2-0.5b-smoke", "--device", "cpu",
+                    "--arrivals", "0.5", "--requests", "8"])
+    out = capsys.readouterr().out
+    assert out.count("queue ") == 8 and "ttft" in out
+    assert "completed 8 requests" in out and "'length': 8" in out
+    assert "ttft_iters        p50" in out and "tpot_s" in out
