@@ -90,14 +90,33 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      and paged: every request finishes, one fetch per speculative iteration
      plus one per chunk wave that completes a prompt, chunk waves under
      "pu" (no fc_gemv at m = 512); prints accepted per window;
+     every run of phases 4-4i also checks that no step degraded and no
+     request was preempted;
+     4j: the failure model.  Phase 4's requests through `serve()` on a
+     paged pool of 20 usable pages (2-3 reservations at once) with
+     `preempt_after=3` and `debug_invariants=True`, α 4 and 99: requests
+     are preempted and requeued, all 8 finish "length", every token index
+     comes once, the pool drains.  A nan / kernel fault window on the dense
+     path and on a speculative run (the perfect draft): `degraded` equals
+     the injector's count, one WARNING each, one transfer a healthy
+     iteration and two a degraded one; the re-run keeps the kernels, so the
+     dense streams equal the fault-free run's in bf16; prints the bf16
+     tokens of the speculative run equal to the fault-free run's.  `cancel()` mid-stream and a deadline that passes
+     while a request is queued, through `serve()`; `stall_limit` raising
+     `EngineStallError` with its snapshot;
   5. trace five steady iterations per KV layout and FC variant with
-     torch.profiler (device busy share, top kernels, FC-PIM's and
-     Attn-PIM's device time and CUDA launches per iteration); 5b: one admission
+     torch.profiler (device busy share, top kernels, FC-PIM's, Attn-PIM's
+     and the finite-logits guard's device time and CUDA launches per
+     iteration; one transfer each), then the guard alone at the plain
+     step's, the verify's and a mixed wave's logits shapes; 5b: one admission
      wave of each SSM model (busy share, ssd_scan's share over both of its
      CUDA kernels); 5c: three steady speculative iterations per layout and
      FC variant (the same, with calls by m and by window t); 5d: three
      mixed waves (4 decode rows, 4 prompts mid-prefill) at α 99 per layout
-     (the same, per wave);
+     (the same, per wave); 5e: what keeping the pre-step SSM state costs on
+     full-width mamba2: a decode step's device time (it writes its new
+     state into fresh tensors) and the memory reserved around it, against
+     the copy that keeping a copy would pay;
   6. parity at full width, 2 layers, f32: one decode step's logits with the
      kernels (pim FC + Attn-PIM) against the plain path (pu + plain
      attention) within 1e-3, over a dense slab and over a paged cache;
@@ -111,6 +130,11 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      first divergence and the margin there); and one mixed wave whose
      decode rows sit within the window of the capacity (lens past the
      slab) against the plain path within 1e-3, dense and paged;
+     6e: f32, 2 layers, the kernels on: preempted streams (paged, paged
+     speculative) and streams under nan / kernel faults (dense, paged,
+     speculative) equal the unconstrained fault-free dense run's; on
+     2-layer f32 mamba2 (ssd_scan in admission) the faulted streams equal
+     the fault-free ones: the SSM state of a poisoned step was restored;
   7. print the `kernels` JSON line, the card line, and last the device JSON.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -120,6 +144,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import math
 import statistics
 import subprocess
@@ -153,10 +178,28 @@ from repro_torch.models import (attn_impl, decode_step, fc_variant,  # noqa: E40
                                 init_cache, init_paged_cache, init_params,
                                 mixed_step, prefill, prefill_to_pages,
                                 prefill_to_slots, ssd_impl)
-from repro_torch.serving import (PapiEngine, ServeRequest,  # noqa: E402
+from repro_torch.serving import (EngineStallError,  # noqa: E402
+                                 FaultInjector, PapiEngine, ServeRequest,
                                  latency_summary)
+from repro_torch.serving.engine import _nonfinite  # noqa: E402
 
 DEV = torch.device("cuda")
+
+
+class _WarningCount(logging.Handler):
+    """Counts the engine's WARNING records (one per degraded step); it
+    also keeps them off stderr."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.WARNING)
+        self.n = 0
+
+    def emit(self, record) -> None:
+        self.n += 1
+
+
+WARNINGS = _WarningCount()
+logging.getLogger("repro_torch.serving").addHandler(WARNINGS)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the JAX package's own SSD tolerances (tests/test_kernels.py)
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
@@ -886,6 +929,15 @@ def read_counts() -> dict:
     return {name: mod.LAUNCHES for name, mod in MODS.items()}
 
 
+def check_healthy(eng, label: str) -> None:
+    """A run with no fault and no pool pressure: no step was degraded and
+    no request preempted."""
+    check(eng.degraded_steps == eng.preemptions == 0
+          and not any(s.degraded or s.preemptions for s in eng.stats),
+          f"{label}: degraded {eng.degraded_steps}, preemptions "
+          f"{eng.preemptions}")
+
+
 def _serve(cfg, params, label: str, **kw) -> tuple[dict, dict]:
     """Serve the main path's 8 requests through one engine, with the
     kernels' launch counts set to 0 just before `run()` and read just
@@ -908,6 +960,7 @@ def _serve(cfg, params, label: str, **kw) -> tuple[dict, dict]:
     reasons = sorted(r.finished_reason for r in results)
     check(len(results) == 8 and all(r in ("eos", "length") for r in reasons),
           f"{label}: 8 requests finished ({reasons})")
+    check_healthy(eng, label)
     toks = [t for r in results for t in r.tokens]
     check(all(0 <= t < cfg.vocab_size for t in toks) and len(toks) > 0,
           f"{label}: {len(toks)} tokens within the vocabulary")
@@ -992,9 +1045,52 @@ def phase_long_context(params) -> None:
           f"layers), to position {len(prompt) + 31}")
     eng.kv.alloc.check()
     check(eng.kv.alloc.mapped_count == 0, "long context: pool drained")
+    check_healthy(eng, "long context")
     print(f"      long context: 2100-token prompt + 32 tokens in "
           f"{wall:.3f} s, page watermark {eng.kv.alloc.watermark}",
           flush=True)
+
+
+GUARD = "finite_guard"     # the engine's profiler range around the guard
+
+
+def _dev_time(evt) -> float:
+    dev = getattr(evt, "self_device_time_total", None)
+    return getattr(evt, "self_cuda_time_total", 0) if dev is None else dev
+
+
+def _kernels(prof) -> list:
+    """(device us, name, count) of every CUDA kernel in a trace; the
+    device-side copies of host ranges (the serve waves', the guard's) are
+    spans, not kernels."""
+    kern = []
+    for evt in prof.key_averages():
+        dev = _dev_time(evt)
+        if (dev > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not evt.key.startswith("serve_wave_")
+                and evt.key != GUARD):
+            kern.append((dev, evt.key, evt.count))
+    return kern
+
+
+def _guard_in_trace(prof, iters: int) -> str:
+    """The finite-logits guard's device time and CUDA launches per
+    iteration of a trace: the kernels launched inside its range."""
+    us, n = 0.0, 0
+    for e in prof.events():
+        if e.name != GUARD or e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        stack = list(e.cpu_children)
+        while stack:
+            x = stack.pop()
+            for k in getattr(x, "kernels", []):
+                us += k.duration
+                n += 1
+            stack.extend(x.cpu_children)
+    if not n:
+        return "finite-logits guard: not measured (no kernels under its range)"
+    return (f"finite-logits guard {us / iters / 1e3:.4f} ms in "
+            f"{n / iters:g} CUDA launches each")
 
 
 def phase_trace(params) -> None:
@@ -1024,13 +1120,7 @@ def phase_trace(params) -> None:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         ran = {s.fc_variant for s in eng.stats[-6:-1]}
-        kern = []
-        for evt in prof.key_averages():
-            dev = getattr(evt, "self_device_time_total", None)
-            if dev is None:
-                dev = getattr(evt, "self_cuda_time_total", 0)
-            if dev > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-                kern.append((dev, evt.key, evt.count))
+        kern = _kernels(prof)
         busy = sum(k[0] for k in kern)
         if not kern:
             print(f"      trace {layout} {variant}: profiler saw no device time "
@@ -1040,13 +1130,18 @@ def phase_trace(params) -> None:
         attn = [k for k in kern if "attn_split" in k[1]
                 or "attn_merge" in k[1]]
         fc = [k for k in kern if "fc_gemv" in k[1]]
+        quiet = eng.stats[-5:]
+        check(all(s.transfers == 1 and not s.degraded for s in quiet),
+              f"trace {layout} {variant}: one transfer per traced iteration "
+              f"(the guard's flag rides it): {[s.transfers for s in quiet]}")
         print(f"      trace {layout} {variant} (ran {sorted(ran)}): 5 steady "
               f"iterations {wall_us / 5e3:.2f} ms each, device busy "
               f"{busy / 5e3:.2f} ms each ({busy / wall_us:.1%}); FC-PIM "
               f"{sum(k[0] for k in fc) / 5e3:.4f} ms in "
               f"{sum(k[2] for k in fc) // 5} CUDA launches each; Attn-PIM "
               f"{sum(k[0] for k in attn) / 5e3:.4f} ms in "
-              f"{sum(k[2] for k in attn) // 5} CUDA launches each; top: "
+              f"{sum(k[2] for k in attn) // 5} CUDA launches each; "
+              f"{_guard_in_trace(prof, 5)}; top: "
               + "; ".join(f"{name[:40]} {dev / 5e3:.3f} ms x{cnt // 5}"
                           for dev, name, cnt in top), flush=True)
 
@@ -1121,6 +1216,7 @@ def _serve_ssm(arch: str, params, attn_pim: bool) -> tuple[dict, dict]:
     waves = sum(1 for s in eng.stats if s.admitted > 0)
 
     got = {r.req_id: r for r in results}
+    check_healthy(eng, label)
     check(len(got) == 9 and got[3].finished_reason == "rejected"
           and got[3].tokens == [],
           f"{label}: the 600-token prompt is rejected (prefill_len 512)")
@@ -1199,13 +1295,7 @@ def phase_wave_trace(params_by_arch) -> None:
             prefill_to_slots(cfg, params, batch, cache, src)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        kern = []
-        for evt in prof.key_averages():
-            dev = getattr(evt, "self_device_time_total", None)
-            if dev is None:
-                dev = getattr(evt, "self_cuda_time_total", 0)
-            if dev > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-                kern.append((dev, evt.key, evt.count))
+        kern = _kernels(prof)
         if not kern:
             print(f"      wave trace {arch}: profiler saw no device time "
                   "(not measured)", flush=True)
@@ -1411,6 +1501,7 @@ def _serve_spec(cfg, params, draft, label, plain, **kw) -> dict:
     reasons = sorted(r.finished_reason for r in results)
     check(len(results) == 8 and all(r in ("eos", "length") for r in reasons),
           f"{label}: 8 requests finished ({reasons})")
+    check_healthy(eng, label)
     toks = [t for r in results for t in r.tokens]
     check(all(0 <= t < cfg.vocab_size for t in toks),
           f"{label}: {len(toks)} tokens within the vocabulary")
@@ -1455,6 +1546,10 @@ def _serve_spec(cfg, params, draft, label, plain, **kw) -> dict:
             "accepted": statistics.mean(acc), "tok_s": len(toks) / wall}
 
 
+# phase 4f's dense alpha 4 perfect-draft streams: phase 4j's fault-free twin
+SPEC_STREAMS: dict = {}
+
+
 def phase_spec(params, plain: dict) -> dict:
     """Phase 4f: speculative serving (spec_len 4, attn_pim) of phase 4's
     8 requests at full width, bf16: dense and paged, at alpha 4 (pu at m =
@@ -1472,6 +1567,7 @@ def phase_spec(params, plain: dict) -> dict:
                 runs[layout, alpha, name] = _serve_spec(
                     cfg, params, (cfg, d), label, plain, alpha=alpha,
                     kv_layout=layout, page_size=16)
+    SPEC_STREAMS.update(runs["dense", 4, "perfect draft"]["streams"])
     for alpha in (4, 99):
         for name in ("perfect draft", "seed-1 draft"):
             check(runs["paged", alpha, name]["streams"]
@@ -1527,6 +1623,7 @@ def phase_tlp_register(params) -> None:
     check(len(results) == 8 and all(r.finished_reason in ("eos", "length")
                                     for r in results),
           "TLP register: 8 requests finished")
+    check_healthy(eng, "TLP register")
 
 
 def phase_spec_trace(params) -> None:
@@ -1558,13 +1655,7 @@ def phase_spec_trace(params) -> None:
         by_m = dict(fc_mod.LAUNCHES_BY_M)
         by_t = dict((paged_mod if layout == "paged"
                      else attn_mod).LAUNCHES_BY_ROWS)
-        kern = []
-        for evt in prof.key_averages():
-            dev = getattr(evt, "self_device_time_total", None)
-            if dev is None:
-                dev = getattr(evt, "self_cuda_time_total", 0)
-            if dev > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-                kern.append((dev, evt.key, evt.count))
+        kern = _kernels(prof)
         if not kern:
             print(f"      spec trace {layout} {variant}: profiler saw no device "
                   "time (not measured)", flush=True)
@@ -1583,7 +1674,8 @@ def phase_spec_trace(params) -> None:
               f"{sum(k[2] for k in fc) // 3} CUDA launches each (calls by m "
               f"over 3: {by_m}); Attn-PIM {sum(k[0] for k in attn) / 3e3:.4f}"
               f" ms in {sum(k[2] for k in attn) // 3} CUDA launches each "
-              f"(calls by t over 3: {by_t}); top: "
+              f"(calls by t over 3: {by_t}); {_guard_in_trace(prof, 3)}; "
+              "top: "
               + "; ".join(f"{name[:40]} {dev / 3e3:.3f} ms x{cnt // 3}"
                           for dev, name, cnt in top), flush=True)
         check(by_t.get(SPEC_LEN, 0) == 3 * cfg.num_layers,
@@ -1690,14 +1782,17 @@ def _expected_transfers(eng, st, chunk_wave: bool) -> int:
     return int(short) + int(final) + int(st.decode_slots > 0)
 
 
-def _latency_line(label, finals, wall) -> str:
+def _latencies(finals) -> str:
     summ = latency_summary(finals.values())
+    return ", ".join(f"{f} p50 {summ[f]['p50']:.4g} p99 {summ[f]['p99']:.4g}"
+                     for f in ("ttft_s", "tpot_s", "ttft_iters",
+                               "queue_delay_iters"))
+
+
+def _latency_line(label, finals, wall) -> str:
     toks = sum(len(r.tokens) for r in finals.values())
     return (f"      {label}: {toks} tokens in {wall:.3f} s, "
-            f"{toks / wall:.1f} tok/s; " + ", ".join(
-                f"{f} p50 {summ[f]['p50']:.4g} p99 {summ[f]['p99']:.4g}"
-                for f in ("ttft_s", "tpot_s", "ttft_iters",
-                          "queue_delay_iters")))
+            f"{toks / wall:.1f} tok/s; " + _latencies(finals))
 
 
 def _serve_live(cfg, params, label, plain, spec: bool, **kw) -> dict:
@@ -1723,6 +1818,7 @@ def _serve_live(cfg, params, label, plain, spec: bool, **kw) -> dict:
     reasons = sorted(r.finished_reason for r in finals.values())
     check(len(finals) == 8 and all(r in ("eos", "length") for r in reasons),
           f"{label}: 8 requests finished ({reasons})")
+    check_healthy(eng, label)
     toks = [t for r in finals.values() for t in r.tokens]
     check(all(0 <= t < cfg.vocab_size for t in toks),
           f"{label}: {len(toks)} tokens within the vocabulary")
@@ -1864,15 +1960,7 @@ def phase_serve_trace(params) -> None:
               and by_t.get(64, 0) == 3 * L,
               f"serve trace {layout}: 3 mixed waves of 4 prefill and 4 decode "
               f"rows on pim; fc_gemv by m {by_m}, Attn-PIM by t {by_t}")
-        kern = []
-        for evt in prof.key_averages():
-            dev = getattr(evt, "self_device_time_total", None)
-            if dev is None:
-                dev = getattr(evt, "self_cuda_time_total", 0)
-            # the wave ranges' device-side copies are spans, not kernels
-            if (dev > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
-                    and not evt.key.startswith("serve_wave_")):
-                kern.append((dev, evt.key, evt.count))
+        kern = _kernels(prof)
         if not kern:
             print(f"      serve trace {layout}: profiler saw no device time "
                   "(not measured)", flush=True)
@@ -1902,7 +1990,7 @@ def phase_serve_trace(params) -> None:
               f"{len(fc_starts) - sum(seen)} outside the waves); Attn-PIM "
               f"{sum(k[0] for k in attn) / 3e3:.4f} ms in "
               f"{sum(k[2] for k in attn)} CUDA launches over 3 waves "
-              "(t = 64); top: " + "; ".join(
+              f"(t = 64); {_guard_in_trace(prof, 3)} wave; top: " + "; ".join(
                   f"{name[:40]} {dev / 3e3:.3f} ms x{cnt}/3"
                   for dev, name, cnt in top),
               flush=True)
@@ -1995,6 +2083,388 @@ def phase_serve_parity() -> None:
               f"kernels vs plain max_abs_err {err:.3e} (tol 1e-3)")
 
 
+
+# ---------------------------------------------------------------------------
+# the failure model: preemption, faults and the finite-logits guard,
+# cancel, deadlines and the watchdog
+TIGHT_PAGES = 21        # 20 usable pages of 16 tokens: phase 4's requests
+                        # reserve 3-11 pages each, so 2-3 fit at once
+FAULT_WINDOW = dict(seed=7, nan_p=0.25, kernel_p=0.25, start=2, stop=40)
+
+
+def _indexed_streams(events, label: str) -> tuple[dict, dict]:
+    """({req_id: streamed tokens}, {req_id: result}) of a serve() run,
+    checking that every token index comes once and in order and that each
+    stream equals its result."""
+    streams, finals, ok = {}, {}, True
+    for ev in events:
+        if ev.finished:
+            finals[ev.req_id] = ev.result
+            ok &= ev.index == len(streams.get(ev.req_id, []))
+        else:
+            got = streams.setdefault(ev.req_id, [])
+            ok &= ev.index == len(got)
+            got.append(ev.token)
+    ok &= all(streams.get(i, []) == r.tokens for i, r in finals.items())
+    check(ok, f"{label}: every token index once and in order, the streams "
+          "equal the results")
+    return streams, finals
+
+
+def _check_drained(eng, label: str) -> None:
+    alloc = eng.kv.alloc
+    alloc.check()
+    check(alloc.mapped_count == 0 and alloc.reserved_unmapped == 0
+          and alloc.free_count == alloc.num_pages,
+          f"{label}: pool drained (watermark {alloc.watermark} of "
+          f"{alloc.num_pages} pages)")
+
+
+def _preempting_serve(cfg, params, label, plain, alpha) -> dict:
+    """Phase 4j: phase 4's requests through serve() on a pool of
+    TIGHT_PAGES pages with preempt_after=3, the launch counts set to 0 just
+    before the stream and read just after."""
+    eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
+                     prefill_len=64, alpha=alpha, attn_pim=True,
+                     kv_layout="paged", page_size=16, num_pages=TIGHT_PAGES,
+                     preempt_after=3, debug_invariants=True,
+                     eos_token=cfg.vocab_size, device=DEV)
+    sched = _main_schedule(cfg)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams, finals = _indexed_streams(eng.serve(sched, max_iterations=2000),
+                                       label)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    reasons = sorted(r.finished_reason for r in finals.values())
+    check(len(finals) == 8 and set(reasons) == {"length"},
+          f"{label}: 8 requests finish 'length' ({reasons})")
+    check(eng.preemptions >= 1 and eng.degraded_steps == 0
+          and sum(s.preemptions for s in eng.stats) == eng.preemptions,
+          f"{label}: {eng.preemptions} preemptions "
+          f"({sorted(eng.preempted_ids)} requeued), no step degraded")
+    check(launches["paged_decode_attention"] > 0
+          and launches["decode_attention"] == launches["ssd_scan"] == 0
+          and (alpha < 99 or launches["fc_gemv"] > 0),
+          f"{label}: launches {launches}")
+    _check_drained(eng, label)
+    same, total = _same_tokens(streams, plain)
+    pre = [s.wall_s * 1e3 for s in eng.stats if s.preemptions]
+    rest = [s.wall_s * 1e3 for s in eng.stats
+            if not s.preemptions and s.decode_slots]
+    toks = sum(len(t) for t in streams.values())
+    print(f"      {label}: {toks} tokens in {eng.iteration} iterations, "
+          f"{wall:.3f} s, {toks / wall:.1f} tok/s; {eng.preemptions} "
+          f"preemptions (requests {sorted(eng.preempted_ids)}), deferral age "
+          f"up to {max(s.deferral_age for s in eng.stats)}, page watermark "
+          f"{eng.kv.alloc.watermark} of {eng.kv.alloc.num_pages}; median wall "
+          f"of a preempting iteration {statistics.median(pre):.2f} ms, of "
+          f"another decoding one {statistics.median(rest):.2f} ms; "
+          + _latencies(finals)
+          + f"; {same} of {total} tokens equal phase 4's offline streams",
+          flush=True)
+    return launches
+
+
+def _faulted_run(cfg, params, label, want, spec: bool) -> dict:
+    """Phase 4j: phase 4's requests offline (alpha 4, as phases 4 and 4f)
+    with a nan / kernel fault window; every poisoned step is re-run on the
+    engine's own kernels (a CUDA tensor goes to its kernel or raises)."""
+    faults = FaultInjector(**FAULT_WINDOW)
+    kw = dict(spec_len=SPEC_LEN, draft=(cfg, params)) if spec else {}
+    eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
+                     prefill_len=64, alpha=4, attn_pim=True, faults=faults,
+                     device=DEV, **kw)
+    _submit_main(eng, cfg)
+    warned = WARNINGS.n
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(max_iterations=500)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    fired = faults.counts["nan"] + faults.counts["kernel"]
+    check(WARNINGS.n - warned == fired,
+          f"{label}: {WARNINGS.n - warned} WARNING records on the "
+          "repro_torch.serving logger, one per degraded step")
+    reasons = sorted(r.finished_reason for r in results)
+    check(len(results) == 8 and all(r in ("eos", "length") for r in reasons),
+          f"{label}: 8 requests finished ({reasons})")
+    deg = [s for s in eng.stats if s.degraded]
+    check(fired >= 1 and eng.degraded_steps == fired == len(deg)
+          and eng.preemptions == 0,
+          f"{label}: degraded {eng.degraded_steps} = the injector's nan "
+          f"{faults.counts['nan']} + kernel {faults.counts['kernel']}")
+    quiet = [s for s in eng.stats if not s.admitted]
+    check(all(s.transfers == 1 + s.degraded for s in quiet),
+          f"{label}: one transfer a healthy iteration, two a degraded one "
+          f"({sorted({(s.degraded, s.transfers) for s in quiet})})")
+    check(launches["fc_gemv"] > 0 and launches["decode_attention"] > 0,
+          f"{label}: launches {launches}")
+    streams = {r.req_id: r.tokens for r in results}
+    same, total = _same_tokens(streams, want)
+    if not spec:
+        # the re-run repeats the poisoned step on the same kernels
+        check(streams == want, f"{label}: the streams equal the fault-free "
+              f"run's in bf16 ({same} of {total} tokens)"
+              + _first_divergence(streams, want))
+    ok = [s.wall_s * 1e3 for s in quiet if not s.degraded]
+    print(f"      {label}: window {FAULT_WINDOW['start']}-"
+          f"{FAULT_WINDOW['stop']}, {faults.counts} fired, {len(deg)} "
+          f"degraded steps; {sum(len(t) for t in streams.values())} tokens "
+          f"in {eng.iteration} iterations, {wall:.3f} s; median wall of a "
+          f"degraded iteration {statistics.median(s.wall_s for s in deg) * 1e3:.2f}"
+          f" ms, of a healthy one {statistics.median(ok):.2f} ms; {same} of "
+          f"{total} bf16 tokens equal the fault-free run's (a degraded "
+          "speculative iteration is one t = 1 step where the verify ran "
+          f"t = {SPEC_LEN})", flush=True)
+    return launches
+
+
+def _cancel_and_deadline(cfg, params) -> dict:
+    """Phase 4j: through serve(), request 0 is cancelled after its 4th
+    token, and request 8, queued behind 8 full slots, has a 5 s deadline
+    that the (patched) clock passes at the same moment."""
+    eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
+                     prefill_len=64, alpha=4, attn_pim=True, device=DEV)
+    clock = {"now": 0.0}
+    eng._now = lambda: clock["now"]
+    rng = np.random.default_rng(0)
+    reqs = [ServeRequest(i, rng.integers(3, cfg.vocab_size,
+                                         size=plen).tolist(), 32)
+            for i, plen in enumerate(PROMPT_LENS)]
+    late = ServeRequest(8, rng.integers(3, cfg.vocab_size, size=40).tolist(),
+                        16, deadline_s=5.0)
+    events = []
+    zero_counts()
+    for ev in eng.serve([reqs, [late]], max_iterations=500):
+        events.append(ev)
+        if (not ev.finished and ev.req_id == 0 and ev.index == 3):
+            clock["now"] = 10.0
+            check(eng.cancel(0) and len(eng.queue) == 1,
+                  "cancel/deadline: cancel(0) mid-stream, request 8 queued")
+    launches = read_counts()
+    streams, finals = _indexed_streams(events, "cancel/deadline")
+    r0, r8 = finals.get(0), finals.get(8)
+    check(r0 is not None and r0.finished_reason == "cancelled"
+          and len(r0.tokens) >= 4 and r0.tokens == streams[0],
+          f"cancel/deadline: request 0 cancelled with its "
+          f"{len(r0.tokens) if r0 else 0} tokens so far")
+    check(r8 is not None and r8.finished_reason == "timeout"
+          and r8.tokens == [] and 8 not in streams,
+          "cancel/deadline: queued request 8 times out, never streamed")
+    others = sorted(finals[i].finished_reason for i in range(1, 8)
+                    if i in finals)
+    check(len(others) == 7 and set(others) <= {"eos", "length"},
+          f"cancel/deadline: the other 7 finish ({others})")
+    print(f"      cancel/deadline: request 0 cancelled after "
+          f"{len(r0.tokens) if r0 else 0} tokens, request 8 timed out "
+          f"queued; {eng.iteration} iterations", flush=True)
+    return launches
+
+
+def _stall(cfg, params) -> None:
+    """Phase 4j: a head the pool never admits raises EngineStallError
+    after stall_limit iterations, with its snapshot."""
+    eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
+                     prefill_len=64, alpha=4, attn_pim=True,
+                     kv_layout="paged", page_size=16, stall_limit=5,
+                     device=DEV)
+    eng.kv.can_admit = lambda *_: False
+    eng.submit(ServeRequest(0, list(range(3, 40)), max_new_tokens=8))
+    snap = None
+    try:
+        eng.run(max_iterations=100)
+    except EngineStallError as err:
+        snap = err.snapshot
+    check(snap is not None and snap["queue"] == [0]
+          and snap["deferral_age"] >= 5
+          and snap["pool"]["free"] == eng.kv.alloc.num_pages
+          and eng.iteration == 5,
+          f"stall: EngineStallError at iteration {eng.iteration} with "
+          f"snapshot {snap and {k: snap[k] for k in ('queue', 'deferral_age', 'stalled_iterations')}}")
+
+
+def phase_failure(params, plain: dict) -> dict:
+    """Phase 4j at full width, bf16, attn_pim: preemption through serve()
+    on a tight pool (alpha 4 and 99), nan / kernel fault windows on the
+    dense path and a speculative run (the perfect draft), cancel and a
+    deadline through serve(), and the watchdog.  Returns the launches
+    summed over the runs, each with the counts set to 0 just before it."""
+    cfg = get_config("qwen2-0.5b")
+    runs = [_preempting_serve(cfg, params, f"preempt paged alpha={a}",
+                              plain, a) for a in (4, 99)]
+    runs.append(_faulted_run(cfg, params, "faults dense alpha=4", plain,
+                             False))
+    runs.append(_faulted_run(cfg, params,
+                             "faults spec dense alpha=4 perfect draft",
+                             SPEC_STREAMS, True))
+    runs.append(_cancel_and_deadline(cfg, params))
+    _stall(cfg, params)
+    total = {}
+    for r in runs:
+        for k, v in r.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _first_divergence(got: dict, want: dict) -> str:
+    if got == want:
+        return ""
+    i = next(i for i in want if want[i] != got.get(i))
+    a, b = want[i], got.get(i, [])
+    j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    return f"; first divergence: request {i} token {j}"
+
+
+def phase_failure_parity() -> None:
+    """Phase 6e, f32, full width, 2 layers, the kernels on (pim FC at
+    alpha 99, Attn-PIM): preempted streams (paged, and paged speculative
+    with the seed-1 draft) and streams under nan / kernel faults (dense,
+    paged, speculative) equal the unconstrained fault-free dense run's;
+    then reduced-depth f32 mamba2, whose admission runs ssd_scan: its
+    faulted stream equals its fault-free one, so the SSM state of a
+    poisoned step was restored."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(3))
+    draft = (cfg, init_params(cfg, torch.Generator(device=DEV).manual_seed(1)))
+    base = dict(max_slots=8, cache_capacity=2048, prefill_len=64, alpha=99,
+                attn_pim=True, eos_token=cfg.vocab_size, device=DEV)
+
+    def offline(**kw):
+        eng = PapiEngine(cfg, params, **{**base, **kw})
+        _submit_main(eng, cfg)
+        return eng, {r.req_id: r.tokens for r in eng.run(1000)}
+
+    _, want = offline()
+    tight = dict(kv_layout="paged", page_size=16, num_pages=TIGHT_PAGES,
+                 preempt_after=3, debug_invariants=True)
+    spec = dict(spec_len=SPEC_LEN, draft=draft)
+    cases = [("preempt paged", tight), ("preempt paged spec", {**tight, **spec}),
+             ("faults dense", {}), ("faults paged", dict(kv_layout="paged")),
+             ("faults spec", spec)]
+    for name, kw in cases:
+        if name.startswith("faults"):
+            kw = {**kw, "faults": FaultInjector(**FAULT_WINDOW)}
+        eng, got = offline(**kw)
+        what = (f"{eng.preemptions} preemptions" if "preempt" in name
+                else f"{eng.degraded_steps} degraded steps")
+        n = eng.preemptions if "preempt" in name else eng.degraded_steps
+        same, total = _same_tokens(got, want)
+        check(got == want and n >= 1,
+              f"f32 2 layers {name}: {what}, {same} of {total} tokens equal "
+              f"the unconstrained fault-free dense run's"
+              + _first_divergence(got, want))
+        if eng.kv is not None:
+            _check_drained(eng, f"f32 2 layers {name}")
+
+    mcfg = dataclasses.replace(get_config("mamba2-1.3b"), num_layers=2,
+                               dtype="float32")
+    mparams = init_params(mcfg, torch.Generator(device=DEV).manual_seed(3))
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(3, mcfg.vocab_size, size=n).tolist()
+               for n in SSM_PROMPT_LENS]
+    streams = {}
+    for name, faults in (("clean", None),
+                         ("faults", FaultInjector(**FAULT_WINDOW))):
+        eng = PapiEngine(mcfg, mparams, faults=faults,
+                         eos_token=mcfg.vocab_size, device=DEV, **SSM_ENGINE)
+        for i, prompt in enumerate(prompts):
+            eng.submit(ServeRequest(i, prompt, max_new_tokens=24))
+        zero_counts()
+        streams[name] = {r.req_id: r.tokens for r in eng.run(500)}
+        if faults is not None:
+            waves = sum(1 for s in eng.stats if s.admitted > 0)
+            check(ssd_mod.LAUNCHES == mcfg.num_layers * waves
+                  and eng.degraded_steps >= 1,
+                  f"f32 mamba2 2 layers faults: ssd_scan launched "
+                  f"{ssd_mod.LAUNCHES} times in {waves} admission wave(s), "
+                  f"{eng.degraded_steps} degraded steps "
+                  f"({faults.counts})")
+    same, total = _same_tokens(streams["faults"], streams["clean"])
+    check(streams["faults"] == streams["clean"],
+          f"f32 mamba2 2 layers: the faulted streams equal the fault-free "
+          f"ones ({same} of {total} tokens; the SSM state of each poisoned "
+          "step was restored)"
+          + _first_divergence(streams["faults"], streams["clean"]))
+
+
+def phase_ssm_state_cost(params_by_arch) -> None:
+    """Phase 5e: what keeping the pre-step SSM state costs on full-width
+    mamba2-1.3b (8 slots).  A decode step writes its new state into fresh
+    tensors, and the caching allocator hands back the ones of two steps
+    before: the step's device time (torch.profiler, 3 steps, twice) and
+    the memory reserved around the steps, against the copy out and back
+    that keeping a copy would pay (CUDA events)."""
+    cfg = get_config("mamba2-1.3b")
+    params = params_by_arch[cfg.name]
+    last = torch.randint(3, cfg.vocab_size, (8, 1), device=DEV,
+                         dtype=torch.int32)
+    cache = init_cache(cfg, 8, 1024, DEV)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    decode_step(cfg, params, cache, last)               # warm
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    busy = []
+    for _ in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                decode_step(cfg, params, cache, last)
+            torch.cuda.synchronize()
+        busy.append(sum(k[0] for k in _kernels(prof)) / 3e3)
+    grown = torch.cuda.memory_reserved() - reserved0
+    state = cache["ssm"].ssm
+    nbytes = sum(x.numel() * x.element_size() for x in cache["ssm"])
+    spare = [torch.empty_like(x) for x in cache["ssm"]]
+
+    def copy_both():
+        for x, y in zip(cache["ssm"], spare):
+            y.copy_(x)
+            x.copy_(y)
+    copy_ms = time_ms(copy_both, [()], reps=5)
+    print(f"      SSM state keeping (mamba2-1.3b, 8 slots, {state.shape[0]} "
+          f"layers, {nbytes / 1e6:.1f} MB of state): device busy of a decode "
+          f"step writing fresh state {[round(x, 3) for x in busy]} ms; "
+          f"memory reserved grew {grown / 1e6:.1f} MB over 6 steps; a copy "
+          f"out and back {copy_ms:.3f} ms (bound "
+          f"{4 * nbytes / 3.35e12 * 1e3:.3f} ms)", flush=True)
+    del cache, spare
+
+
+def phase_guard_cost() -> None:
+    """Phase 5: the finite-logits guard alone at the steady iteration's
+    logits shapes, bf16 over qwen2-0.5b's vocabulary: plain decode [8, 1,
+    V], the verify [8, 4, V], a mixed wave [8, V]; CUDA events, and the
+    kernels under its profiler range; bound: the logits read once."""
+    V = get_config("qwen2-0.5b").vocab_size
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for shape in ((8, 1, V), (8, 4, V), (8, V)):
+        sets = [(torch.randn(shape, generator=gen, device=DEV).to(
+            torch.bfloat16),) for _ in range(4)]
+        ms = time_ms(_nonfinite, sets)
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(5):
+                _nonfinite(*sets[0])
+            torch.cuda.synchronize()
+        flag = _nonfinite(*sets[0]).item()
+        sets[0][0][(0,) * (len(shape) - 1) + (5,)] = float("nan")
+        check(not flag and _nonfinite(*sets[0]).item(),
+              f"guard {list(shape)}: finite logits pass, one NaN is caught")
+        nbytes = math.prod(shape) * 2
+        print(f"      guard alone {list(shape)} bf16: {ms:.4f} ms a call "
+              f"(CUDA events; bound {nbytes / 3.35e12 * 1e3:.5f} ms, bytes); "
+              f"profiled: {_guard_in_trace(prof, 5)}", flush=True)
+        del sets
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     card = card_line()
@@ -2027,15 +2497,19 @@ def main() -> int:
     spec_launches = timed(phase_spec, params, plain)
     timed(phase_tlp_register, params)
     serve_launches = timed(phase_serve, params, plain)
+    failure_launches = timed(phase_failure, params, plain)
     timed(phase_trace, params)
+    timed(phase_guard_cost)
     timed(phase_spec_trace, params)
     timed(phase_serve_trace, params)
     del params
     timed(phase_parity)
     timed(phase_spec_parity)
     timed(phase_serve_parity)
+    timed(phase_failure_parity)
     ssm_launches, ssm_params = timed(phase_ssm_paths)
     timed(phase_wave_trace, ssm_params)
+    timed(phase_ssm_state_cost, ssm_params)
     del ssm_params
     timed(phase_ssm_parity)
     # the sum over every path's run, each with the counts set to 0 just
@@ -2044,9 +2518,12 @@ def main() -> int:
           f"4b): {json.dumps(launches)}; qwen2-0.5b speculative (phase 4f, "
           f"8 runs): {json.dumps(spec_launches)}; qwen2-0.5b serve() "
           f"(phases 4h, 4i, 6 runs): {json.dumps(serve_launches)}; "
+          f"qwen2-0.5b failure model (phase 4j, 5 runs): "
+          f"{json.dumps(failure_launches)}; "
           + "; ".join(f"{arch}: {json.dumps(ln)}"
                       for arch, ln in ssm_launches.items()), flush=True)
     launches = {name: n + spec_launches[name] + serve_launches[name]
+                + failure_launches.get(name, 0)
                 + sum(ln[name] for ln in ssm_launches.values())
                 for name, n in launches.items()}
 

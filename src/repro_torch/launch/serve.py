@@ -27,6 +27,16 @@ prompts, as `repro.launch.serve` draws it; long prompts prefill a chunk
 per iteration beside the running decodes.  The launcher then prints each
 request's queue delay, TTFT and TPOT and the p50 / p99 summary.
 
+The failure model, as the reference's: ``--deadline S`` bounds every
+request's wall clock from submit (an expired request finishes as
+"timeout" with its tokens so far); ``--fault kind[:prob]`` (repeatable,
+kinds admit / nan / kernel / latency / crash; ``--fault-seed``) injects the
+reference's deterministic fault schedule, and the launcher then prints the
+``resilience:`` line (preemptions, degraded steps, faults fired); an
+injected crash ends the run with exit code 1.  ``--log-level`` wires the
+``repro_torch.serving`` logger to stderr (deferral DEBUG, preemption and
+unhappy finishes INFO, degraded steps WARNING, stalls ERROR).
+
 The SSM (mamba2) and hybrid (zamba2) families reject prompts longer than
 ``--prefill-len``, refuse ``--kv paged``, as the reference does, and
 refuse a draft with ``--spec-len`` above 1 (their SSM state has no
@@ -40,6 +50,7 @@ chosen FC path — and, under ``--kv paged``, the page pool's watermark, as
 from __future__ import annotations
 
 import argparse
+import logging
 import time
 
 import numpy as np
@@ -49,7 +60,8 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core.traces import generate_trace
 from repro_torch.models import init_params
-from repro_torch.serving import PapiEngine, ServeRequest, latency_summary
+from repro_torch.serving import (EngineCrashError, PapiEngine, ServeRequest,
+                                 latency_summary, parse_fault_specs)
 
 # the generation budget's cap
 MAX_NEW = 64
@@ -62,18 +74,19 @@ def default_max_prompt(capacity: int, spec_len: int = 1) -> int:
 
 
 def make_requests(task: str, n: int, vocab: int, seed: int,
-                  max_prompt: int, rng: np.random.Generator | None = None
-                  ) -> list[ServeRequest]:
+                  max_prompt: int, rng: np.random.Generator | None = None,
+                  deadline_s: float | None = None) -> list[ServeRequest]:
     """The reference launcher's requests: lengths from
     `generate_trace(task, n, seed)`, prompt tokens from one
     ``default_rng(seed)`` (or `rng`) drawn request by request, prompts
-    capped at `max_prompt`, budgets at `MAX_NEW`."""
+    capped at `max_prompt`, budgets at `MAX_NEW`, each with `deadline_s`."""
     rng = np.random.default_rng(seed) if rng is None else rng
     reqs = []
     for i, req in enumerate(generate_trace(task, n, seed)):
         prompt = rng.integers(3, vocab, size=min(req.input_len, max_prompt))
         reqs.append(ServeRequest(i, prompt.tolist(),
-                                 max_new_tokens=min(req.output_len, MAX_NEW)))
+                                 max_new_tokens=min(req.output_len, MAX_NEW),
+                                 deadline_s=deadline_s))
     return reqs
 
 
@@ -164,9 +177,31 @@ def main(argv=None) -> None:
                          "on a seeded Poisson schedule, RATE requests per "
                          "iteration expected; prints queue delay, TTFT and "
                          "TPOT per request and their p50 / p99")
+    ap.add_argument("--deadline", type=float, default=None, metavar="SECONDS",
+                    help="per-request wall-clock budget from submit(); an "
+                         "expired request finishes as 'timeout' with its "
+                         "tokens so far")
+    ap.add_argument("--fault", action="append", default=[],
+                    metavar="KIND[:PROB]",
+                    help="inject a deterministic fault schedule "
+                         "(repeatable): kinds admit / nan / kernel / latency "
+                         "/ crash, per-iteration probability PROB (default "
+                         "1.0), e.g. '--fault nan:0.2 --fault admit:0.5'")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault schedule (a pure function of "
+                         "(seed, iteration))")
+    ap.add_argument("--log-level", default=None,
+                    metavar="DEBUG|INFO|WARNING|ERROR",
+                    help="wire the 'repro_torch.serving' logger to stderr "
+                         "at this level")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+
+    if args.log_level:
+        logging.basicConfig(
+            level=getattr(logging, args.log_level.upper()),
+            format="%(asctime)s %(levelname)-7s %(name)s: %(message)s")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -183,19 +218,26 @@ def main(argv=None) -> None:
                      spec_len=args.spec_len, draft=draft,
                      attn_pim=args.attn_pim, kv_layout=args.kv,
                      page_size=args.page_size, max_blocks=args.max_blocks,
+                     faults=parse_fault_specs(args.fault,
+                                              seed=args.fault_seed),
                      device=device)
     max_prompt = (default_max_prompt(args.capacity, args.spec_len)
                   if args.max_prompt is None else args.max_prompt)
     rng = np.random.default_rng(args.seed)
     reqs = make_requests(args.task, args.requests, cfg.vocab_size, args.seed,
-                         max_prompt, rng=rng)
+                         max_prompt, rng=rng, deadline_s=args.deadline)
     t0 = time.perf_counter()
-    if args.arrivals is not None:
-        results = serve_live(eng, arrival_schedule(reqs, args.arrivals, rng))
-    else:
-        for r in reqs:
-            eng.submit(r)
-        results = eng.run(max_iterations=2000)
+    try:
+        if args.arrivals is not None:
+            results = serve_live(eng, arrival_schedule(reqs, args.arrivals,
+                                                       rng))
+        else:
+            for r in reqs:
+                eng.submit(r)
+            results = eng.run(max_iterations=2000)
+    except EngineCrashError as exc:
+        print(f"\nengine crashed (injected) at iteration {exc.iteration}")
+        raise SystemExit(1)
     wall = time.perf_counter() - t0
 
     by_reason: dict[str, int] = {}
@@ -204,6 +246,10 @@ def main(argv=None) -> None:
     tok = sum(len(r.tokens) for r in results)
     print(f"completed {len(results)} requests in {eng.iteration} iterations "
           f"{dict(sorted(by_reason.items()))} on {device}")
+    if eng.preemptions or eng.degraded_steps or args.fault:
+        fired = dict(eng.faults.counts) if eng.faults is not None else {}
+        print(f"resilience: {eng.preemptions} preemptions, "
+              f"{eng.degraded_steps} degraded steps, faults fired {fired}")
     print(f"tokens: {tok}  wall: {wall:.2f}s  tok/s: {tok / max(wall, 1e-9):.1f}")
     print(f"reschedules: {eng.scheduler.num_reschedules}")
     if draft is not None and args.spec_len > 1:

@@ -9,12 +9,16 @@ a Python loop over layers where the reference runs `lax.scan`.
 
 The caches are updated IN PLACE (the reference is functional and returns
 new arrays): `_write_kv` / `_write_kv_masked` / `_write_kv_paged`, the
-SSM blocks (into ``cache["ssm"]``, an `ssm.SSMState` of per-layer stacked
-tensors), `prefill_to_slots` and `prefill_to_pages` write into the cache
-tensors they are given, and every entry point returns the same cache dict
-with its ``pos`` replaced.  A cache holding ``block_tables`` is paged: its
-K/V are page pools ``[L, num_pages, page_size, nkv, hd]`` and the decode
-path resolves each logical position through the slot's block table.
+prefill's SSM blocks (into ``cache["ssm"]``, an `ssm.SSMState` of
+per-layer stacked tensors), `prefill_to_slots` and `prefill_to_pages`
+write into the cache tensors they are given, and every entry point returns
+the same cache dict with its ``pos`` replaced.  `decode_step` replaces
+``ssm`` too: it writes the new state into fresh tensors, so a caller that
+kept the dict's old entries still holds the pre-step state (the serving
+engine's finite-logits guard puts them back).  A cache holding
+``block_tables`` is paged: its K/V are page pools ``[L, num_pages,
+page_size, nkv, hd]`` and the decode path resolves each logical position
+through the slot's block table.
 
 Entry points:
   init_params(cfg, generator)            -> params
@@ -236,11 +240,11 @@ def layer_params(params: dict, i: int) -> dict:
     return take(params["layers"])
 
 
-def layer_state(cache: dict | None, i: int) -> S.SSMState | None:
-    """Layer i's slice of the stacked SSM state (views: written in place)."""
-    if cache is None:
+def layer_state(state: S.SSMState | None, i: int) -> S.SSMState | None:
+    """Layer i's slice of a stacked SSM state (views: written in place)."""
+    if state is None:
         return None
-    return S.SSMState(*(x[i] for x in cache["ssm"]))
+    return S.SSMState(*(x[i] for x in state))
 
 
 # ---------------------------------------------------------------------------
@@ -366,12 +370,13 @@ def mlp_block(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
 
 
 def ssm_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
-              state: S.SSMState | None, mode: str) -> torch.Tensor:
-    """Pre-norm Mamba2 sub-block; the state (when given) is written in
-    place."""
+              state: S.SSMState | None, mode: str,
+              out: S.SSMState | None = None) -> torch.Tensor:
+    """Pre-norm Mamba2 sub-block: the prefill writes the state (when
+    given) in place, the decode step reads it and writes `out`."""
     u = L.rmsnorm(h, p["norm"], cfg.norm_eps)
     y, _ = S.mamba2_block(u, p["ssm"], cfg.ssm, cfg.d_model, state=state,
-                          decode=(mode == "decode"))
+                          decode=(mode == "decode"), out=out)
     return h + y
 
 
@@ -390,14 +395,15 @@ def _transformer_backbone(cfg, params, h, positions, cache, mode,
     return h
 
 
-def _ssm_layers(cfg, params, h, cache, mode, lo, hi):
+def _ssm_layers(cfg, params, h, cache, mode, lo, hi, ssm_out=None):
+    state = cache["ssm"] if cache is not None else None
     for i in range(lo, hi):
-        h = ssm_block(cfg, layer_params(params, i), h, layer_state(cache, i),
-                      mode)
+        h = ssm_block(cfg, layer_params(params, i), h, layer_state(state, i),
+                      mode, out=layer_state(ssm_out, i))
     return h
 
 
-def _hybrid_backbone(cfg, params, h, positions, cache, mode):
+def _hybrid_backbone(cfg, params, h, positions, cache, mode, ssm_out=None):
     """zamba2: segments of `period` Mamba2 blocks, the shared (weight-tied)
     attention+MLP block after each — `num_layers // period` applications,
     application `app` on KV slab `app` — then the remainder segment."""
@@ -406,24 +412,30 @@ def _hybrid_backbone(cfg, params, h, positions, cache, mode):
     shared = params["shared"]
     lo = 0
     for app in range(cfg.num_attention_applications()):
-        h = _ssm_layers(cfg, params, h, cache, mode, lo, lo + period)
+        h = _ssm_layers(cfg, params, h, cache, mode, lo, lo + period,
+                        ssm_out)
         kv = (cache["k"][app], cache["v"][app]) if cache is not None else None
         h = attention_block(cfg, shared, h, positions, kv, pos, mode)
         h = mlp_block(cfg, shared, h)
         lo += period
-    return _ssm_layers(cfg, params, h, cache, mode, lo, cfg.num_layers)
+    return _ssm_layers(cfg, params, h, cache, mode, lo, cfg.num_layers,
+                       ssm_out)
 
 
-def backbone(cfg, params, h, positions, cache, mode, write_lens=None):
-    """The family dispatch.  SSM state has no sequence dim to mask, so the
-    stateful families take no chunked-prefill writes."""
+def backbone(cfg, params, h, positions, cache, mode, write_lens=None,
+             ssm_out=None):
+    """The family dispatch; `ssm_out` takes a decode step's new SSM state.
+    SSM state has no sequence dim to mask, so the stateful families take no
+    chunked-prefill writes."""
     if cfg.family in ("ssm", "hybrid") and write_lens is not None:
         raise ValueError(f"{cfg.family}: chunked prefill needs maskable KV "
                          "writes")
     if cfg.family == "ssm":
-        return _ssm_layers(cfg, params, h, cache, mode, 0, cfg.num_layers)
+        return _ssm_layers(cfg, params, h, cache, mode, 0, cfg.num_layers,
+                           ssm_out)
     if cfg.family == "hybrid":
-        return _hybrid_backbone(cfg, params, h, positions, cache, mode)
+        return _hybrid_backbone(cfg, params, h, positions, cache, mode,
+                                ssm_out)
     return _transformer_backbone(cfg, params, h, positions, cache, mode,
                                  write_lens=write_lens)
 
@@ -588,7 +600,13 @@ def decode_step(cfg, params, cache: dict, tokens: torch.Tensor):
     positions = pos[:, None] + torch.arange(t, device=pos.device)[None, :]
     h, positions = embed_inputs(cfg, params, {"tokens": tokens,
                                               "positions": positions})
-    h = backbone(cfg, params, h, positions, cache, "decode")
+    # the new SSM state goes to fresh tensors, as `pos` is replaced: the
+    # state this step read stays as it was
+    new = (S.SSMState(*map(torch.empty_like, cache["ssm"]))
+           if "ssm" in cache else None)
+    h = backbone(cfg, params, h, positions, cache, "decode", ssm_out=new)
     logits = lm_logits(cfg, params, h)
     cache["pos"] = pos + t
+    if new is not None:
+        cache["ssm"] = new
     return logits, cache

@@ -9,9 +9,13 @@ version on the CPU); decode uses the O(1) recurrent step in plain PyTorch,
 as the reference does.  Precisions follow the reference: dtx = dt * x and
 the state in f32, B/C/y in the model dtype.
 
-A state handed in is updated IN PLACE (the reference returns new arrays):
-`mamba2_block` writes the new conv histories and SSM state into the
-`SSMState` it was given — the cache's slices — as the KV cache is written.
+The prefill updates a state handed in IN PLACE (the reference returns new
+arrays): `mamba2_block` writes the new conv histories and SSM state into
+the `SSMState` it was given — the cache's slices — as the KV cache is
+written.  The decode step reads ``state`` and writes the new one into
+``out``, leaving ``state`` as it was (the same bytes as an update in
+place), so that a caller can keep the pre-step state of a decode step
+until its logits are known to be finite.
 
 `ssd_impl("plain")` sends `_ssd_chunked` to the plain version even for
 tensors on the card, so that the kernel path can be held against it.
@@ -100,26 +104,30 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def _ssd_recurrent(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                   B: torch.Tensor, C: torch.Tensor, state: torch.Tensor):
+                   B: torch.Tensor, C: torch.Tensor, state: torch.Tensor,
+                   out: torch.Tensor):
     """The recurrent step over t (small) tokens: x [b, t, nh, hp], dt
-    [b, t, nh] f32, state [b, nh, hp, n] f32, updated in place.  Returns
-    (y [b, t, nh, hp] in x's dtype, state)."""
-    ys = []
+    [b, t, nh] f32, state [b, nh, hp, n] f32, read, and the new state
+    written to `out`.  Returns (y [b, t, nh, hp] in x's dtype, out)."""
+    ys, src = [], state
     for i in range(x.shape[1]):
         dtt = dt[:, i].float()                                 # [b, nh]
         g = torch.exp(dtt * A[None, :])
         upd = torch.einsum("bh,bhp,bn->bhpn", dtt, x[:, i].float(),
                            B[:, i].float())
-        state.mul_(g[..., None, None]).add_(upd)
-        ys.append(torch.einsum("bhpn,bn->bhp", state, C[:, i].float()))
-    return torch.stack(ys, dim=1).to(x.dtype), state
+        torch.mul(src, g[..., None, None], out=out).add_(upd)
+        src = out
+        ys.append(torch.einsum("bhpn,bn->bhp", out, C[:, i].float()))
+    return torch.stack(ys, dim=1).to(x.dtype), out
 
 
 def mamba2_block(u: torch.Tensor, p: dict, s: SSMConfig, d_model: int,
-                 state: SSMState | None = None, decode: bool = False):
+                 state: SSMState | None = None, decode: bool = False,
+                 out: SSMState | None = None):
     """Full Mamba2 block on the normed input u [b, l, d].  Returns
-    (out [b, l, d], new_state) — `state` itself, updated in place, when
-    one was given."""
+    (out [b, l, d], new_state): the prefill's is `state` itself, updated
+    in place, when one was given; the decode step (which needs both)
+    reads `state` and returns `out`, holding the new state."""
     b, l, _ = u.shape
     di, nh, hp = s.d_inner(d_model), s.n_heads(d_model), s.head_dim
 
@@ -142,8 +150,8 @@ def mamba2_block(u: torch.Tensor, p: dict, s: SSMConfig, d_model: int,
     A = -torch.exp(p["A_log"].float())
 
     if decode:
-        assert has, "the decode step needs a state"
-        y, new_ssm = _ssd_recurrent(xh, dtf, A, cB, cC, state.ssm)
+        assert has and out is not None, "the decode step needs both states"
+        y, new_ssm = _ssd_recurrent(xh, dtf, A, cB, cC, state.ssm, out.ssm)
     else:
         y, new_ssm = _ssd_chunked(xh, dtf, A, cB, cC, s.chunk_size,
                                   state.ssm if has else None)
@@ -155,13 +163,14 @@ def mamba2_block(u: torch.Tensor, p: dict, s: SSMConfig, d_model: int,
     gated = y.float() * F.silu(z.float())
     var = gated.square().mean(dim=-1, keepdim=True)
     gated = gated * torch.rsqrt(var + 1e-5) * p["norm_w"].float()
-    out = torch.matmul(gated.to(u.dtype), p["w_out"])
+    y_out = torch.matmul(gated.to(u.dtype), p["w_out"])
 
     if not has:
-        return out, SSMState(new_cx, new_cB, new_cC, new_ssm)
-    state.conv_x.copy_(new_cx)
-    state.conv_B.copy_(new_cB)
-    state.conv_C.copy_(new_cC)
-    if new_ssm is not state.ssm:
-        state.ssm.copy_(new_ssm)
-    return out, state
+        return y_out, SSMState(new_cx, new_cB, new_cC, new_ssm)
+    dst = out if decode else state
+    dst.conv_x.copy_(new_cx)
+    dst.conv_B.copy_(new_cB)
+    dst.conv_C.copy_(new_cC)
+    if new_ssm is not dst.ssm:
+        dst.ssm.copy_(new_ssm)
+    return y_out, dst

@@ -1,7 +1,8 @@
 """PAPI serving engine of the port: continuous batching with dynamic
 FC-path scheduling over a dense KV slab or a paged KV pool, and lossless
 greedy speculative decoding (TLP > 1) with a draft model —
-`repro.serving.engine`'s `PapiEngine.submit/run/serve/step/set_spec_len`.
+`repro.serving.engine`'s `PapiEngine.submit/run/serve/step/cancel/
+set_spec_len`, with its failure model.
 
 Each iteration:
   1. admits waiting requests into free KV slots: chunk 0 of every admitted
@@ -67,20 +68,59 @@ reserved.  Each decode maps the pages its next KV rows need (`ensure`), a
 partial accept returns the pages past the accepted prefix (`rewind`; the
 reservation keeps them claimable), and the block tables go host->device
 only after a row changed.  The draft's KV is a second pool indexed by the
-same block tables.  A request longer than a dense slot completes.  There
-is no pool-pressure preemption yet: a deferred head waits for running
-requests to finish, and the reservation arithmetic guarantees that it
-then clears (every admitted request's growth is already reserved).
+same block tables.  A request longer than a dense slot completes.
 
-Not ported yet: preemption (and its resumed requests), `cancel()`,
-deadlines, faults, the finite-logits guard and the degraded wave, the
-watchdog (``stall_limit``), ``debug_invariants``, the journal, telemetry
-and the tracer, the sanitizer, mesh execution, and speculation on the SSM
-and hybrid families (a state rewind).
+The failure model is the reference's:
+
+  * pool-pressure preemption (paged): when the head of the queue has
+    deferred ``preempt_after`` iterations in a row, the YOUNGEST
+    in-flight request (highest admission number) is preempted: its pages
+    go back to the pool and it is requeued at the back as a
+    `_ResumedRequest`, ``prompt + tokens so far``, which chunked admission
+    recomputes.  The oldest is never preempted, so the head always admits
+    in bounded time;
+  * ``ServeRequest.deadline_s`` (from submit) and `cancel` finish a queued
+    or in-flight request as "timeout" / "cancelled" with its tokens so
+    far, and drain its pages;
+  * the finite-logits guard: the plain step, the fused speculative verify
+    and the mixed wave compute ``~isfinite(logits).all()`` on the device,
+    and the flag rides the iteration's one fetch.  A poisoned step is
+    discarded and re-run once without the injected fault, speculation
+    clamped to one step for the target and the draft
+    (`IterStats.degraded`, a WARNING on the ``repro_torch.serving``
+    logger).  On the CPU the re-run takes the reference's plain path ("pu"
+    FC, plain attention); on the card it runs the engine's own kernels,
+    since a CUDA tensor goes to its kernel or raises, so a step that is
+    non-finite again with no fault injected is a fault of the path and
+    raises.  The guard catches no exception: a kernel that fails to build
+    or launch raises.  The reference drops a poisoned step by never
+    assigning the cache it returned; the port's caches change in place, so
+    the engine keeps the caches' dict entries from before the step and
+    puts them back: the ``pos`` tensors are replaced, never mutated, so
+    the old ones hold the pre-step positions; K/V rows the step wrote sit
+    at its own positions, which the re-run writes again (rows past the
+    restored ``pos`` are never read); and a decode step writes the SSM
+    families' new state into fresh tensors, as it replaces ``pos``, so the
+    old entry is the pre-step state;
+  * `faults.FaultInjector` forces admission failure, NaN / Inf logits,
+    step latency and a crash (`EngineCrashError`, raised at the top of
+    `step` with no clean-up), deterministically;
+  * the watchdog: ``stall_limit`` iterations in a row that admit, decode,
+    prefill, finish and preempt nothing while work is pending raise
+    `EngineStallError` with a snapshot of the queue, slots and pool;
+  * ``debug_invariants=True`` checks the page allocator every iteration
+    and raises `AllocatorInvariantError` with the snapshot.
+
+Not ported yet: the journal (``snapshot`` / ``restore``, which answer the
+crash fault), telemetry and the tracer, the sanitizer, mesh execution,
+``run(abort_in_flight=False)``, and speculation on the SSM and hybrid
+families (a state rewind).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import logging
 import time
 from typing import Sequence
 
@@ -94,8 +134,15 @@ from repro_torch.models import (attn_impl, decode_step, fc_variant,
                                 init_cache, init_paged_cache, mixed_step,
                                 prefill_chunk, prefill_to_pages,
                                 prefill_to_slots)
+from repro_torch.serving.faults import (FAULT_NAN, FAULT_NONE,
+                                        FaultInjector)
 from repro_torch.serving.kv_pages import PagedKVManager
 from repro_torch.serving.sampler import accept_speculative, greedy
+
+# deferral (DEBUG), preemption and unhappy finishes (INFO), degraded
+# re-runs (WARNING), stalls (ERROR); silent until configured
+# (`launch.serve --log-level`)
+log = logging.getLogger("repro_torch.serving")
 
 
 @dataclasses.dataclass
@@ -103,6 +150,10 @@ class ServeRequest:
     req_id: int
     prompt: list[int]
     max_new_tokens: int
+    # wall-clock budget in seconds from submit(); None: unbounded.  An
+    # expired request finishes as "timeout" with its tokens so far at the
+    # next step boundary.
+    deadline_s: float | None = None
 
 
 @dataclasses.dataclass
@@ -137,6 +188,65 @@ class TokenEvent:
 
 
 @dataclasses.dataclass
+class _ResumedRequest:
+    """A preempted request requeued: the caller's prompt extended with the
+    tokens already emitted, so chunked admission recomputes the KV and the
+    first token it gives is the decode step the preemption skipped.  The
+    caller's `ServeRequest` is never touched; `done` and `orig_prompt_len`
+    let `_emit` and `serve()` reassemble the caller's stream."""
+    req_id: int
+    prompt: list[int]          # original prompt + tokens emitted so far
+    max_new_tokens: int        # the remaining generation budget
+    deadline_s: float | None
+    done: list[int]            # tokens emitted before the preemption(s)
+    orig_prompt_len: int
+
+
+class EngineStallError(RuntimeError):
+    """No progress — nothing admitted, decoded, prefilled, finished or
+    preempted — for ``stall_limit`` iterations in a row while requests
+    were pending.  ``snapshot`` holds the queue, slot and pool state."""
+
+    def __init__(self, message: str, snapshot: dict):
+        super().__init__(message)
+        self.snapshot = snapshot
+
+
+class EngineCrashError(RuntimeError):
+    """A ``crash`` fault fired: the engine dies at the top of the
+    iteration with no clean-up (no results, no pages drained)."""
+
+    def __init__(self, message: str, iteration: int):
+        super().__init__(message)
+        self.iteration = iteration
+
+
+class AllocatorInvariantError(RuntimeError):
+    """A ``debug_invariants=True`` engine caught the page allocator
+    breaking an invariant; ``snapshot`` holds the engine and pool state."""
+
+    def __init__(self, message: str, snapshot: dict):
+        super().__init__(message)
+        self.snapshot = snapshot
+
+
+def _inject_fault(logits: torch.Tensor, code: int) -> torch.Tensor:
+    """The iteration's logits fault: FAULT_NAN poisons every logit with
+    NaN, FAULT_INF (an overflowed accumulator) with +inf, FAULT_NONE
+    passes the logits through untouched."""
+    if code == FAULT_NONE:
+        return logits
+    return torch.full_like(logits,
+                           float("nan") if code == FAULT_NAN else float("inf"))
+
+
+def _nonfinite(logits: torch.Tensor) -> torch.Tensor:
+    """The finite-logits guard's flag, a device bool: any NaN or Inf."""
+    with torch.profiler.record_function("finite_guard"):
+        return ~torch.isfinite(logits).all()
+
+
+@dataclasses.dataclass
 class IterStats:
     iteration: int
     rlp: int
@@ -148,6 +258,10 @@ class IterStats:
     accepted: float = 0.0  # mean accepted tokens per decoding slot
     transfers: int = 0     # device->host copies this iteration
     admitted: int = 0      # requests admitted to slots this iteration
+    # the failure model:
+    preemptions: int = 0   # in-flight requests preempted this iteration
+    deferral_age: int = 0  # iterations in a row the queue head deferred
+    degraded: int = 0      # 1 if the finite-logits guard re-ran the step
     # paged KV layout only (zeros under the dense layout):
     kv_pages_used: int = 0       # pages holding live KV right now
     kv_pages_free: int = 0       # pages on the free list
@@ -175,6 +289,10 @@ class PapiEngine:
                  attn_pim: bool = False, kv_layout: str = "dense",
                  page_size: int = 16, num_pages: int | None = None,
                  max_blocks: int | None = None,
+                 faults: FaultInjector | None = None,
+                 preempt_after: int | None = 8,
+                 stall_limit: int | None = 256,
+                 debug_invariants: bool = False,
                  device: torch.device | str | None = None) -> None:
         if not cfg.has_decode_step:
             raise ValueError(f"{cfg.name} is encoder-only")
@@ -254,6 +372,23 @@ class PapiEngine:
         self.submit_iteration: dict[int, int] = {}
         self.admit_iteration: dict[int, int] = {}
         self.first_token_iteration: dict[int, int] = {}
+        # the failure model
+        self.faults = faults
+        self.preempt_after = preempt_after
+        self.stall_limit = stall_limit
+        self.debug_invariants = debug_invariants
+        # admission order per slot: preemption takes the highest number
+        # (the youngest), never the lowest
+        self._admit_seq = 0
+        self.slot_seq: list[int] = [0] * max_slots
+        self._defer_head: int | None = None     # req_id of the deferring head
+        self._defer_age = 0                     # iterations it deferred
+        self._deferred_head: int | None = None  # set by _admit on a deferral
+        self._degraded_this_step = False
+        self._stalled = 0                       # no-progress iterations
+        self.preemptions = 0                    # engine lifetime
+        self.degraded_steps = 0                 # engine lifetime
+        self.preempted_ids: set[int] = set()
 
     # ------------------------------------------------------------------ API
     def submit(self, req: ServeRequest) -> None:
@@ -307,12 +442,18 @@ class PapiEngine:
         in it (live slots first), then each finished request's tail and
         final event.
 
+        A token's index counts the caller's stream: a preempted request's
+        indices go on after its re-admission, and the tokens it recomputes
+        are never sent again.  `cancel` may be called between two events:
+        a slot it frees is skipped, and its final event follows.
+
         Exhausting `max_iterations` finishes the in-flight requests as
         "aborted" and still yields their final events.  Closing the
         generator early (``break``, ``close()``) finishes them as "aborted"
         too, in ``self.results`` (no event can be yielded then); the pool
         drains, queued requests stay queued and the engine stays usable.
-        An exception out of `step()` re-raises with no such clean-up."""
+        An exception out of `step()` (`EngineCrashError`,
+        `EngineStallError`, ...) re-raises with no such clean-up."""
         arrivals = iter(arrivals)
         streamed: dict[int, int] = {}   # req_id -> tokens already yielded
         reported = len(self.results)    # results already turned into events
@@ -345,12 +486,17 @@ class PapiEngine:
                     return
                 self.step()
                 for s in self.active_slots:
-                    req, toks = self.slot_req[s], self.slot_tokens[s]
+                    req = self.slot_req[s]
+                    if req is None:
+                        continue      # a cancel() between two events freed it
+                    done = (req.done if isinstance(req, _ResumedRequest)
+                            else [])
+                    full = list(done) + self.slot_tokens[s]
                     sent = streamed.get(req.req_id, 0)
-                    for i in range(sent, len(toks)):
-                        yield TokenEvent(req.req_id, toks[i], i,
+                    for i in range(sent, len(full)):
+                        yield TokenEvent(req.req_id, full[i], i,
                                          self.iteration)
-                    streamed[req.req_id] = max(sent, len(toks))
+                    streamed[req.req_id] = max(sent, len(full))
                 new_reported = len(self.results)
                 yield from self._drain_events(streamed, reported)
                 reported = new_reported
@@ -376,6 +522,21 @@ class PapiEngine:
             yield TokenEvent(res.req_id, -1, len(res.tokens), self.iteration,
                              finished=True, reason=res.finished_reason,
                              result=res)
+
+    def cancel(self, req_id: int) -> bool:
+        """Cancel a queued or in-flight request: it finishes as "cancelled"
+        with its tokens so far, and its pages drain.  False when no pending
+        request carries `req_id`."""
+        for i, req in enumerate(self.queue):
+            if req.req_id == req_id:
+                self.queue.pop(i)
+                self._emit(req, [], "cancelled")
+                return True
+        for s in self.active_slots:
+            if self.slot_req[s].req_id == req_id:
+                self._finish_slot(s, "cancelled")
+                return True
+        return False
 
     # ------------------------------------------------------------- internals
     def _check_speculation(self, tlp: int) -> None:
@@ -466,7 +627,11 @@ class PapiEngine:
     def _now(self) -> float:
         return time.monotonic()
 
-    def _mark_admitted(self, req: ServeRequest) -> None:
+    def _mark_admitted(self, slot: int, req) -> None:
+        """Admission order (preemption takes the youngest) and the first
+        admission's stamps."""
+        self._admit_seq += 1
+        self.slot_seq[slot] = self._admit_seq
         self.admit_iteration.setdefault(req.req_id, self.iteration)
         self._admit_t.setdefault(req.req_id, self._now())
 
@@ -496,26 +661,158 @@ class PapiEngine:
             if (i0 is not None and i_f is not None) else None,
         )
 
-    def _emit(self, req: ServeRequest, tokens: Sequence[int],
-              reason: str) -> None:
+    def _emit(self, req, tokens: Sequence[int], reason: str) -> None:
+        """Append the caller's result for `req`; a `_ResumedRequest`'s
+        prompt carries its own earlier output, which is put back in front
+        of the tokens."""
+        if isinstance(req, _ResumedRequest):
+            toks, plen = req.done + list(tokens), req.orig_prompt_len
+        else:
+            toks, plen = list(tokens), len(req.prompt)
         self.results.append(ServeResult(
-            req.req_id, list(tokens), len(req.prompt), self.iteration, reason,
-            **self._latency_fields(req.req_id, len(tokens))))
+            req.req_id, toks, plen, self.iteration, reason,
+            **self._latency_fields(req.req_id, len(toks))))
+        if reason not in ("eos", "length"):
+            log.info("request %d finished: %s (%d tokens)", req.req_id,
+                     reason, len(toks))
 
     def _finish_slot(self, s: int, reason: str) -> None:
         """Finish live slot `s`: emit its tokens so far, free the slot and
         drain its pages."""
         self._emit(self.slot_req[s], self.slot_tokens[s], reason)
+        self._free_slot(s)
+
+    def _free_slot(self, s: int) -> None:
         self.slot_req[s] = None
         self.slot_tokens[s] = []
         self.slot_last[s] = 0
         if self.kv is not None:
             self.kv.release(s)
 
+    def _deadline_expired(self, req) -> bool:
+        dl = req.deadline_s
+        if dl is None:
+            return False
+        t0 = self._submit_t.get(req.req_id)
+        return t0 is not None and self._now() - t0 > dl
+
+    def _expire_deadlines(self) -> None:
+        still_queued = [r for r in self.queue if not self._deadline_expired(r)]
+        if len(still_queued) != len(self.queue):
+            for req in self.queue:
+                if self._deadline_expired(req):
+                    self._emit(req, [], "timeout")
+            self.queue = still_queued
+        for s in self.active_slots:
+            if self._deadline_expired(self.slot_req[s]):
+                self._finish_slot(s, "timeout")
+
+    def _age_deferral(self) -> None:
+        """Iterations in a row the SAME queue head was deferred by the pool
+        (or an injected admission fault); a wait for a slot does not
+        count."""
+        if self._deferred_head is None:
+            self._defer_age = 0
+            self._defer_head = None
+        elif self._deferred_head != self._defer_head:
+            self._defer_head = self._deferred_head
+            self._defer_age = 1
+        else:
+            self._defer_age += 1
+        if self._deferred_head is not None:
+            log.debug("queue head %d deferred by the pool (age %d)",
+                      self._deferred_head, self._defer_age)
+
+    def _should_preempt(self) -> bool:
+        """The head deferred `preempt_after` iterations in a row.  Dense
+        admission never defers: preemption is paged only."""
+        return (self.kv is not None and self.preempt_after is not None
+                and self._defer_age >= self.preempt_after)
+
+    def _preempt_one(self) -> bool:
+        """Preempt the youngest in-flight request: free its pages and
+        requeue it at the back as ``prompt + tokens so far``.  With one
+        request in flight there is nothing younger: the head waits for it
+        to finish."""
+        live = sorted((self.slot_seq[s], s) for s in self.active_slots)
+        if len(live) < 2:
+            return False
+        victim = live[-1][1]
+        req = self.slot_req[victim]
+        emitted = self.slot_tokens[victim]
+        if isinstance(req, _ResumedRequest):
+            done = req.done + list(emitted)
+            base, plen = req.prompt[:req.orig_prompt_len], req.orig_prompt_len
+        else:
+            done, base, plen = list(emitted), list(req.prompt), len(req.prompt)
+        self.queue.append(_ResumedRequest(
+            req_id=req.req_id, prompt=base + done,
+            max_new_tokens=int(self.slot_budget[victim]) - len(emitted),
+            deadline_s=req.deadline_s, done=done, orig_prompt_len=plen))
+        self._free_slot(victim)
+        self.preemptions += 1
+        self.preempted_ids.add(req.req_id)
+        log.info("preempted request %d from slot %d (%d tokens done, "
+                 "deferral age %d)", req.req_id, victim, len(done),
+                 self._defer_age)
+        return True
+
+    def _snapshot(self) -> dict:
+        """The state the structured errors carry."""
+        snap = {
+            "iteration": self.iteration,
+            "queue": [r.req_id for r in self.queue],
+            "deferred_head": self._defer_head,
+            "deferral_age": self._defer_age,
+            "active": {s: self.slot_req[s].req_id for s in self.active_slots},
+            "slot_budget": {s: int(self.slot_budget[s])
+                            for s in self.active_slots},
+            "preemptions": self.preemptions,
+            "degraded_steps": self.degraded_steps,
+            "stalled_iterations": self._stalled,
+        }
+        if self.kv is not None:
+            snap["pool"] = self.kv.alloc.snapshot()
+        return snap
+
+    def _watchdog(self, progress: bool) -> None:
+        if progress:
+            self._stalled = 0
+            return
+        self._stalled += 1
+        if (self.stall_limit is not None
+                and (self.queue or self.active_slots)
+                and self._stalled >= self.stall_limit):
+            snap = self._snapshot()
+            log.error("engine stalled for %d iterations at iteration %d "
+                      "(queue=%s)", self._stalled, self.iteration,
+                      snap["queue"])
+            raise EngineStallError(
+                f"engine made no progress for {self._stalled} consecutive "
+                f"iterations at iteration {self.iteration} "
+                f"(queue={snap['queue']}, deferral_age={self._defer_age}, "
+                f"pool={snap.get('pool')})", snap)
+
+    def _check_invariants(self) -> None:
+        if not (self.debug_invariants and self.kv is not None):
+            return
+        try:
+            self.kv.alloc.check()
+        except AssertionError as err:
+            raise AllocatorInvariantError(
+                f"page-pool invariant violated at iteration "
+                f"{self.iteration}: {err}", self._snapshot()) from err
+
     def _admit(self) -> int:
         """Fill free slots from the queue, one batched prefill per wave; a
         request that finishes at admission (first token <eos>, or a
-        1-token budget) frees its slot for the next wave of this step."""
+        1-token budget) frees its slot for the next wave of this step.  An
+        injected admission fault defers the whole wave, as the pool would."""
+        self._deferred_head = None
+        if (self.queue and self.faults is not None
+                and self.faults.admission_blocked(self.iteration)):
+            self._deferred_head = self.queue[0].req_id
+            return 0
         admitted = 0
         while True:
             wave_admitted, instant_finish = self._admit_wave()
@@ -547,7 +844,10 @@ class PapiEngine:
             budget = max(1, min(req.max_new_tokens, room))
             if self.kv is not None and not self.kv.can_admit(
                     p + budget + window):
-                break                  # pool busy: defer, keep the order
+                # pool busy: defer, keep the order; step() ages the
+                # deferral and preempts past `preempt_after`
+                self._deferred_head = req.req_id
+                break
             self.queue.pop(0)
             slot = free.pop(0)
             if self.kv is not None:
@@ -557,7 +857,7 @@ class PapiEngine:
                 initial = min(p, self.prefill_len) if self.stream_chunks else p
                 self.kv.admit(slot, p + budget + window, initial)
             self.slot_budget[slot] = budget
-            self._mark_admitted(req)
+            self._mark_admitted(slot, req)
             batch_rows.append((slot, req))
         if not batch_rows:
             return 0, False
@@ -737,8 +1037,10 @@ class PapiEngine:
                               ) -> tuple[np.ndarray, np.ndarray]:
         """The TLP = 1 serve iteration: the decodes (chunks of length 1
         holding each slot's last token) and the prefill chunks in ONE
-        `mixed_step` under the scheduler's FC variant, and one fetch.
-        Returns `_decode_all`'s (tokens, accepted)."""
+        `mixed_step` under the scheduler's FC variant, and one fetch of the
+        tokens and the guard's flag.  A poisoned wave is re-run
+        (`_degraded_wave`); the draft's chunk rows are kept, as in the
+        reference.  Returns `_decode_all`'s (tokens, accepted)."""
         ctoks, clens, pin, pin_pos, finals = self._wave_rows(prefilling)
         chunk_lens = clens.copy()        # the prefill rows only, for the draft
         for s in decoding:
@@ -750,21 +1052,100 @@ class PapiEngine:
                 self.kv.ensure(s, self._slot_pos(s) + 1)
         self._sync_tables()
         ct, cl, pm, pp = map(self._to_device, (ctoks, clens, pin, pin_pos))
+        pre = dict(self.cache)
+        code = self._fault_code()
         with fc_variant(self.scheduler.fc_assignment), self._attn_scope():
             logits, self.cache = mixed_step(self.cfg, self.params, self.cache,
                                             ct, cl, pm, pp)
-            nxt = greedy(logits)
+            logits = _inject_fault(logits, code)
+            nxt, bad = greedy(logits), _nonfinite(logits)
             if self.draft_cfg is not None and prefilling:
                 # the draft's KV covers the prompt positions (the TLP = 1
                 # decodes never advance the draft)
                 _, self.draft_cache = mixed_step(
                     self.draft_cfg, self.draft_params, self.draft_cache, ct,
                     self._to_device(chunk_lens), pm, pp)
-        out_h = np.asarray(self._fetch(nxt))
+        out_h, bad_h = self._fetch(nxt, bad)
+        if bad_h:
+            out_h = self._degraded_wave(pre, ct, cl, pm, pp)
+        out_h = np.asarray(out_h)
         for s in prefilling:
             self.slot_offset[s] += int(chunk_lens[s])
         self._finalize_first_tokens(finals, out_h)
         return out_h[:, None].astype(np.int32), np.ones(self.max_slots)
+
+    def _degraded_wave(self, pre: dict, ct, cl, pm, pp) -> np.ndarray:
+        """Re-run a poisoned mixed wave from the pre-wave cache entries,
+        never injected (`_rerun_scope`)."""
+        self._note_degraded("the mixed wave")
+        self.cache = pre
+        with self._rerun_scope():
+            logits, self.cache = mixed_step(self.cfg, self.params, self.cache,
+                                            ct, cl, pm, pp)
+            return self._rerun_tokens(greedy(logits), logits)
+
+    def _fault_code(self) -> int:
+        """This iteration's logits fault; none under ``fused=False``, whose
+        host loop takes no guard."""
+        if self.faults is None or not self.fused:
+            return FAULT_NONE
+        return self.faults.logits_fault(self.iteration)
+
+    def _note_degraded(self, what: str) -> None:
+        self.degraded_steps += 1
+        self._degraded_this_step = True
+        log.warning("non-finite logits at iteration %d: re-running %s",
+                    self.iteration, what)
+
+    @contextlib.contextmanager
+    def _rerun_scope(self):
+        """The paths of a degraded re-run: the reference's plain path ("pu"
+        FC, plain attention) where the wrappers take their plain versions
+        anyway (CPU tensors); on the card the engine's own, because a CUDA
+        tensor goes to its kernel or raises."""
+        if self.device.type == "cpu":
+            with attn_impl("xla"), fc_variant("pu"):
+                yield
+        else:
+            with fc_variant(self.scheduler.fc_assignment), self._attn_scope():
+                yield
+
+    def _rerun_tokens(self, nxt: torch.Tensor, logits: torch.Tensor
+                      ) -> np.ndarray:
+        """The re-run's tokens, fetched with its own guard flag in one
+        copy: logits that are non-finite with no fault injected come from
+        the path itself, and raise."""
+        nxt_h, bad_h = self._fetch(nxt, _nonfinite(logits))
+        if bad_h:
+            raise RuntimeError(
+                f"non-finite logits at iteration {self.iteration} again on "
+                "the re-run, with no fault injected: a fault of the FC or "
+                "attention path")
+        return np.asarray(nxt_h)
+
+    def _pre_step(self) -> tuple[dict, dict | None]:
+        """The caches' entries before a guarded step: what `_degraded_step`
+        puts back (see the module docstring)."""
+        return dict(self.cache), (dict(self.draft_cache)
+                                  if self.draft_cache is not None else None)
+
+    def _degraded_step(self, pre: tuple[dict, dict | None]
+                       ) -> tuple[np.ndarray, np.ndarray]:
+        """Re-run a poisoned decode iteration from the pre-step cache
+        entries, never injected (`_rerun_scope`), as one plain step: when
+        speculating, the draft advances one plain step too, so the two
+        caches stay in step."""
+        self._note_degraded("the step")
+        self.cache, self.draft_cache = pre
+        last = self._to_device(self.slot_last)[:, None]
+        with self._rerun_scope():
+            logits, self.cache = decode_step(self.cfg, self.params,
+                                             self.cache, last)
+            if self._speculating:
+                _, self.draft_cache = decode_step(
+                    self.draft_cfg, self.draft_params, self.draft_cache, last)
+            nxt = self._rerun_tokens(greedy(logits[:, -1]), logits)
+        return nxt[:, None].astype(np.int32), np.ones(self.max_slots)
 
     def _decode_all(self) -> tuple[np.ndarray, np.ndarray]:
         """One decoding iteration for all slots, under the scheduler's FC
@@ -772,12 +1153,22 @@ class PapiEngine:
         with fc_variant(self.scheduler.fc_assignment), self._attn_scope():
             if not self._speculating:
                 # the fused plain step: decode_step + greedy on the device,
-                # then the iteration's single host fetch
+                # then the iteration's single host fetch (with the guard's
+                # flag; ``fused=False`` takes no guard, as the reference)
                 last = self._to_device(self.slot_last)
+                pre = self._pre_step()
+                code = self._fault_code()
                 logits, self.cache = decode_step(self.cfg, self.params,
                                                  self.cache, last[:, None])
-                nxt = np.asarray(self._fetch(greedy(logits[:, -1])))
-                return nxt[:, None], np.ones(self.max_slots)
+                logits = _inject_fault(logits, code)
+                nxt = greedy(logits[:, -1])
+                if not self.fused:
+                    nxt_h = np.asarray(self._fetch(nxt))
+                    return nxt_h[:, None], np.ones(self.max_slots)
+                nxt_h, bad_h = self._fetch(nxt, _nonfinite(logits))
+                if bad_h:
+                    return self._degraded_step(pre)
+                return np.asarray(nxt_h)[:, None], np.ones(self.max_slots)
             if self.fused:
                 return self._speculative_iteration_fused()
             return self._speculative_iteration_host()
@@ -791,9 +1182,13 @@ class PapiEngine:
 
     def _speculative_iteration_fused(self) -> tuple[np.ndarray, np.ndarray]:
         """Draft, verify, accept and rewind on the device; the host fetches
-        one (out, accepted, finished_eos) bundle."""
+        one (out, accepted, finished_eos, guard flag) bundle.  Poisoned
+        verify logits put both caches back and degrade the iteration to
+        one plain step."""
         k = self.spec_len
         last = self._to_device(self.slot_last)
+        pre = self._pre_step()
+        code = self._fault_code()
         # 1) the draft proposes autoregressively, k steps at t = 1: the
         # extra step writes the KV of the window's last token, so a full
         # accept leaves the two caches in step
@@ -808,13 +1203,17 @@ class PapiEngine:
         # 2) the target verifies the window in one decode step (TLP = k)
         logits, self.cache = decode_step(self.cfg, self.params, self.cache,
                                          window)
+        logits = _inject_fault(logits, code)
         # 3) accept the longest matching prefix, rewind both caches
         out, accepted = accept_speculative(window, greedy(logits))
         self._rewind(accepted)
         in_window = (torch.arange(k, device=self.device)[None, :]
                      < accepted[:, None])
         finished_eos = ((out == self.eos_token) & in_window).any(dim=1)
-        out_h, acc_h, _ = self._fetch(out, accepted, finished_eos)
+        out_h, acc_h, _, bad_h = self._fetch(out, accepted, finished_eos,
+                                             _nonfinite(logits))
+        if bad_h:
+            return self._degraded_step(pre)
         return out_h, acc_h.astype(np.float64)
 
     def _speculative_iteration_host(self) -> tuple[np.ndarray, np.ndarray]:
@@ -848,12 +1247,35 @@ class PapiEngine:
     def step(self) -> None:
         t0 = time.perf_counter()
         transfers0 = self.host_transfers
+        results0, preempted0 = len(self.results), self.preemptions
+        self._degraded_this_step = False
+        if self.faults is not None and self.faults.crash_now(self.iteration):
+            # a process death: no clean-up, no results
+            raise EngineCrashError(
+                f"injected crash at iteration {self.iteration}",
+                self.iteration)
+        if self.faults is not None:
+            delay = self.faults.step_delay(self.iteration)
+            if delay > 0:
+                time.sleep(delay)
+        self._expire_deadlines()
         admitted = self._admit()
+        self._age_deferral()
+        if self._defer_age and self._should_preempt() and self._preempt_one():
+            # pages freed: admit again at once, so that the head waits at
+            # most `preempt_after` iterations
+            admitted += self._admit()
+            if self._deferred_head is None:
+                self._defer_age = 0
         arrived, self._arrived_this_step = self._arrived_this_step, 0
         active = self.active_slots
         if not active:
+            # still an iteration: counted, watched and checked
             self.scheduler.observe_counts(0, admitted)
             self.iteration += 1
+            self._watchdog(admitted > 0 or len(self.results) > results0
+                           or self.preemptions > preempted0)
+            self._check_invariants()
             return
 
         speculating = self._speculating
@@ -926,6 +1348,10 @@ class PapiEngine:
         # the PAPI runtime scheduling step (§5.2.2)
         self.scheduler.observe_counts(finished, admitted)
         self.iteration += 1
+        self._watchdog(admitted > 0 or new_tokens > 0 or len(prefilling) > 0
+                       or len(self.results) > results0
+                       or self.preemptions > preempted0)
+        self._check_invariants()
         pool = {}
         if self.kv is not None:
             ps = self.kv.stats(sum(self._tokens_written(s)
@@ -945,6 +1371,9 @@ class PapiEngine:
                       else 0.0),
             transfers=self.host_transfers - transfers0,
             admitted=admitted,
+            preemptions=self.preemptions - preempted0,
+            deferral_age=self._defer_age,
+            degraded=int(self._degraded_this_step),
             arrivals=arrived,
             queued=len(self.queue),
             prefill_slots=len(prefilling),
@@ -953,5 +1382,6 @@ class PapiEngine:
         ))
 
 
-__all__ = ["IterStats", "PapiEngine", "ServeRequest", "ServeResult",
+__all__ = ["AllocatorInvariantError", "EngineCrashError", "EngineStallError",
+           "IterStats", "PapiEngine", "ServeRequest", "ServeResult",
            "TokenEvent"]

@@ -49,6 +49,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.kernels.paged_decode_attention\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.models.ssm\n"
         "import repro_torch.serving.kv_pages, repro_torch.serving.metrics\n"
+        "import repro_torch.serving.faults\n"
         "import repro_torch.models, repro_torch.serving, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

@@ -12,7 +12,10 @@ qwen2-0.5b-smoke`` the cap leaves room for the window (capacity − 64 − 4)
 and the draft's weights come from seed + 1, as in the reference.  With
 ``--arrivals 0.5`` the live schedule (the iteration each request arrives
 at) equals the one the reference launcher hands its `serve()`, and the
-port's run on the CPU finishes every request.
+port's run on the CPU finishes every request.  ``--fault`` (repeatable),
+``--fault-seed`` and ``--deadline`` give the engine the reference
+launcher's injector and the requests its deadline, and a real run of both
+launchers prints the same ``resilience:`` line.
 """
 import dataclasses
 import sys
@@ -37,8 +40,13 @@ class _EngineRecorder:
     def __init__(self, cfg, params, **kw):
         self.kw, self.requests = kw, []
         self.iteration, self.stats, self.kv = 0, [], None
+        self.preemptions = self.degraded_steps = 0
+        self.faults = kw.get("faults")
         self.scheduler = type("Sched", (), {"num_reschedules": 0})()
         _EngineRecorder.made.append(self)
+
+    def sanitize_report(self):
+        return None
 
     def submit(self, req):
         self.requests.append(req)
@@ -232,3 +240,79 @@ def test_launcher_arrivals_serves_every_request(capsys):
     assert out.count("queue ") == 8 and "ttft" in out
     assert "completed 8 requests" in out and "'length': 8" in out
     assert "ttft_iters        p50" in out and "tpot_s" in out
+
+
+FAULTS = ("--fault", "nan:0.3", "--fault", "kernel:0.2", "--fault",
+          "admit:0.3", "--fault-seed", "3")
+
+
+def _reference_engine_kw(monkeypatch, *argv):
+    """(engine keyword arguments, [(prompt, budget, deadline)]) that
+    `repro.launch.serve.main` builds: its engine is replaced by the
+    recorder, its trace run by one that keeps the requests."""
+    ref = pytest.importorskip("repro.launch.serve")
+    import repro.serving
+    got = []
+
+    def record(args, eng, reqs, rng):
+        got.extend((list(r.prompt), r.max_new_tokens, r.deadline_s)
+                   for r in reqs)
+        return []
+
+    _EngineRecorder.made = []
+    monkeypatch.setattr(repro.serving, "PapiEngine", _EngineRecorder)
+    monkeypatch.setattr(ref, "_run_trace", record)
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", "qwen2-0.5b-smoke",
+                                      *argv])
+    ref.main()
+    eng, = _EngineRecorder.made
+    return eng.kw, got
+
+
+@pytest.mark.parametrize("argv", [FAULTS + ("--deadline", "2.5"),
+                                  ("--fault", "latency:0.5", "--fault",
+                                   "crash:0.01"),
+                                  ()])
+def test_launcher_fault_flags_match_reference(monkeypatch, argv):
+    """The port's engine gets the reference launcher's fault injector (or
+    none without ``--fault``), and its requests the same deadline."""
+    want_kw, want = _reference_engine_kw(monkeypatch, *argv)
+    _EngineRecorder.made = []
+    monkeypatch.setattr(serve_cli, "PapiEngine", _EngineRecorder)
+    serve_cli.main(["--arch", "qwen2-0.5b-smoke", "--device", "cpu", *argv])
+    eng, = _EngineRecorder.made
+    got = [(r.prompt, r.max_new_tokens, r.deadline_s) for r in eng.requests]
+    assert got == want
+    w, g = want_kw["faults"], eng.kw["faults"]
+    if w is None:
+        assert g is None
+    else:
+        fields = [f.name for f in dataclasses.fields(w)]
+        assert {f: getattr(g, f) for f in fields} == {
+            f: getattr(w, f) for f in fields}
+
+
+def test_launcher_resilience_line_matches_reference(monkeypatch, capsys):
+    """A real run of both launchers on the smoke twin under the same fault
+    flags: the same degraded steps and faults fired."""
+    ref = pytest.importorskip("repro.launch.serve")
+    argv = ("--requests", "3") + FAULTS
+    monkeypatch.setattr(sys, "argv", ["serve", "--arch", "qwen2-0.5b-smoke",
+                                      *argv])
+    ref.main()
+    want = [ln for ln in capsys.readouterr().out.splitlines()
+            if ln.startswith("resilience:")]
+    serve_cli.main(["--arch", "qwen2-0.5b-smoke", "--device", "cpu", *argv])
+    out = capsys.readouterr().out
+    got = [ln for ln in out.splitlines() if ln.startswith("resilience:")]
+    assert got == want and len(got) == 1
+    assert "degraded steps" in got[0] and "0 degraded" not in got[0]
+    assert "completed 3 requests" in out
+
+
+def test_launcher_crash_fault_exits_1(capsys):
+    with pytest.raises(SystemExit) as err:
+        serve_cli.main(["--arch", "qwen2-0.5b-smoke", "--device", "cpu",
+                        "--requests", "2", "--fault", "crash:0.2"])
+    assert err.value.code == 1
+    assert "engine crashed (injected) at iteration" in capsys.readouterr().out

@@ -369,7 +369,7 @@ def test_paged_admission_defers_and_finishes_everyone(models):
     for i, prompt, budget in reqs:
         ref.submit(JaxRequest(i, prompt, budget))
     want = _streams(ref.run(max_iterations=500))
-    got, eng = _port(cfg, tp, reqs, **kw)
+    got, eng = _port(cfg, tp, reqs, preempt_after=None, **kw)
     assert got == want
     assert all(len(t) == 40 and r == "length" for t, r in got.values())
     assert max(s.rlp for s in eng.stats) < 4      # the pool held it back

@@ -13,7 +13,9 @@ over by `params_from_jax`, and a seed-9 draft of the same config, at
   reference's ``serve()``; every iteration's counters (arrivals, admitted,
   queued, prefill and decode slots, new tokens, transfers, FC variant,
   pool) and every request's queue delay and TTFT in iterations equal the
-  reference's (its preemption off: the port has none);
+  reference's (built with ``preempt_after=None``; the port at its
+  default never preempts here: its dense layout never defers, and no
+  paged head defers for 8 iterations);
 * mixed iterations exist and take no more transfers than plain decodes;
   idle gaps and the trailing drain; ``run()`` after ``serve()``; an early
   close and ``max_iterations`` finish in-flight requests as "aborted",
@@ -172,6 +174,7 @@ def test_serve_iteration_counters_equal_reference(runs, layout, spec):
     want = [tuple(getattr(s, f) for f in STAT_FIELDS) for s in r["ref"].stats]
     assert key == want
     assert sum(s.arrivals for s in r["eng"].stats) == len(r["reqs"])
+    assert r["eng"].preemptions == 0
     assert any(s.prefill_slots for s in r["eng"].stats)
     if layout == "paged":
         alloc = r["eng"].kv.alloc

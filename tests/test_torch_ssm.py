@@ -165,10 +165,12 @@ def test_causal_conv_matches_reference(with_state):
 @pytest.mark.parametrize("t", [1, 3])
 def test_ssd_recurrent_matches_reference(t):
     x, dt, A, B, C, s0 = _scan_inputs(8 + t, 2, 2, t, 32, 16)
-    state = _t(s0).clone()
-    y, got = tssm._ssd_recurrent(_t(x), _t(dt), _t(A), _t(B), _t(C), state)
+    state, out = _t(s0).clone(), torch.empty(s0.shape)
+    y, got = tssm._ssd_recurrent(_t(x), _t(dt), _t(A), _t(B), _t(C), state,
+                                 out)
     jy, jstate = jssm._ssd_recurrent(*map(jnp.asarray, (x, dt, A, B, C, s0)))
-    assert got is state                       # updated in place
+    assert got is out                         # written to `out`
+    assert torch.equal(state, _t(s0))         # the state read is kept
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(jstate), **TOL)
 
@@ -199,13 +201,18 @@ def test_mamba2_block_matches_reference(models, decode):
     st = [rng.standard_normal(tuple(x.shape)).astype(np.float32)
           for x in one]
     state = tssm.SSMState(*(_t(a).clone() for a in st))
+    new = tssm.SSMState(*map(torch.empty_like, state)) if decode else None
     out, got = tssm.mamba2_block(_t(u), lp, cfg.ssm, cfg.d_model,
-                                 state=state, decode=decode)
+                                 state=state, decode=decode, out=new)
     jout, jstate = jax.jit(jssm.mamba2_block, static_argnums=(2, 3),
                            static_argnames="decode")(
         jnp.asarray(u), jlp, jcfg.ssm, jcfg.d_model,
         state=jssm.SSMState(*map(jnp.asarray, st)), decode=decode)
-    assert got is state                       # written in place
+    # the prefill writes the state in place; the decode step writes
+    # `out` and keeps the state it read
+    assert got is (new if decode else state)
+    if decode:
+        assert all(torch.equal(x, _t(a)) for x, a in zip(state, st))
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), **TOL)
     for mine, ref in zip(got, jstate):
         np.testing.assert_allclose(mine.numpy(), np.asarray(ref), **TOL)
@@ -296,6 +303,30 @@ def test_prefill_and_decode_match_reference(models, arch, fc, attn):
     for mine, ref in zip(tc["ssm"], jc["ssm"]):
         np.testing.assert_allclose(mine.numpy(), np.asarray(ref), **TOL)
     np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
+
+
+@pytest.mark.parametrize("arch", ARCHES)
+def test_decode_step_keeps_the_state_it_read(models, arch):
+    """A decode step writes its new SSM state into fresh tensors, as it
+    replaces ``pos``: the entries a caller kept still hold the pre-step
+    state, and a re-run from them gives the same logits and state."""
+    _, _, cfg, tp = models[arch]
+    rng = np.random.default_rng(12)
+    toks = rng.integers(3, cfg.vocab_size, size=(2, 16)).astype(np.int32)
+    _, cache = tm.prefill(cfg, tp, {"tokens": _t(toks),
+                                    "prompt_lens": _t(np.array([16, 9],
+                                                               np.int32))},
+                          tm.init_cache(cfg, 2, 32, "cpu"))
+    pre = dict(cache)
+    kept = [x.clone() for x in pre["ssm"]]
+    tok = _t(np.array([[5], [7]], np.int32))
+    logits, cache = tm.decode_step(cfg, tp, cache, tok)
+    assert cache["ssm"] is not pre["ssm"]
+    assert all(torch.equal(x, y) for x, y in zip(pre["ssm"], kept))
+    assert not torch.equal(cache["ssm"].ssm, pre["ssm"].ssm)
+    again, redo = tm.decode_step(cfg, tp, dict(pre), tok)
+    assert torch.equal(again, logits)
+    assert all(torch.equal(x, y) for x, y in zip(redo["ssm"], cache["ssm"]))
 
 
 @pytest.mark.parametrize("arch", ARCHES)
