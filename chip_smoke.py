@@ -104,6 +104,29 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      tokens of the speculative run equal to the fault-free run's.  `cancel()` mid-stream and a deadline that passes
      while a request is queued, through `serve()`; `stall_limit` raising
      `EngineStallError` with its snapshot;
+     4k: durability.  Phase 4's requests with a journal and a crash fault
+     at iteration 20, dense and paged, and at 8 speculative (spec_len 4,
+     the perfect draft); a fresh engine `restore()`s from the same file and
+     completes: every request finishes exactly once across the durable
+     and the post-crash results, each recovered stream begins with its
+     journaled tokens, the extended journal replays to no unfinished
+     request; prints the restore and re-admission walls and the bf16
+     tokens equal to the uncrashed run's (bf16 recovery is not claimed
+     bit-identical); a snapshot of the crashed engine restores too;
+     4l: phase 4's run (eos off) untraced and traced, dense and paged:
+     equal streams, one transfer per steady iteration traced, the program
+     table's keys and counts equal those of the same schedule on the CPU
+     (the smoke twin), tokens/s traced against untraced, the per-key mean
+     ms (CUDA event pairs: stream time from start to stop); a chrome and a
+     jsonl trace pass `tools/trace_report.py --validate` (subprocesses);
+     and after 4d, mamba2-1.3b's requests traced: the SSM decode step's
+     per-key table;
+     4m: the sanitizer: phase 4's run dense and paged and the perfect-draft
+     speculative run with ``sanitize=True``: no `SanitizeError`, 1.0
+     transfers per steady iteration; a deliberate ``.item()`` inside a
+     sanitized step raises, and the sync-debug mode is back after;
+     the journal's cost: phase 4's dense run with no journal, ``flush``
+     and ``fsync`` (tokens/s, bytes, records);
   5. trace five steady iterations per KV layout and FC variant with
      torch.profiler (device busy share, top kernels, FC-PIM's, Attn-PIM's
      and the finite-logits guard's device time and CUDA launches per
@@ -135,6 +158,9 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      speculative) equal the unconstrained fault-free dense run's; on
      2-layer f32 mamba2 (ssd_scan in admission) the faulted streams equal
      the fault-free ones: the SSM state of a poisoned step was restored;
+     6f: f32, 2 layers, the kernels on: crash at iteration 20 and restore:
+     the union of the durable and post-crash streams equals the uncrashed
+     run token for token, dense and paged, spec_len 1 and 2;
   7. print the `kernels` JSON line, the card line, and last the device JSON.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -149,6 +175,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -178,9 +205,12 @@ from repro_torch.models import (attn_impl, decode_step, fc_variant,  # noqa: E40
                                 init_cache, init_paged_cache, init_params,
                                 mixed_step, prefill, prefill_to_pages,
                                 prefill_to_slots, ssd_impl)
-from repro_torch.serving import (EngineStallError,  # noqa: E402
-                                 FaultInjector, PapiEngine, ServeRequest,
-                                 latency_summary)
+from repro_torch.debug import SanitizeError  # noqa: E402
+from repro_torch.serving import (EngineCrashError,  # noqa: E402
+                                 EngineStallError, FaultInjector, Journal,
+                                 PapiEngine, ServeRequest, Tracer,
+                                 latency_summary, read_records, recover,
+                                 write_trace)
 from repro_torch.serving.engine import _nonfinite  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -2466,8 +2496,366 @@ def phase_guard_cost() -> None:
 
 
 # ---------------------------------------------------------------------------
+# durable and observable serving: the journal, the tracer, the sanitizer
+# a crash mid-run: phase 4's run takes ~65 iterations, the perfect-draft
+# speculative one ~17
+CRASH_AT, SPEC_CRASH_AT = 20, 8
+CARD = ""               # the card's name and power limit, set by main()
+
+
+def _work_dir():
+    """A scratch directory under the checkout's (ignored) build/."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=ROOT / "build")
+
+
+def _crash_and_restore(cfg, params, label, want, eng_kw, at=CRASH_AT):
+    """Phase 4k / 6f: phase 4's requests with a journal and a crash fault
+    at iteration `at`, then a fresh engine `restore()`s from the same file and
+    completes.  Checks exactly-once finishes, that each recovered stream
+    begins with its journaled tokens and that the extended journal
+    replays to no unfinished request.  Returns (streams, {restore_ms,
+    readmit_ms, resumed, durable}, launches)."""
+    with _work_dir() as d:
+        wal = str(Path(d) / "run.wal")
+        eng = PapiEngine(cfg, params, journal=wal,
+                         faults=FaultInjector(seed=0, crash_p=1.0, start=at,
+                                              stop=at + 1),
+                         device=DEV, **eng_kw)
+        _submit_main(eng, cfg)
+        zero_counts()
+        crashed = None
+        try:
+            eng.run(max_iterations=500)
+        except EngineCrashError as err:
+            crashed = err.iteration
+        eng.journal.close()
+        state = recover(wal, eos_token=eng.eos_token)
+        durable = {rid: f.tokens for rid, f in state.finished.items()}
+        committed = {r.req_id: r.done for r in state.requests}
+        fresh = PapiEngine(cfg, params, journal=wal, device=DEV, **eng_kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = fresh.restore(wal)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        fresh.step()                        # the re-admission wave
+        torch.cuda.synchronize()
+        readmit_ms = fresh.stats[0].wall_s * 1e3
+        after = {r.req_id: r.tokens for r in fresh.run(max_iterations=500)}
+        fresh.journal.close()
+        launches = read_counts()
+        final = recover(wal, eos_token=eng.eos_token)
+        nbytes = Path(wal).stat().st_size
+    check(crashed == at and info["resumed"] == len(committed) > 0,
+          f"{label}: crashed at iteration {crashed}, {info['resumed']} "
+          f"request(s) resumed, {len(durable)} finished before the crash")
+    check(not set(durable) & set(after)
+          and sorted({**durable, **after}) == list(range(8)),
+          f"{label}: every request finished exactly once")
+    check(all(after[i][:len(done)] == done for i, done in committed.items()),
+          f"{label}: each recovered stream begins with its journaled "
+          f"tokens ({sum(len(t) for t in committed.values())} tokens)")
+    check(not final.requests and sorted(final.finished) == list(range(8)),
+          f"{label}: the extended journal ({final.records} records, "
+          f"{nbytes} bytes) replays to no unfinished request")
+    streams = {**durable, **after}
+    same, total = _same_tokens(streams, want)
+    return streams, dict(restore_ms=restore_ms, readmit_ms=readmit_ms,
+                         same=same, total=total,
+                         resumed=info["resumed"]), launches
+
+
+def phase_durability(params, plain: dict) -> dict:
+    """Phase 4k: crash -> restore at full width, bf16, attn_pim, alpha 4:
+    dense, paged, and speculative (spec_len 4, the perfect draft); then a
+    snapshot of the crashed dense engine restored through a file.  bf16
+    recovery is not claimed bit-identical: re-prefilling ``prompt + done``
+    is not the computation of the decode steps that made ``done``.  Returns
+    the launches summed over the runs."""
+    cfg = get_config("qwen2-0.5b")
+    base = dict(max_slots=8, cache_capacity=2048, prefill_len=64, alpha=4,
+                attn_pim=True)
+    cases = [("durable dense", {}, plain, CRASH_AT),
+             ("durable paged", dict(kv_layout="paged", page_size=16), plain,
+              CRASH_AT),
+             ("durable spec dense perfect draft",
+              dict(spec_len=SPEC_LEN, draft=(cfg, params)), SPEC_STREAMS,
+              SPEC_CRASH_AT)]
+    total = {}
+    for label, kw, want, at in cases:
+        _, m, launches = _crash_and_restore(cfg, params, label, want,
+                                            {**base, **kw}, at)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        print(f"      {label} [{CARD}]: restore {m['restore_ms']:.3f} ms "
+              f"({m['resumed']} requests), re-admission wave "
+              f"{m['readmit_ms']:.2f} ms; {m['same']} of {m['total']} bf16 "
+              "tokens equal the uncrashed run's", flush=True)
+
+    eng = PapiEngine(cfg, params, faults=FaultInjector(
+        seed=0, crash_p=1.0, start=CRASH_AT, stop=CRASH_AT + 1),
+        device=DEV, **base)
+    _submit_main(eng, cfg)
+    try:
+        eng.run(max_iterations=500)
+    except EngineCrashError:
+        pass
+    with _work_dir() as d:
+        snap = str(Path(d) / "engine.snap.json")
+        state = eng.snapshot(snap)
+        pre = {r.req_id: r.tokens for r in eng.results}
+        fresh = PapiEngine(cfg, params, device=DEV, **base)
+        info = fresh.restore(snap)
+        after = {r.req_id: r.tokens for r in fresh.run(max_iterations=500)}
+    check(info["resumed"] == len(state["requests"]) > 0
+          and not set(pre) & set(after)
+          and sorted({**pre, **after}) == list(range(8)),
+          f"snapshot/restore: {info['resumed']} requests resumed from the "
+          "snapshot file, every request finished exactly once")
+    return total
+
+
+def phase_durability_parity() -> None:
+    """Phase 6f: recovery parity in f32 (full width, 2 layers, the kernels
+    on: pim FC at alpha 99, Attn-PIM): the union of the durable and the
+    post-crash streams equals the uncrashed run token for token, dense and
+    paged, at spec_len 1 and 2 (the seed-1 draft)."""
+    cfg = dataclasses.replace(get_config("qwen2-0.5b"), num_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(3))
+    draft = (cfg, init_params(cfg, torch.Generator(device=DEV).manual_seed(1)))
+    base = dict(max_slots=8, cache_capacity=2048, prefill_len=64, alpha=99,
+                attn_pim=True, eos_token=cfg.vocab_size)
+    for layout in ("dense", "paged"):
+        for spec in (1, 2):
+            kw = dict(base)
+            if layout == "paged":
+                kw.update(kv_layout="paged", page_size=16)
+            if spec > 1:
+                kw.update(spec_len=spec, draft=draft)
+            oracle = PapiEngine(cfg, params, device=DEV, **kw)
+            _submit_main(oracle, cfg)
+            want = {r.req_id: r.tokens for r in oracle.run(500)}
+            label = f"f32 2 layers recovery {layout} spec_len {spec}"
+            got, m, _ = _crash_and_restore(cfg, params, label, want, kw)
+            check(got == want, f"{label}: {m['same']} of {m['total']} "
+                  "tokens equal the uncrashed run's"
+                  + _first_divergence(got, want))
+
+
+def _program_counts(tracer) -> dict:
+    return {k: t["count"] for k, t in tracer.program_table().items()}
+
+
+def _traced_main(cfg, params, label, tracer, **kw) -> tuple[dict, object]:
+    """Phase 4's requests offline at full width with eos off (so the
+    schedule depends on lengths and budgets only); returns (streams,
+    engine) with the wall in ``engine.wall_s``."""
+    eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
+                     prefill_len=64, alpha=4, attn_pim=True,
+                     eos_token=cfg.vocab_size, tracer=tracer, device=DEV,
+                     **kw)
+    _submit_main(eng, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(max_iterations=500)
+    torch.cuda.synchronize()
+    eng.wall_s = time.perf_counter() - t0
+    return {r.req_id: r.tokens for r in results}, eng
+
+
+def _cpu_schedule_programs(layout_kw: dict) -> dict:
+    """The program table the same schedule gives on the CPU: the smoke
+    twin (eos off, so lengths and budgets alone set the schedule) with the
+    same engine settings and phase 4's prompt lengths and budgets."""
+    cfg = get_config("qwen2-0.5b-smoke")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tr = Tracer()
+    eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
+                     prefill_len=64, alpha=4, attn_pim=True,
+                     eos_token=cfg.vocab_size, tracer=tr, device="cpu",
+                     **layout_kw)
+    _submit_main(eng, cfg)
+    eng.run(max_iterations=500)
+    return _program_counts(tr)
+
+
+def phase_tracing(params) -> dict:
+    """Phase 4l: phase 4's run untraced and traced, dense and paged: equal
+    streams, one transfer per steady iteration traced, the program table's
+    keys and counts equal to those of the same schedule on the CPU, the
+    tracer's overhead in tokens/s and the per-key mean ms (CUDA events).
+    A chrome and a jsonl trace go through `tools/trace_report.py
+    --validate` as subprocesses.  Returns the launches of the traced
+    runs."""
+    cfg = get_config("qwen2-0.5b")
+    total = {}
+    for layout, kw in (("dense", {}),
+                       ("paged", dict(kv_layout="paged", page_size=16))):
+        label = f"traced {layout}"
+        plain, eng0 = _traced_main(cfg, params, f"untraced {layout}", None,
+                                   **kw)
+        tr = Tracer()
+        zero_counts()
+        got, eng = _traced_main(cfg, params, label, tr, **kw)
+        for k, v in read_counts().items():
+            total[k] = total.get(k, 0) + v
+        check(got == plain, f"{label}: the streams equal the untraced "
+              "run's")
+        steady = [s for s in eng.stats if not s.admitted]
+        check(bool(steady) and all(s.transfers == 1 for s in steady),
+              f"{label}: {len(steady)} steady iterations, one host "
+              "transfer each with the tracer on")
+        table = tr.program_table()
+        want = _cpu_schedule_programs(kw)
+        check(_program_counts(tr) == want,
+              f"{label}: program keys and counts {_program_counts(tr)} "
+              f"equal the CPU schedule's")
+        check(all(t["total_s"] > 0 for t in table.values()) and not tr._pending,
+              f"{label}: every program key timed by CUDA events")
+        toks = sum(len(t) for t in got.values())
+        print(f"      {label} [{CARD}]: {toks / eng0.wall_s:.1f} tok/s "
+              f"untraced, {toks / eng.wall_s:.1f} traced "
+              f"({eng.wall_s / eng0.wall_s:.3f}x wall); {tr.emitted} events; "
+              "mean ms per call (CUDA events, stream time start to stop): "
+              + ", ".join(f"{k} {t['mean_s'] * 1e3:.3f} x{t['count']}"
+                          for k, t in table.items()), flush=True)
+        if layout == "dense":
+            with _work_dir() as d:
+                for fmt in ("chrome", "jsonl"):
+                    path = Path(d) / f"trace.{fmt}"
+                    write_trace(tr, path, fmt)
+                    out = subprocess.run(
+                        [sys.executable, str(ROOT / "tools" / "trace_report.py"),
+                         str(path), "--validate"], capture_output=True,
+                        text=True, timeout=120)
+                    check(out.returncode == 0,
+                          f"{label}: tools/trace_report.py --validate "
+                          f"accepts the {fmt} trace "
+                          f"({path.stat().st_size} bytes)"
+                          + ("" if out.returncode == 0 else
+                             f": {out.stdout[-300:]} {out.stderr[-300:]}"))
+    return total
+
+
+def phase_ssm_decode_trace(params_by_arch) -> None:
+    """Phase 4l: phase 4d's mamba2-1.3b requests traced (the 600-token
+    one rejected): the per-key table of its admission wave and decode
+    steps (CUDA events)."""
+    cfg = get_config("mamba2-1.3b")
+    tr = Tracer()
+    eng = PapiEngine(cfg, params_by_arch[cfg.name], tracer=tr, device=DEV,
+                     **SSM_ENGINE)
+    rng = np.random.default_rng(8)
+    reqs = [rng.integers(3, cfg.vocab_size, size=n).tolist()
+            for n in SSM_PROMPT_LENS]
+    reqs.insert(3, rng.integers(3, cfg.vocab_size, size=600).tolist())
+    for i, prompt in enumerate(reqs):
+        eng.submit(ServeRequest(i, prompt, max_new_tokens=8 + 7 * (i % 9)))
+    results = eng.run(max_iterations=500)
+    steady = [s for s in eng.stats if not s.admitted]
+    check(len(results) == 9 and all(s.transfers == 1 for s in steady),
+          f"traced mamba2-1.3b: 9 requests, one transfer per steady "
+          f"iteration ({len(steady)})")
+    table = tr.program_table()
+    walls = [s.wall_s * 1e3 for s in steady]
+    print(f"      traced mamba2-1.3b [{CARD}]: median steady iteration wall "
+          f"{statistics.median(walls):.2f} ms; per key (CUDA events, "
+          "stream time start to stop): "
+          + ", ".join(f"{k} mean {t['mean_s'] * 1e3:.3f} ms min "
+                      f"{t['min_s'] * 1e3:.3f} x{t['count']}"
+                      for k, t in table.items()), flush=True)
+
+
+def phase_sanitizer(params) -> None:
+    """Phase 4m: phase 4's run dense and paged and 4f's perfect-draft run
+    with ``sanitize=True`` (sync-debug mode "error" around every step):
+    no SanitizeError, one transfer per steady iteration; then a
+    deliberate ``.item()`` inside a sanitized step raises, and the
+    sync-debug mode is back to its previous value after the phase."""
+    cfg = get_config("qwen2-0.5b")
+    before = torch.cuda.get_sync_debug_mode()
+    cases = [("sanitized dense", {}),
+             ("sanitized paged", dict(kv_layout="paged", page_size=16)),
+             ("sanitized spec dense perfect draft",
+              dict(spec_len=SPEC_LEN, draft=(cfg, params)))]
+    for label, kw in cases:
+        eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
+                         prefill_len=64, alpha=4, attn_pim=True,
+                         sanitize=True, device=DEV, **kw)
+        _submit_main(eng, cfg)
+        err = None
+        try:
+            results = eng.run(max_iterations=500)
+        except SanitizeError as exc:
+            err, results = exc, []
+        rep = eng.sanitize_report()
+        check(err is None and len(results) == 8
+              and rep.steady_iterations > 0
+              and rep.transfers_per_steady_iter == 1.0,
+              f"{label} [{CARD}]: {rep.steady_iterations}/{rep.iterations} "
+              f"steady iterations at {rep.transfers_per_steady_iter} "
+              f"transfers each, {rep.programs} program keys"
+              + (f"; {err}" if err else ""))
+    eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
+                     prefill_len=64, alpha=4, attn_pim=True, sanitize=True,
+                     device=DEV)
+    real = eng._fetch
+
+    def leaky(*tensors):
+        tensors[0].sum().item()          # a host sync outside the scope
+        return real(*tensors)
+
+    eng._fetch = leaky
+    _submit_main(eng, cfg)
+    raised = None
+    try:
+        eng.run(max_iterations=500)
+    except SanitizeError as exc:
+        raised = exc
+    check(raised is not None and "synchroniz" in str(raised),
+          f"sanitizer: a deliberate .item() inside a sanitized step raises "
+          f"({str(raised)[:80] if raised else 'nothing raised'})")
+    check(torch.cuda.get_sync_debug_mode() == before,
+          f"sanitizer: sync-debug mode back to {before} after the phase")
+
+
+def phase_journal_cost(params) -> None:
+    """Journal cost: phase 4's dense run with no journal, and with the
+    ``flush`` and ``fsync`` policies: tokens/s, bytes and records."""
+    cfg = get_config("qwen2-0.5b")
+    rows = []
+    for policy in (None, "flush", "fsync"):
+        with _work_dir() as d:
+            wal = Path(d) / "cost.wal"
+            journal = None if policy is None else Journal(wal, flush=policy)
+            eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
+                             prefill_len=64, alpha=4, attn_pim=True,
+                             journal=journal, device=DEV)
+            _submit_main(eng, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = eng.run(max_iterations=500)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            nbytes = records = 0
+            if journal is not None:
+                journal.close()
+                nbytes = wal.stat().st_size
+                records = len(read_records(wal)[0])
+            toks = sum(len(r.tokens) for r in results)
+            check(len(results) == 8, f"journal {policy}: 8 requests "
+                  "finished")
+            rows.append(f"{policy or 'none'} {toks / wall:.1f} tok/s "
+                        f"({records} records, {nbytes} bytes)")
+    print(f"      journal cost, phase 4 dense [{CARD}]: " + "; ".join(rows),
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2498,6 +2886,10 @@ def main() -> int:
     timed(phase_tlp_register, params)
     serve_launches = timed(phase_serve, params, plain)
     failure_launches = timed(phase_failure, params, plain)
+    durable_launches = timed(phase_durability, params, plain)
+    traced_launches = timed(phase_tracing, params)
+    timed(phase_sanitizer, params)
+    timed(phase_journal_cost, params)
     timed(phase_trace, params)
     timed(phase_guard_cost)
     timed(phase_spec_trace, params)
@@ -2507,7 +2899,9 @@ def main() -> int:
     timed(phase_spec_parity)
     timed(phase_serve_parity)
     timed(phase_failure_parity)
+    timed(phase_durability_parity)
     ssm_launches, ssm_params = timed(phase_ssm_paths)
+    timed(phase_ssm_decode_trace, ssm_params)
     timed(phase_wave_trace, ssm_params)
     timed(phase_ssm_state_cost, ssm_params)
     del ssm_params
@@ -2519,11 +2913,16 @@ def main() -> int:
           f"8 runs): {json.dumps(spec_launches)}; qwen2-0.5b serve() "
           f"(phases 4h, 4i, 6 runs): {json.dumps(serve_launches)}; "
           f"qwen2-0.5b failure model (phase 4j, 5 runs): "
-          f"{json.dumps(failure_launches)}; "
+          f"{json.dumps(failure_launches)}; qwen2-0.5b crash and restore "
+          f"(phase 4k, 3 runs and their recoveries): "
+          f"{json.dumps(durable_launches)}; qwen2-0.5b traced (phase 4l, "
+          f"2 runs): {json.dumps(traced_launches)}; "
           + "; ".join(f"{arch}: {json.dumps(ln)}"
                       for arch, ln in ssm_launches.items()), flush=True)
     launches = {name: n + spec_launches[name] + serve_launches[name]
                 + failure_launches.get(name, 0)
+                + durable_launches.get(name, 0)
+                + traced_launches.get(name, 0)
                 + sum(ln[name] for ln in ssm_launches.values())
                 for name, n in launches.items()}
 

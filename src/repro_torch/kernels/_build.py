@@ -75,6 +75,12 @@ def build_all(names=KERNELS) -> float:
     return time.perf_counter() - t0
 
 
+def loaded() -> frozenset:
+    """The kernels built and loaded in this process so far (the
+    sanitizer's build census reads it)."""
+    return frozenset(_LIBS)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, building it on first use."""
     lib = _LIBS.get(name)

@@ -37,6 +37,26 @@ injected crash ends the run with exit code 1.  ``--log-level`` wires the
 ``repro_torch.serving`` logger to stderr (deferral DEBUG, preemption and
 unhappy finishes INFO, degraded steps WARNING, stalls ERROR).
 
+Durability, as the reference's: ``--journal PATH`` write-ahead-journals
+every submit / admission / token commit / preemption / cancel / finish
+to PATH (checksummed records, a torn tail truncated on reopen), and
+``--resume PATH`` starts the engine from the journal or snapshot a
+crashed run left: every unfinished request re-admits as ``prompt +
+committed tokens`` (deadlines keep their remaining budget, finished
+requests never re-run) and the launcher serves those instead of a fresh
+trace.  Crash a run with ``--journal wal.j --fault crash:0.05``, then
+recover it with ``--journal wal.j --resume wal.j``.
+
+Observability: ``--trace PATH`` records the engine's typed event trace
+(`serving.telemetry`: iteration spans, scheduler decisions, per-program
+timings — CUDA events on the card, wall clock on the CPU —, preemptions,
+faults, pool samples) and writes it on exit as ``--trace-format chrome``
+(Perfetto) or ``jsonl``; summarize it with ``tools/trace_report.py``.
+``--metrics-out PATH`` writes the ``papi_engine_*`` Prometheus snapshot
+(and turns tracing on).  ``--sanitize`` runs every step under the
+sanitizer (`debug.sanitize`: PyTorch's sync-debug mode on the card, one
+host transfer per steady iteration) and prints its report.
+
 The SSM (mamba2) and hybrid (zamba2) families reject prompts longer than
 ``--prefill-len``, refuse ``--kv paged``, as the reference does, and
 refuse a draft with ``--spec-len`` above 1 (their SSM state has no
@@ -61,7 +81,8 @@ from repro_torch.configs import get_config
 from repro_torch.core.traces import generate_trace
 from repro_torch.models import init_params
 from repro_torch.serving import (EngineCrashError, PapiEngine, ServeRequest,
-                                 latency_summary, parse_fault_specs)
+                                 Tracer, export_prometheus, latency_summary,
+                                 parse_fault_specs, write_trace)
 
 # the generation budget's cap
 MAX_NEW = 64
@@ -194,6 +215,31 @@ def main(argv=None) -> None:
                     metavar="DEBUG|INFO|WARNING|ERROR",
                     help="wire the 'repro_torch.serving' logger to stderr "
                          "at this level")
+    ap.add_argument("--journal", default=None, metavar="PATH",
+                    help="write-ahead request journal: checksummed records "
+                         "(submit/admit/token commit/finish/cancel/preempt) "
+                         "appended to PATH, a torn tail truncated on "
+                         "reopen; a crashed run recovers with --resume")
+    ap.add_argument("--resume", default=None, metavar="PATH",
+                    help="re-admit every unfinished request of the journal "
+                         "or engine snapshot at PATH (finished ones never "
+                         "re-run; deadlines keep their remaining budget) "
+                         "and serve them instead of a fresh trace")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record the engine's typed event trace and write "
+                         "it to PATH on exit (summarize with "
+                         "tools/trace_report.py)")
+    ap.add_argument("--trace-format", choices=("chrome", "jsonl"),
+                    default="chrome",
+                    help="trace serialization: 'chrome' opens in Perfetto, "
+                         "'jsonl' is the raw typed events")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write a Prometheus snapshot of the papi_engine_* "
+                         "counters and gauges on exit (implies tracing)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="run under the host-sync sanitizer: sync-debug "
+                         "mode 'error' around every step on the card, and "
+                         "exactly one host transfer per steady iteration")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -212,6 +258,7 @@ def main(argv=None) -> None:
         dcfg = get_config(args.draft_arch)
         dgen = torch.Generator(device=device).manual_seed(args.seed + 1)
         draft = (dcfg, init_params(dcfg, dgen))
+    tracer = Tracer() if (args.trace or args.metrics_out) else None
     eng = PapiEngine(cfg, params, max_slots=args.max_slots,
                      cache_capacity=args.capacity,
                      prefill_len=args.prefill_len, alpha=args.alpha,
@@ -220,12 +267,23 @@ def main(argv=None) -> None:
                      page_size=args.page_size, max_blocks=args.max_blocks,
                      faults=parse_fault_specs(args.fault,
                                               seed=args.fault_seed),
-                     device=device)
+                     tracer=tracer, sanitize=args.sanitize,
+                     journal=args.journal, device=device)
+    if args.resume:
+        info = eng.restore(args.resume)
+        print(f"resumed {info['resumed']} unfinished request(s) from "
+              f"{args.resume} ({info['finished']} already finished"
+              + (f", {info['torn_bytes']} torn byte(s) discarded"
+                 if info["torn_bytes"] else "") + ")")
     max_prompt = (default_max_prompt(args.capacity, args.spec_len)
                   if args.max_prompt is None else args.max_prompt)
     rng = np.random.default_rng(args.seed)
-    reqs = make_requests(args.task, args.requests, cfg.vocab_size, args.seed,
-                         max_prompt, rng=rng, deadline_s=args.deadline)
+    # a resumed run serves the recovered queue only: the crashed run
+    # journaled this trace's submits already, and a fresh trace would
+    # collide with the recovered req_ids
+    reqs = [] if args.resume else make_requests(
+        args.task, args.requests, cfg.vocab_size, args.seed, max_prompt,
+        rng=rng, deadline_s=args.deadline)
     t0 = time.perf_counter()
     try:
         if args.arrivals is not None:
@@ -236,7 +294,10 @@ def main(argv=None) -> None:
                 eng.submit(r)
             results = eng.run(max_iterations=2000)
     except EngineCrashError as exc:
-        print(f"\nengine crashed (injected) at iteration {exc.iteration}")
+        print(f"\nengine crashed (injected) at iteration {exc.iteration}"
+              + (f"; recover with --resume {args.journal}" if args.journal
+                 else "; run with --journal PATH to make crashes "
+                      "recoverable"))
         raise SystemExit(1)
     wall = time.perf_counter() - t0
 
@@ -252,6 +313,13 @@ def main(argv=None) -> None:
               f"{eng.degraded_steps} degraded steps, faults fired {fired}")
     print(f"tokens: {tok}  wall: {wall:.2f}s  tok/s: {tok / max(wall, 1e-9):.1f}")
     print(f"reschedules: {eng.scheduler.num_reschedules}")
+    rep = eng.sanitize_report()
+    if rep is not None:
+        print(f"sanitize: {rep.steady_iterations}/{rep.iterations} steady "
+              f"iterations at {rep.transfers_per_steady_iter:.2f} "
+              f"transfers/iter (budget {rep.transfer_budget}), "
+              f"{rep.programs} programs, {rep.recompiles} steady-state "
+              "builds")
     if draft is not None and args.spec_len > 1:
         acc = [s.accepted for s in eng.stats if s.new_tokens]
         mean = float(np.mean(acc)) if acc else 0.0
@@ -268,6 +336,27 @@ def main(argv=None) -> None:
     for s in eng.stats:
         print(f"{s.iteration:5d} {s.rlp:4d} {s.tlp:3d} {s.ai_estimate:5.1f}  "
               f"{s.fc_variant:7s} {s.new_tokens:5d}  {s.accepted:8.2f}")
+    if tracer is not None:
+        _report_trace(args, tracer)
+
+
+def _report_trace(args, tracer: Tracer) -> None:
+    """Write the trace and the Prometheus snapshot the flags asked for,
+    and print the telemetry line."""
+    if args.trace:
+        write_trace(tracer, args.trace, args.trace_format)
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as fh:
+            fh.write(export_prometheus(tracer))
+    table = tracer.program_table()
+    prog_s = sum(t["total_s"] for t in table.values())
+    print(f"\ntelemetry: {tracer.emitted} events ({tracer.dropped} dropped), "
+          f"{tracer.counters.get('scheduler_flip', 0)} scheduler flips, "
+          f"{len(table)} program keys ({prog_s:.2f}s in programs)"
+          + (f" -> {args.trace}" if args.trace else "")
+          + (f", metrics -> {args.metrics_out}" if args.metrics_out else ""))
+    if args.trace:
+        print(f"  summarize: python tools/trace_report.py {args.trace}")
 
 
 if __name__ == "__main__":

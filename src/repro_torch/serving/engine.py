@@ -111,10 +111,30 @@ The failure model is the reference's:
   * ``debug_invariants=True`` checks the page allocator every iteration
     and raises `AllocatorInvariantError` with the snapshot.
 
-Not ported yet: the journal (``snapshot`` / ``restore``, which answer the
-crash fault), telemetry and the tracer, the sanitizer, mesh execution,
-``run(abort_in_flight=False)``, and speculation on the SSM and hybrid
-families (a state rewind).
+Durability (``journal=``, `serving.journal`): a write-ahead journal takes
+a record at every submit, admission, preemption, cancel and finish, and
+at the end of every step one ``commit`` per live request that committed
+tokens, before `serve()` yields them.  `snapshot` holds host-side logical
+state only, never a device tensor; `restore` re-admits every unfinished
+request of a journal or snapshot through the `_ResumedRequest` path, with
+its deadline rebased to the budget it had left, and never re-runs a
+finished one.  The crash fault ends a run with no finish, no abort and no
+clean-up, so ``restore`` finds its in-flight requests unfinished.  The
+records are the reference's, byte for byte: a journal written by either
+package restores in the other.
+
+Observability (``tracer=``, `serving.telemetry`): every lifecycle step,
+scheduler decision, iteration, pool sample, fault, degraded re-run and
+stall emits the reference's typed event, and every model program goes
+through `_call(key, fn, *args)` under the reference's key, which the
+tracer times (wall clock on the CPU, a CUDA event pair on the card,
+resolved after the iteration's one fetch).  Under the default
+`NullTracer` `_call` is a bare call.  ``sanitize=True``
+(`debug.sanitize`) runs each step under PyTorch's sync-debug mode on the
+card and holds steady iterations to one host transfer.
+
+Not ported yet: mesh execution, ``run(abort_in_flight=False)``, and
+speculation on the SSM and hybrid families (a state rewind).
 """
 from __future__ import annotations
 
@@ -130,14 +150,18 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import PapiScheduler
-from repro_torch.models import (attn_impl, decode_step, fc_variant,
-                                init_cache, init_paged_cache, mixed_step,
-                                prefill_chunk, prefill_to_pages,
+from repro_torch.debug.sanitize import EngineSanitizer
+from repro_torch.models import (attn_impl, current_fc_variant, decode_step,
+                                fc_variant, init_cache, init_paged_cache,
+                                mixed_step, prefill_chunk, prefill_to_pages,
                                 prefill_to_slots)
 from repro_torch.serving.faults import (FAULT_NAN, FAULT_NONE,
                                         FaultInjector)
+from repro_torch.serving.journal import (SNAPSHOT_VERSION, Journal, recover,
+                                         write_snapshot)
 from repro_torch.serving.kv_pages import PagedKVManager
 from repro_torch.serving.sampler import accept_speculative, greedy
+from repro_torch.serving.telemetry import NULL_TRACER, Tracer
 
 # deferral (DEBUG), preemption and unhappy finishes (INFO), degraded
 # re-runs (WARNING), stalls (ERROR); silent until configured
@@ -214,7 +238,9 @@ class EngineStallError(RuntimeError):
 
 class EngineCrashError(RuntimeError):
     """A ``crash`` fault fired: the engine dies at the top of the
-    iteration with no clean-up (no results, no pages drained)."""
+    iteration like a killed process (no results, no pages drained, no
+    journal finalisation).  Recovery starts a fresh engine and `restore()`s
+    from the journal or a snapshot."""
 
     def __init__(self, message: str, iteration: int):
         super().__init__(message)
@@ -244,6 +270,23 @@ def _nonfinite(logits: torch.Tensor) -> torch.Tensor:
     """The finite-logits guard's flag, a device bool: any NaN or Inf."""
     with torch.profiler.record_function("finite_guard"):
         return ~torch.isfinite(logits).all()
+
+
+def _plain_step(cfg, params, cache, last, code):
+    """The fused plain decode program: one decode step, the iteration's
+    logits fault, greedy tokens and the guard's flag on the device."""
+    logits, cache = decode_step(cfg, params, cache, last[:, None])
+    logits = _inject_fault(logits, code)
+    return greedy(logits[:, -1]), _nonfinite(logits), cache
+
+
+def _guarded_wave(cfg, params, cache, toks, lens, pin_mask, pin_pos, code):
+    """The mixed wave program: `mixed_step`, the logits fault, greedy
+    tokens and the guard's flag."""
+    logits, cache = mixed_step(cfg, params, cache, toks, lens, pin_mask,
+                               pin_pos)
+    logits = _inject_fault(logits, code)
+    return greedy(logits), _nonfinite(logits), cache
 
 
 @dataclasses.dataclass
@@ -293,6 +336,9 @@ class PapiEngine:
                  preempt_after: int | None = 8,
                  stall_limit: int | None = 256,
                  debug_invariants: bool = False,
+                 tracer: Tracer | None = None,
+                 sanitize: bool = False,
+                 journal: Journal | str | None = None,
                  device: torch.device | str | None = None) -> None:
         if not cfg.has_decode_step:
             raise ValueError(f"{cfg.name} is encoder-only")
@@ -323,6 +369,15 @@ class PapiEngine:
         # sequence dim to mask, so stateful families keep single-window
         # prefill and reject longer prompts honestly
         self._can_chunk = cfg.family in ("dense", "moe", "vlm", "audio")
+        # telemetry: NULL_TRACER's hooks are no-ops and `_call` is then a
+        # bare call, so the untraced hot path is unchanged
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self._timed_call = (self.tracer.timed_call_cuda
+                            if self.device.type == "cuda"
+                            else self.tracer.timed_call)
+        # the sanitizer (debug/sanitize.py): sync-debug scopes around every
+        # step on the card, the transfer budget, the program/build census
+        self._sanitizer = EngineSanitizer() if sanitize else None
         self.scheduler = PapiScheduler(cfg, alpha=alpha, tlp=spec_len,
                                        eos_token=eos_token)
         self.scheduler.initial_schedule(0, spec_len)
@@ -335,6 +390,11 @@ class PapiEngine:
             self.kv = PagedKVManager(num_pages=num_pages, page_size=page_size,
                                      max_slots=max_slots,
                                      max_blocks=max_blocks)
+            # per-call page events are the trace's highest-volume kind:
+            # only under debug_invariants or a tracer that asked for them
+            if self.tracer.enabled and (debug_invariants
+                                        or self.tracer.page_events):
+                self.kv.tracer = self.tracer
             # the draft's KV lives at the same logical positions: a second
             # pool of the same geometry, indexed by the same block tables
             self.cache, self.draft_cache = (
@@ -389,12 +449,34 @@ class PapiEngine:
         self.preemptions = 0                    # engine lifetime
         self.degraded_steps = 0                 # engine lifetime
         self.preempted_ids: set[int] = set()
+        # durability: a path opens (and torn-tail-truncates) a Journal with
+        # the default flush policy; pass a Journal to choose the policy.
+        # _journal_done counts the tokens already journaled per req_id, so
+        # the end-of-step commits append deltas only.
+        self.journal: Journal | None = (
+            Journal(journal) if journal is not None
+            and not isinstance(journal, Journal) else journal)
+        self._journal_done: dict[int, int] = {}
+        if self.journal is not None and self.tracer.enabled:
+            self.tracer.emit("journal", 0, op="open",
+                             path=str(self.journal.path),
+                             records=self.journal.records_kept,
+                             truncated_bytes=self.journal.truncated_bytes)
 
     # ------------------------------------------------------------------ API
     def submit(self, req: ServeRequest) -> None:
         self.queue.append(req)
         self._submit_t.setdefault(req.req_id, self._now())
         self.submit_iteration.setdefault(req.req_id, self.iteration)
+        if self.journal is not None:
+            self.journal.append("submit", req_id=req.req_id,
+                                prompt=list(req.prompt),
+                                max_new=int(req.max_new_tokens),
+                                dl=req.deadline_s)
+        if self.tracer.enabled:
+            self.tracer.emit("submit", self.iteration, req_id=req.req_id,
+                             prompt_len=len(req.prompt),
+                             max_new=req.max_new_tokens)
 
     def set_spec_len(self, tlp: int) -> None:
         """The host writes the TLP register (dynamic speculation length).
@@ -489,9 +571,7 @@ class PapiEngine:
                     req = self.slot_req[s]
                     if req is None:
                         continue      # a cancel() between two events freed it
-                    done = (req.done if isinstance(req, _ResumedRequest)
-                            else [])
-                    full = list(done) + self.slot_tokens[s]
+                    full = self._full_stream(s)
                     sent = streamed.get(req.req_id, 0)
                     for i in range(sent, len(full)):
                         yield TokenEvent(req.req_id, full[i], i,
@@ -530,13 +610,139 @@ class PapiEngine:
         for i, req in enumerate(self.queue):
             if req.req_id == req_id:
                 self.queue.pop(i)
+                self._journal_cancel(req_id)
                 self._emit(req, [], "cancelled")
                 return True
         for s in self.active_slots:
             if self.slot_req[s].req_id == req_id:
+                self._journal_cancel(req_id)
                 self._finish_slot(s, "cancelled")
                 return True
         return False
+
+    def _journal_cancel(self, req_id: int) -> None:
+        if self.journal is not None:
+            self.journal.append("cancel", req_id=req_id, it=self.iteration)
+
+    # ----------------------------------------------------------- durability
+    def _full_stream(self, s: int) -> list[int]:
+        """Live slot `s`'s caller-visible tokens: a resumed request's
+        earlier output, then this admission's."""
+        req = self.slot_req[s]
+        done = req.done if isinstance(req, _ResumedRequest) else []
+        return list(done) + self.slot_tokens[s]
+
+    def _remaining_deadline(self, req, now: float) -> float | None:
+        """The deadline budget `req` has left at `now` (a monotonic delta)."""
+        if req.deadline_s is None:
+            return None
+        t0 = self._submit_t.get(req.req_id)
+        return req.deadline_s if t0 is None else req.deadline_s - (now - t0)
+
+    def _journal_commits(self) -> None:
+        """End-of-step WAL flush: one commit record (the new tokens, the
+        total, the remaining token budget and deadline) per live slot that
+        committed tokens this iteration.  It runs before `serve()` yields
+        the step's events, so a streamed token is at least as durable as
+        the journal's flush policy."""
+        now = self._now()
+        for s in self.active_slots:
+            req = self.slot_req[s]
+            full = self._full_stream(s)
+            prev = self._journal_done.get(req.req_id, 0)
+            if len(full) <= prev:
+                continue
+            self.journal.append(
+                "commit", req_id=req.req_id, toks=full[prev:], n=len(full),
+                rem=int(self.slot_budget[s]) - len(self.slot_tokens[s]),
+                dl=self._remaining_deadline(req, now), it=self.iteration)
+            self._journal_done[req.req_id] = len(full)
+
+    def snapshot(self, path: str | None = None) -> dict:
+        """Host-side logical state only — the queue's order, each unfinished
+        request's (prompt, committed tokens, remaining token budget,
+        remaining deadline), the admission counter — never a device
+        tensor: `restore` re-admits the work through the `_ResumedRequest`
+        path, which rebuilds the KV cache.  Unfinished work is listed in
+        recovery order: in-flight slots (oldest admission first), then the
+        queue.  With `path` the snapshot is also written atomically
+        (`journal.write_snapshot`)."""
+        now = self._now()
+
+        def entry(req, emitted, rem):
+            if isinstance(req, _ResumedRequest):
+                prompt = req.prompt[:req.orig_prompt_len]
+                plen = req.orig_prompt_len
+                done = list(req.done) + list(emitted)
+            else:
+                prompt, plen, done = req.prompt, len(req.prompt), list(emitted)
+            return {"req_id": req.req_id, "prompt": [int(t) for t in prompt],
+                    "done": [int(t) for t in done], "max_new": int(rem),
+                    "deadline_s": self._remaining_deadline(req, now),
+                    "orig_prompt_len": plen}
+
+        requests = [entry(self.slot_req[s], self.slot_tokens[s],
+                          int(self.slot_budget[s]) - len(self.slot_tokens[s]))
+                    for _, s in sorted((self.slot_seq[s], s)
+                                       for s in self.active_slots)]
+        requests += [entry(req, [], req.max_new_tokens) for req in self.queue]
+        all_ids = ([r.req_id for r in self.results]
+                   + [e["req_id"] for e in requests])
+        state = {
+            "papi_snapshot": SNAPSHOT_VERSION,
+            "iteration": self.iteration,
+            "admit_seq": self._admit_seq,
+            "next_req_id": max(all_ids, default=-1) + 1,
+            "requests": requests,
+            "finished": [{"req_id": r.req_id, "reason": r.finished_reason,
+                          "tokens": list(r.tokens)} for r in self.results],
+        }
+        if path is not None:
+            write_snapshot(path, state)
+            if self.tracer.enabled:
+                self.tracer.emit("journal", self.iteration, op="snapshot",
+                                 path=str(path), requests=len(requests))
+        return state
+
+    def restore(self, path) -> dict:
+        """Re-admit every unfinished request of the snapshot or journal at
+        `path` into this (fresh) engine as a `_ResumedRequest`: ``prompt +
+        committed tokens`` re-chunks through prefill and the stream goes
+        on where the journal left it.  Finished requests — a torn tail's
+        too, whose committed prefix already spent its budget or hit eos —
+        are never re-admitted, so finishes stay exactly-once.  Each
+        deadline resumes with the budget it had left.  Returns a summary
+        (resumed / finished / records / torn_bytes / next_req_id)."""
+        state = recover(path, eos_token=self.eos_token)
+        now = self._now()
+        for r in state.requests:
+            self.queue.append(_ResumedRequest(
+                req_id=r.req_id, prompt=list(r.prompt) + list(r.done),
+                max_new_tokens=int(r.max_new), deadline_s=r.deadline_s,
+                done=list(r.done), orig_prompt_len=r.orig_prompt_len))
+            # the deadline survives as a remaining delta: rebase the submit
+            # stamp to now, so the expiry sees the budget that was left
+            self._submit_t[r.req_id] = now
+            self.submit_iteration.setdefault(r.req_id, self.iteration)
+            self._journal_done[r.req_id] = len(r.done)
+            if self.journal is not None:
+                self.journal.append(
+                    "resume", req_id=r.req_id, prompt=list(r.prompt),
+                    done=list(r.done), max_new=int(r.max_new),
+                    dl=r.deadline_s, plen=r.orig_prompt_len)
+        self._admit_seq = max(self._admit_seq, state.admit_seq)
+        summary = {"resumed": len(state.requests),
+                   "finished": len(state.finished),
+                   "records": state.records,
+                   "torn_bytes": state.torn_bytes,
+                   "next_req_id": state.next_req_id}
+        if self.tracer.enabled:
+            self.tracer.emit("recover", self.iteration, path=str(path),
+                             **summary)
+        log.info("restored %d unfinished request(s) from %s (%d already "
+                 "finished, %d torn byte(s) discarded)", summary["resumed"],
+                 path, summary["finished"], summary["torn_bytes"])
+        return summary
 
     # ------------------------------------------------------------- internals
     def _check_speculation(self, tlp: int) -> None:
@@ -593,10 +799,15 @@ class PapiEngine:
 
     def _fetch(self, *tensors: torch.Tensor):
         """The engine's one counted device->host copy: int tensors are
-        flattened into one buffer, copied once, and split on the host."""
+        flattened into one buffer, copied once, and split on the host.
+        The copy drains the stream, so the tracer's card timings of the
+        programs before it resolve here without another sync."""
         self.host_transfers += 1
         flat = torch.cat([t.reshape(-1).to(torch.int32) for t in tensors])
-        host = flat.cpu().numpy()
+        with self._allowed():
+            host = flat.cpu().numpy()
+        if self.tracer.enabled:
+            self.tracer.resolve()
         out, at = [], 0
         for t in tensors:
             out.append(host[at:at + t.numel()].reshape(t.shape))
@@ -613,7 +824,8 @@ class PapiEngine:
         check on the no-change path, a host->device copy after a row
         changed, never a device->host one."""
         if self.kv is not None:
-            tables = self.kv.tables.device(self.device)
+            with self._allowed():
+                tables = self.kv.tables.device(self.device)
             for cache in (self.cache, self.draft_cache):
                 if cache is not None:
                     cache["block_tables"] = tables
@@ -622,7 +834,36 @@ class PapiEngine:
         return attn_impl("pim" if self.attn_pim else "xla")
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        """An upload (host->device; never counted as a transfer)."""
+        with self._allowed():
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _allowed(self):
+        """The sanitizer's allow-scope for a sanctioned copy: the one
+        counted fetch, and the uploads, which PyTorch's sync check also
+        flags (see `debug.sanitize`)."""
+        if self._sanitizer is None:
+            return contextlib.nullcontext()
+        return self._sanitizer.allow_transfers()
+
+    def _call(self, key: tuple, fn, *args):
+        """Run one model program under its program key (the reference's
+        jit-cache key, ``pim_interpret`` None).  Traced, the tracer times
+        it (`serving.telemetry`); untraced it is the bare call."""
+        if self._sanitizer is not None:
+            self._sanitizer.note_program(key)
+        if self.tracer.enabled:
+            return self._timed_call(key, fn, *args)
+        return fn(*args)
+
+    def _decode_key(self, kind: str, tlp: int) -> tuple:
+        return (kind, tlp, self.scheduler.fc_assignment, None,
+                self.attn_pim)
+
+    def _wave_key(self, kind: str) -> tuple:
+        """Prefill, chunk and wave programs run under the ambient FC
+        variant (admission's is "pu"), which keys them."""
+        return (kind, current_fc_variant(), None, self.attn_pim)
 
     def _now(self) -> float:
         return time.monotonic()
@@ -634,12 +875,24 @@ class PapiEngine:
         self.slot_seq[slot] = self._admit_seq
         self.admit_iteration.setdefault(req.req_id, self.iteration)
         self._admit_t.setdefault(req.req_id, self._now())
+        if self.journal is not None:
+            # the admission-CLAMPED budget: a re-admission after recovery
+            # clamps the same way, so replay must see the effective value
+            self.journal.append("admit", req_id=req.req_id, slot=slot,
+                                budget=int(self.slot_budget[slot]),
+                                it=self.iteration)
+        if self.tracer.enabled:
+            self.tracer.emit("admit", self.iteration, req_id=req.req_id,
+                             slot=slot, prompt_len=len(req.prompt))
 
     def _note_first_token(self, req_id: int) -> None:
         """The TTFT stamp: the request's first output token exists now."""
         if req_id not in self._first_tok_t:
             self._first_tok_t[req_id] = self._now()
             self.first_token_iteration.setdefault(req_id, self.iteration)
+            if self.tracer.enabled:
+                self.tracer.emit("first_token", self.iteration,
+                                 req_id=req_id)
 
     def _latency_fields(self, req_id: int, n_tokens: int) -> dict:
         """The result's latencies; a phase that never happened is None,
@@ -661,17 +914,28 @@ class PapiEngine:
             if (i0 is not None and i_f is not None) else None,
         )
 
-    def _emit(self, req, tokens: Sequence[int], reason: str) -> None:
+    def _emit(self, req, tokens: Sequence[int], reason: str,
+              slot: int | None = None) -> None:
         """Append the caller's result for `req`; a `_ResumedRequest`'s
         prompt carries its own earlier output, which is put back in front
-        of the tokens."""
+        of the tokens.  The journal's finish record (the tail since the
+        last commit) goes down BEFORE the result exists, so a durable
+        consumer sees every finish exactly once across a crash."""
         if isinstance(req, _ResumedRequest):
             toks, plen = req.done + list(tokens), req.orig_prompt_len
         else:
             toks, plen = list(tokens), len(req.prompt)
+        if self.journal is not None:
+            prev = self._journal_done.pop(req.req_id, 0)
+            self.journal.append("finish", req_id=req.req_id, reason=reason,
+                                toks=toks[prev:], n=len(toks),
+                                it=self.iteration)
         self.results.append(ServeResult(
             req.req_id, toks, plen, self.iteration, reason,
             **self._latency_fields(req.req_id, len(toks))))
+        if self.tracer.enabled:
+            self.tracer.emit("finish", self.iteration, req_id=req.req_id,
+                             reason=reason, tokens=len(toks), slot=slot)
         if reason not in ("eos", "length"):
             log.info("request %d finished: %s (%d tokens)", req.req_id,
                      reason, len(toks))
@@ -679,7 +943,7 @@ class PapiEngine:
     def _finish_slot(self, s: int, reason: str) -> None:
         """Finish live slot `s`: emit its tokens so far, free the slot and
         drain its pages."""
-        self._emit(self.slot_req[s], self.slot_tokens[s], reason)
+        self._emit(self.slot_req[s], self.slot_tokens[s], reason, slot=s)
         self._free_slot(s)
 
     def _free_slot(self, s: int) -> None:
@@ -720,6 +984,10 @@ class PapiEngine:
         else:
             self._defer_age += 1
         if self._deferred_head is not None:
+            if self.tracer.enabled:
+                self.tracer.emit("defer", self.iteration,
+                                 req_id=self._deferred_head,
+                                 age=self._defer_age)
             log.debug("queue head %d deferred by the pool (age %d)",
                       self._deferred_head, self._defer_age)
 
@@ -752,6 +1020,12 @@ class PapiEngine:
         self._free_slot(victim)
         self.preemptions += 1
         self.preempted_ids.add(req.req_id)
+        if self.journal is not None:
+            self.journal.append("preempt", req_id=req.req_id,
+                                done=len(done), it=self.iteration)
+        if self.tracer.enabled:
+            self.tracer.emit("preempt", self.iteration, req_id=req.req_id,
+                             slot=victim, done=len(done))
         log.info("preempted request %d from slot %d (%d tokens done, "
                  "deferral age %d)", req.req_id, victim, len(done),
                  self._defer_age)
@@ -784,6 +1058,10 @@ class PapiEngine:
                 and (self.queue or self.active_slots)
                 and self._stalled >= self.stall_limit):
             snap = self._snapshot()
+            # the snapshot rides the trace too, for a post-mortem that does
+            # not depend on the exception reaching a logger
+            if self.tracer.enabled:
+                self.tracer.emit("stall", self.iteration, snapshot=snap)
             log.error("engine stalled for %d iterations at iteration %d "
                       "(queue=%s)", self._stalled, self.iteration,
                       snap["queue"])
@@ -812,6 +1090,9 @@ class PapiEngine:
         if (self.queue and self.faults is not None
                 and self.faults.admission_blocked(self.iteration)):
             self._deferred_head = self.queue[0].req_id
+            if self.tracer.enabled:
+                self.tracer.emit("fault", self.iteration, fault="admit",
+                                 req_id=self._deferred_head)
             return 0
         admitted = 0
         while True:
@@ -878,12 +1159,13 @@ class PapiEngine:
         self._sync_tables()    # paged: the admitted rows just mapped pages
         to_cache = prefill_to_pages if self.kv is not None else prefill_to_slots
         with self._attn_scope():
-            first, self.cache = to_cache(self.cfg, self.params, batch,
-                                         self.cache, src_dev)
+            first, self.cache = self._call(
+                self._wave_key("main"), to_cache, self.cfg, self.params,
+                batch, self.cache, src_dev)
             if self.draft_cfg is not None:
-                _, self.draft_cache = to_cache(
-                    self.draft_cfg, self.draft_params, batch,
-                    self.draft_cache, src_dev)
+                _, self.draft_cache = self._call(
+                    self._wave_key("draft"), to_cache, self.draft_cfg,
+                    self.draft_params, batch, self.draft_cache, src_dev)
             admitted = 0
             if self.stream_chunks:
                 # serve(): a prompt longer than the window enters its slot
@@ -935,11 +1217,13 @@ class PapiEngine:
                     final.append(slot)
                     del pending[slot]
             ct, cl = self._to_device(ctoks), self._to_device(clens)
-            nxt, self.cache = prefill_chunk(self.cfg, self.params,
-                                            self.cache, ct, cl)
+            nxt, self.cache = self._call(
+                self._wave_key("chunk_main"), prefill_chunk, self.cfg,
+                self.params, self.cache, ct, cl)
             if self.draft_cfg is not None:
                 # the draft's KV covers the same prompt positions
-                _, self.draft_cache = prefill_chunk(
+                _, self.draft_cache = self._call(
+                    self._wave_key("chunk_draft"), prefill_chunk,
                     self.draft_cfg, self.draft_params, self.draft_cache,
                     ct, cl)
             if final:
@@ -1020,13 +1304,13 @@ class PapiEngine:
         self._sync_tables()
         ct, cl, pm, pp = map(self._to_device, (ctoks, clens, pin, pin_pos))
         with self._attn_scope():
-            logits, self.cache = mixed_step(self.cfg, self.params, self.cache,
-                                            ct, cl, pm, pp)
-            nxt = greedy(logits)
+            nxt, _, self.cache = self._call(
+                self._wave_key("wave_main"), _guarded_wave, self.cfg,
+                self.params, self.cache, ct, cl, pm, pp, FAULT_NONE)
             if self.draft_cfg is not None:
-                _, self.draft_cache = mixed_step(
-                    self.draft_cfg, self.draft_params, self.draft_cache, ct,
-                    cl, pm, pp)
+                _, self.draft_cache = self._call(
+                    self._wave_key("wave_draft"), mixed_step, self.draft_cfg,
+                    self.draft_params, self.draft_cache, ct, cl, pm, pp)
         for s in prefilling:
             self.slot_offset[s] += int(clens[s])
         if finals:
@@ -1055,15 +1339,15 @@ class PapiEngine:
         pre = dict(self.cache)
         code = self._fault_code()
         with fc_variant(self.scheduler.fc_assignment), self._attn_scope():
-            logits, self.cache = mixed_step(self.cfg, self.params, self.cache,
-                                            ct, cl, pm, pp)
-            logits = _inject_fault(logits, code)
-            nxt, bad = greedy(logits), _nonfinite(logits)
+            nxt, bad, self.cache = self._call(
+                self._wave_key("wave_main"), _guarded_wave, self.cfg,
+                self.params, self.cache, ct, cl, pm, pp, code)
             if self.draft_cfg is not None and prefilling:
                 # the draft's KV covers the prompt positions (the TLP = 1
                 # decodes never advance the draft)
-                _, self.draft_cache = mixed_step(
-                    self.draft_cfg, self.draft_params, self.draft_cache, ct,
+                _, self.draft_cache = self._call(
+                    self._wave_key("wave_draft"), mixed_step, self.draft_cfg,
+                    self.draft_params, self.draft_cache, ct,
                     self._to_device(chunk_lens), pm, pp)
         out_h, bad_h = self._fetch(nxt, bad)
         if bad_h:
@@ -1077,23 +1361,31 @@ class PapiEngine:
     def _degraded_wave(self, pre: dict, ct, cl, pm, pp) -> np.ndarray:
         """Re-run a poisoned mixed wave from the pre-wave cache entries,
         never injected (`_rerun_scope`)."""
-        self._note_degraded("the mixed wave")
+        self._note_degraded("wave")
         self.cache = pre
         with self._rerun_scope():
-            logits, self.cache = mixed_step(self.cfg, self.params, self.cache,
-                                            ct, cl, pm, pp)
-            return self._rerun_tokens(greedy(logits), logits)
+            nxt, bad, self.cache = self._call(
+                ("oracle_wave",), _guarded_wave, self.cfg, self.params,
+                self.cache, ct, cl, pm, pp, FAULT_NONE)
+            return self._rerun_tokens(nxt, bad)
 
     def _fault_code(self) -> int:
         """This iteration's logits fault; none under ``fused=False``, whose
         host loop takes no guard."""
         if self.faults is None or not self.fused:
             return FAULT_NONE
-        return self.faults.logits_fault(self.iteration)
+        code = self.faults.logits_fault(self.iteration)
+        if code != FAULT_NONE and self.tracer.enabled:
+            self.tracer.emit("fault", self.iteration,
+                             fault="nan" if code == FAULT_NAN else "inf")
+        return code
 
-    def _note_degraded(self, what: str) -> None:
+    def _note_degraded(self, mode: str) -> None:
         self.degraded_steps += 1
         self._degraded_this_step = True
+        if self.tracer.enabled:
+            self.tracer.emit("degraded", self.iteration, mode=mode)
+        what = "the step" if mode == "step" else "the mixed wave"
         log.warning("non-finite logits at iteration %d: re-running %s",
                     self.iteration, what)
 
@@ -1110,12 +1402,12 @@ class PapiEngine:
             with fc_variant(self.scheduler.fc_assignment), self._attn_scope():
                 yield
 
-    def _rerun_tokens(self, nxt: torch.Tensor, logits: torch.Tensor
+    def _rerun_tokens(self, nxt: torch.Tensor, bad: torch.Tensor
                       ) -> np.ndarray:
         """The re-run's tokens, fetched with its own guard flag in one
         copy: logits that are non-finite with no fault injected come from
         the path itself, and raise."""
-        nxt_h, bad_h = self._fetch(nxt, _nonfinite(logits))
+        nxt_h, bad_h = self._fetch(nxt, bad)
         if bad_h:
             raise RuntimeError(
                 f"non-finite logits at iteration {self.iteration} again on "
@@ -1135,16 +1427,19 @@ class PapiEngine:
         entries, never injected (`_rerun_scope`), as one plain step: when
         speculating, the draft advances one plain step too, so the two
         caches stay in step."""
-        self._note_degraded("the step")
+        self._note_degraded("step")
         self.cache, self.draft_cache = pre
         last = self._to_device(self.slot_last)[:, None]
         with self._rerun_scope():
-            logits, self.cache = decode_step(self.cfg, self.params,
-                                             self.cache, last)
+            logits, self.cache = self._call(
+                ("oracle", "main"), decode_step, self.cfg, self.params,
+                self.cache, last)
             if self._speculating:
-                _, self.draft_cache = decode_step(
-                    self.draft_cfg, self.draft_params, self.draft_cache, last)
-            nxt = self._rerun_tokens(greedy(logits[:, -1]), logits)
+                _, self.draft_cache = self._call(
+                    ("oracle", "draft"), decode_step, self.draft_cfg,
+                    self.draft_params, self.draft_cache, last)
+            nxt = self._rerun_tokens(greedy(logits[:, -1]),
+                                     _nonfinite(logits))
         return nxt[:, None].astype(np.int32), np.ones(self.max_slots)
 
     def _decode_all(self) -> tuple[np.ndarray, np.ndarray]:
@@ -1156,16 +1451,18 @@ class PapiEngine:
                 # then the iteration's single host fetch (with the guard's
                 # flag; ``fused=False`` takes no guard, as the reference)
                 last = self._to_device(self.slot_last)
+                if not self.fused:
+                    logits, self.cache = self._call(
+                        self._decode_key("plain", 1), decode_step, self.cfg,
+                        self.params, self.cache, last[:, None])
+                    nxt_h = np.asarray(self._fetch(greedy(logits[:, -1])))
+                    return nxt_h[:, None], np.ones(self.max_slots)
                 pre = self._pre_step()
                 code = self._fault_code()
-                logits, self.cache = decode_step(self.cfg, self.params,
-                                                 self.cache, last[:, None])
-                logits = _inject_fault(logits, code)
-                nxt = greedy(logits[:, -1])
-                if not self.fused:
-                    nxt_h = np.asarray(self._fetch(nxt))
-                    return nxt_h[:, None], np.ones(self.max_slots)
-                nxt_h, bad_h = self._fetch(nxt, _nonfinite(logits))
+                nxt, bad, self.cache = self._call(
+                    self._decode_key("plain_fused", 1), _plain_step,
+                    self.cfg, self.params, self.cache, last, code)
+                nxt_h, bad_h = self._fetch(nxt, bad)
                 if bad_h:
                     return self._degraded_step(pre)
                 return np.asarray(nxt_h)[:, None], np.ones(self.max_slots)
@@ -1185,10 +1482,20 @@ class PapiEngine:
         one (out, accepted, finished_eos, guard flag) bundle.  Poisoned
         verify logits put both caches back and degrade the iteration to
         one plain step."""
-        k = self.spec_len
         last = self._to_device(self.slot_last)
         pre = self._pre_step()
         code = self._fault_code()
+        out_h, acc_h, _, bad_h = self._fetch(*self._call(
+            self._decode_key("spec_fused", self.spec_len), self._spec_step,
+            last, code))
+        if bad_h:
+            return self._degraded_step(pre)
+        return out_h, acc_h.astype(np.float64)
+
+    def _spec_step(self, last: torch.Tensor, code: int):
+        """The fused speculative program; it advances both caches and
+        returns the (out, accepted, finished_eos, guard flag) bundle."""
+        k = self.spec_len
         # 1) the draft proposes autoregressively, k steps at t = 1: the
         # extra step writes the KV of the window's last token, so a full
         # accept leaves the two caches in step
@@ -1210,11 +1517,7 @@ class PapiEngine:
         in_window = (torch.arange(k, device=self.device)[None, :]
                      < accepted[:, None])
         finished_eos = ((out == self.eos_token) & in_window).any(dim=1)
-        out_h, acc_h, _, bad_h = self._fetch(out, accepted, finished_eos,
-                                             _nonfinite(logits))
-        if bad_h:
-            return self._degraded_step(pre)
-        return out_h, acc_h.astype(np.float64)
+        return out, accepted, finished_eos, _nonfinite(logits)
 
     def _speculative_iteration_host(self) -> tuple[np.ndarray, np.ndarray]:
         """The reference's host loop, the oracle of the fused iteration:
@@ -1224,14 +1527,16 @@ class PapiEngine:
         proposals = [self.slot_last.copy()]
         last = self._to_device(self.slot_last)[:, None]
         for _ in range(k):
-            logits, self.draft_cache = decode_step(
-                self.draft_cfg, self.draft_params, self.draft_cache, last)
+            logits, self.draft_cache = self._call(
+                self._decode_key("draft", 1), decode_step, self.draft_cfg,
+                self.draft_params, self.draft_cache, last)
             nxt = greedy(logits[:, -1])
             proposals.append(np.asarray(self._fetch(nxt)))
             last = nxt[:, None]
         window = np.stack(proposals[:k], axis=1)                  # [slots, k]
-        logits, self.cache = decode_step(self.cfg, self.params, self.cache,
-                                         self._to_device(window))
+        logits, self.cache = self._call(
+            self._decode_key("verify", k), decode_step, self.cfg, self.params,
+            self.cache, self._to_device(window))
         target = np.asarray(self._fetch(greedy(logits)))          # [slots, k]
         accepted = np.zeros(self.max_slots, np.int64)
         out = np.zeros((self.max_slots, k), np.int32)
@@ -1245,18 +1550,49 @@ class PapiEngine:
         return out, accepted.astype(np.float64)
 
     def step(self) -> None:
+        if self._sanitizer is None:
+            return self._step_impl()
+        stats0 = len(self.stats)
+        with self._sanitizer.scope(self):
+            self._step_impl()
+        self._sanitizer.after_step(self, stepped=len(self.stats) > stats0)
+
+    def sanitize_report(self):
+        """The sanitizer's counters (`debug.sanitize.SanitizeReport`), or
+        None when the engine was built without ``sanitize=True``."""
+        return None if self._sanitizer is None else self._sanitizer.report
+
+    def _trace_scheduler(self) -> None:
+        """This iteration's scheduling decision with its inputs (the AI
+        estimate and the α it was compared with), not just the verdict."""
+        ev = self.scheduler.events[-1]
+        self.tracer.emit("scheduler", self.iteration,
+                         ai_estimate=ev.ai_estimate, alpha=ev.alpha,
+                         assignment=ev.assignment, flipped=ev.rescheduled,
+                         rlp=ev.rlp, tlp=ev.tlp)
+
+    def _step_impl(self) -> None:
         t0 = time.perf_counter()
         transfers0 = self.host_transfers
         results0, preempted0 = len(self.results), self.preemptions
         self._degraded_this_step = False
+        if self.tracer.enabled:
+            # events below (the page manager's too) default to this step
+            self.tracer.iteration = self.iteration
         if self.faults is not None and self.faults.crash_now(self.iteration):
-            # a process death: no clean-up, no results
+            # a process death: no clean-up, no results, no journal
+            # finalisation — what recovery must cope with
+            if self.tracer.enabled:
+                self.tracer.emit("fault", self.iteration, fault="crash")
             raise EngineCrashError(
                 f"injected crash at iteration {self.iteration}",
                 self.iteration)
         if self.faults is not None:
             delay = self.faults.step_delay(self.iteration)
             if delay > 0:
+                if self.tracer.enabled:
+                    self.tracer.emit("fault", self.iteration,
+                                     fault="latency", delay_s=delay)
                 time.sleep(delay)
         self._expire_deadlines()
         admitted = self._admit()
@@ -1272,10 +1608,21 @@ class PapiEngine:
         if not active:
             # still an iteration: counted, watched and checked
             self.scheduler.observe_counts(0, admitted)
+            if self.tracer.enabled:
+                self._trace_scheduler()
             self.iteration += 1
             self._watchdog(admitted > 0 or len(self.results) > results0
                            or self.preemptions > preempted0)
             self._check_invariants()
+            if self.tracer.enabled:
+                self.tracer.span(
+                    "iteration", t0,
+                    fc_variant=self.scheduler.fc_assignment,
+                    rlp=self.scheduler.rlp, tlp=self.scheduler.tlp,
+                    ai_estimate=self.scheduler.ai_estimate, new_tokens=0,
+                    degraded=0, decode_slots=0, prefill_slots=0,
+                    queued=len(self.queue), arrivals=arrived,
+                    transfers=self.host_transfers - transfers0, idle=True)
             return
 
         speculating = self._speculating
@@ -1334,6 +1681,9 @@ class PapiEngine:
                     # prefix; pages past it hold only the rejected tail
                     self.kv.rewind(s, self._slot_pos(s))
 
+        if self.journal is not None:
+            self._journal_commits()
+
         # park inactive slots at pos = 1 in both caches so their garbage
         # decode never creeps past the capacity (fixed-shape mask, as the
         # reference)
@@ -1347,6 +1697,8 @@ class PapiEngine:
 
         # the PAPI runtime scheduling step (§5.2.2)
         self.scheduler.observe_counts(finished, admitted)
+        if self.tracer.enabled:
+            self._trace_scheduler()
         self.iteration += 1
         self._watchdog(admitted > 0 or new_tokens > 0 or len(prefilling) > 0
                        or len(self.results) > results0
@@ -1380,6 +1732,20 @@ class PapiEngine:
             decode_slots=len(decoding),
             **pool,
         ))
+        if self.tracer.enabled:
+            if self.kv is not None:
+                self.tracer.emit("pool", used=pool["kv_pages_used"],
+                                 free=pool["kv_pages_free"],
+                                 watermark=pool["kv_page_watermark"],
+                                 fragmentation=pool["kv_fragmentation"])
+            st = self.stats[-1]
+            self.tracer.span(
+                "iteration", t0, fc_variant=st.fc_variant, rlp=st.rlp,
+                tlp=st.tlp, ai_estimate=st.ai_estimate,
+                new_tokens=st.new_tokens, degraded=st.degraded,
+                decode_slots=st.decode_slots,
+                prefill_slots=st.prefill_slots, queued=st.queued,
+                arrivals=st.arrivals, transfers=st.transfers)
 
 
 __all__ = ["AllocatorInvariantError", "EngineCrashError", "EngineStallError",

@@ -266,6 +266,10 @@ class PagedKVManager:
                              "and at least one token per page")
         if max_blocks is None:
             max_blocks = usable
+        # optional telemetry sink: the engine attaches its Tracer here
+        # (under debug_invariants or a tracer with page_events) and every
+        # map / unmap / reserve below emits a typed event; None costs nothing
+        self.tracer = None
         self.page_size = int(page_size)
         self.max_blocks = min(int(max_blocks), usable)
         self.alloc = PageAllocator(usable, page_size, first_page=1)
@@ -285,9 +289,12 @@ class PagedKVManager:
 
     def admit(self, slot: int, budget_tokens: int,
               initial_tokens: int) -> None:
-        pages = self.alloc.admit(slot, self.pages_for(budget_tokens),
-                                 self.pages_for(initial_tokens))
+        budget = self.pages_for(budget_tokens)
+        pages = self.alloc.admit(slot, budget, self.pages_for(initial_tokens))
         self.tables.set_row(slot, pages)
+        if self.tracer is not None:
+            self.tracer.emit("page_reserve", slot=slot, budget_pages=budget,
+                             mapped_pages=len(pages))
 
     def coverage(self, slot: int) -> int:
         """Tokens the slot's mapped pages can hold right now."""
@@ -301,6 +308,8 @@ class PagedKVManager:
             return 0
         self.alloc.grow(slot, need - have)
         self.tables.set_row(slot, self.alloc.pages_of(slot))
+        if self.tracer is not None:
+            self.tracer.emit("page_map", slot=slot, pages=need - have)
         return need - have
 
     def rewind(self, slot: int, tokens: int) -> int:
@@ -309,6 +318,9 @@ class PagedKVManager:
         freed = self.alloc.rewind(slot, self.pages_for(tokens))
         if freed:
             self.tables.set_row(slot, self.alloc.pages_of(slot))
+            if self.tracer is not None:
+                self.tracer.emit("page_unmap", slot=slot, pages=len(freed),
+                                 cause="rewind")
         return len(freed)
 
     def release(self, slot: int) -> int:
@@ -316,6 +328,9 @@ class PagedKVManager:
         scrub its table row back to the garbage page."""
         freed = self.alloc.finish(slot)
         self.tables.clear_row(slot)
+        if self.tracer is not None and freed:
+            self.tracer.emit("page_unmap", slot=slot, pages=len(freed),
+                             cause="release")
         return len(freed)
 
     def stats(self, used_tokens: int = 0) -> PageStats:

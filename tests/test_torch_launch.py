@@ -19,6 +19,7 @@ launchers prints the same ``resilience:`` line.
 """
 import dataclasses
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -316,3 +317,83 @@ def test_launcher_crash_fault_exits_1(capsys):
                         "--requests", "2", "--fault", "crash:0.2"])
     assert err.value.code == 1
     assert "engine crashed (injected) at iteration" in capsys.readouterr().out
+
+
+# ------------------------------------------- durability and observability
+
+def _finished(path) -> dict:
+    from repro_torch.serving import recover
+    state = recover(path)
+    assert not state.requests
+    return {rid: f.tokens for rid, f in state.finished.items()}
+
+
+def test_launcher_journal_resume_completes_a_crashed_run(tmp_path, capsys):
+    """``--journal`` + a crash fault ends the run with exit code 1 and the
+    recovery hint; ``--journal X --resume X`` serves the unfinished
+    requests to the end.  The journal then holds every request once, with
+    the uncrashed run's streams."""
+    base = ["--arch", "qwen2-0.5b-smoke", "--device", "cpu",
+            "--requests", "4"]
+    clean = tmp_path / "clean.wal"
+    serve_cli.main(base + ["--journal", str(clean)])
+    want = _finished(clean)
+    assert sorted(want) == [0, 1, 2, 3]
+    wal = tmp_path / "crash.wal"
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as err:
+        serve_cli.main(base + ["--journal", str(wal), "--fault", "crash:0.2",
+                               "--fault-seed", "1"])
+    assert err.value.code == 1
+    out = capsys.readouterr().out
+    assert f"recover with --resume {wal}" in out
+    serve_cli.main(base + ["--journal", str(wal), "--resume", str(wal)])
+    out = capsys.readouterr().out
+    resumed = int(out.split("resumed ")[1].split()[0])
+    assert resumed >= 1 and f"completed {resumed} requests" in out
+    assert _finished(wal) == want
+
+
+def test_launcher_trace_metrics_and_sanitize(tmp_path, capsys):
+    """``--trace`` writes a trace `tools/trace_report.py` validates (chrome
+    and jsonl), ``--metrics-out`` the Prometheus snapshot, ``--sanitize``
+    prints the report at one transfer per steady iteration."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+    import trace_report
+    for fmt in ("chrome", "jsonl"):
+        trace, prom = tmp_path / f"t.{fmt}", tmp_path / f"m.{fmt}.prom"
+        serve_cli.main(["--arch", "qwen2-0.5b-smoke", "--device", "cpu",
+                        "--requests", "3", "--trace", str(trace),
+                        "--trace-format", fmt, "--metrics-out", str(prom),
+                        "--sanitize"])
+        out = capsys.readouterr().out
+        assert trace_report.main([str(trace), "--validate"]) == 0
+        assert "papi_engine_iterations_total" in prom.read_text()
+        assert f"-> {trace}" in out and "program keys" in out
+        line, = [ln for ln in out.splitlines() if ln.startswith("sanitize:")]
+        assert "at 1.00 transfers/iter (budget 1)" in line
+    capsys.readouterr()
+    prom = tmp_path / "only.prom"
+    serve_cli.main(["--arch", "qwen2-0.5b-smoke", "--device", "cpu",
+                    "--requests", "2", "--metrics-out", str(prom)])
+    assert "telemetry:" in capsys.readouterr().out and prom.exists()
+
+
+@pytest.mark.parametrize("argv", [("--sanitize", "--journal", "j.wal",
+                                   "--trace", "t.json"),
+                                  ("--metrics-out", "m.prom"), ()])
+def test_launcher_engine_flags_match_reference(monkeypatch, tmp_path,
+                                               argv):
+    """The tracer, sanitize and journal arguments the port's launcher
+    hands its engine are the reference launcher's.  The reference's report
+    is skipped: its `_report` names `write_trace` and `export_prometheus`,
+    which only its `main()` imports, so it raises NameError under
+    ``--trace`` / ``--metrics-out`` (ROADMAP queue 3)."""
+    ref = pytest.importorskip("repro.launch.serve")
+    monkeypatch.setattr(ref, "_report", lambda *a: None)
+    monkeypatch.chdir(tmp_path)
+    want, _ = _reference_engine_kw(monkeypatch, *argv)
+    got, _ = _port_launch(monkeypatch, *argv)
+    for key in ("sanitize", "journal"):
+        assert got[key] == want[key]
+    assert ((got["tracer"] is None) == (want["tracer"] is None))
