@@ -46,6 +46,13 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      torch.matmul calls against 4 fc_gemv launches, weights rotated past
      the L2) at m = 1..128, with the wall-clock columns it compared, the
      same work's device time and the crossover each gives;
+     3f: the other families' shapes: fc_gemv at each FC group of one
+     layer of olmoe-1b-7b, granite-8b, qwen2-vl-7b, deepseek-67b and
+     command-r-plus-104b (f32 m = 8; bf16 m = 8, 32, 512), both attention
+     kernels at hd 128 with each model's GQA geometry (t = 1, 4, 64), the
+     paged kernel bit-equal to the dense one; each layer's FC groups and
+     the attention at t = 1 and 64 timed beside torch.matmul / SDPA and
+     the bound;
   4. serve 8 requests with full-width bf16 qwen2-0.5b (24 layers, random
      seeded weights) through `PapiEngine(attn_pim=True)`: every request
      must finish, both FC variants must run, both kernels must launch
@@ -127,6 +134,19 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      sanitized step raises, and the sync-debug mode is back after;
      the journal's cost: phase 4's dense run with no journal, ``flush``
      and ``fsync`` (tokens/s, bytes, records);
+     4n: the other decoder families at full width, bf16, random weights
+     from seed 0, one model resident at a time: olmoe-1b-7b (MoE),
+     granite-8b and qwen2-vl-7b (M-RoPE) at full depth, deepseek-67b
+     (untied head) at 8 layers and command-r-plus-104b (layernorm) at 4.
+     Phase 4's requests dense and paged, under "pu" (alpha 0) and "pim"
+     (alpha 99): every request finishes, fc_gemv launched (a multiple of
+     the FC groups x layers) exactly when "pim" ran, the attention kernel
+     of the layout launched, the engine's transfer budget per steady
+     iteration (one, plus one per MoE layer: olmoe's 16 count copies),
+     olmoe once more under the sanitizer, the pool drains, paged streams
+     equal dense ones; prints tokens/s, the median
+     steady iteration, the bf16 tokens under pim equal to pu's, the
+     weights and the peak memory while serving;
   5. trace five steady iterations per KV layout and FC variant with
      torch.profiler (device busy share, top kernels, FC-PIM's, Attn-PIM's
      and the finite-logits guard's device time and CUDA launches per
@@ -139,7 +159,9 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      (the same, per wave); 5e: what keeping the pre-step SSM state costs on
      full-width mamba2: a decode step's device time (it writes its new
      state into fresh tensors) and the memory reserved around it, against
-     the copy that keeping a copy would pay;
+     the copy that keeping a copy would pay; 5f: five steady granite-8b
+     iterations at alpha 99 (busy share, FC-PIM's device time against the
+     byte bound of every layer's FC weights);
   6. parity at full width, 2 layers, f32: one decode step's logits with the
      kernels (pim FC + Attn-PIM) against the plain path (pu + plain
      attention) within 1e-3, over a dense slab and over a paged cache;
@@ -161,6 +183,10 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      6f: f32, 2 layers, the kernels on: crash at iteration 20 and restore:
      the union of the durable and post-crash streams equals the uncrashed
      run token for token, dense and paged, spec_len 1 and 2;
+     6g: f32, 2 layers, the kernels on: olmoe-1b-7b, qwen2-vl-7b,
+     command-r-plus-104b and deepseek-67b through run() and serve(),
+     dense and paged (olmoe also spec_len 2 with the perfect draft): the
+     streams equal the plain path's run() token for token;
   7. print the `kernels` JSON line, the card line, and last the device JSON.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -322,7 +348,8 @@ def fc_group_bound(m: int, K: int, ns: list[int]) -> tuple[float, str]:
     return bound(nbytes, sum(2 * m * K * n for n in ns), torch.bfloat16)
 
 
-def _fc_group_times(gen, groups: list, label: str, m: int = 8) -> dict:
+def _fc_group_times(gen, groups: list, label: str, m: int = 8,
+                    reps: int = 5) -> dict:
     """Kernel (one grouped call per group), plain (one fc_gemv_ref per
     weight), torch.matmul (one per weight) and bound time of one pass over
     `groups` at m rows (max_slots = 8 at TLP 1; 32 for a verify window of
@@ -335,10 +362,12 @@ def _fc_group_times(gen, groups: list, label: str, m: int = 8) -> dict:
         x = torch.randn(m, K, generator=gen, device=DEV).to(torch.bfloat16)
         args = [(x, *[torch.randn(K, n, generator=gen, device=DEV).to(
             torch.bfloat16) for n in ns]) for _ in range(copies)]
-        k_ms = time_ms(lambda x, *ws: fc_mod.fc_gemv_group(x, list(ws)), args)
+        k_ms = time_ms(lambda x, *ws: fc_mod.fc_gemv_group(x, list(ws)), args,
+                       reps)
         p_ms = time_ms(lambda x, *ws: [fc_mod.fc_gemv_ref(x, w) for w in ws],
-                       args)
-        l_ms = time_ms(lambda x, *ws: [torch.matmul(x, w) for w in ws], args)
+                       args, reps)
+        l_ms = time_ms(lambda x, *ws: [torch.matmul(x, w) for w in ws], args,
+                       reps)
         b_ms, b_by = fc_group_bound(m, K, ns)
         print(f"      fc_gemv bf16 m={m} K={K} N={ns} ({label}; "
               f"{fc_plan_note(K, ns)}): kernel {k_ms:.4f} ms, plain "
@@ -2853,6 +2882,331 @@ def phase_journal_cost(params) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the other decoder families at full width: olmoe-1b-7b (MoE), granite-8b
+# (dense) and qwen2-vl-7b (M-RoPE) at their published depth; deepseek-67b
+# (untied head) and command-r-plus-104b (layernorm) at published widths and
+# the depth (None: published) that fits one 80 GB card in bf16
+FAMILY_PATHS = [("olmoe-1b-7b", None), ("granite-8b", None),
+                ("qwen2-vl-7b", None), ("deepseek-67b", 8),
+                ("command-r-plus-104b", 4)]
+# f32, 2 layers: the streams held token for token against the plain path
+FAMILY_PARITY = ("olmoe-1b-7b", "qwen2-vl-7b", "command-r-plus-104b",
+                 "deepseek-67b")
+
+
+def family_cfg(arch: str, depth: int | None = None, dtype: str | None = None):
+    cfg = get_config(arch)
+    kw = {k: v for k, v in (("num_layers", depth), ("dtype", dtype)) if v}
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def fc_groups(cfg) -> list:
+    """(K, [N of each weight]) of one layer's FC-PIM launches under "pim":
+    q/k/v and the out projection; gate/up and down unless the MLP is MoE
+    (its experts are plain matmuls, as the reference's einsums)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    groups = [(d, [q, kv, kv]), (q, [d])]
+    if cfg.moe is None:
+        groups += [(d, [cfg.d_ff, cfg.d_ff]), (cfg.d_ff, [d])]
+    return groups
+
+
+def _attn_bound(lens, t, nkv, g, hd) -> tuple[float, str]:
+    """The least time of one bf16 Attn-PIM call: each live K/V row read
+    once, q and out moved once, 4 t g hd operations per live row."""
+    kv_bytes = sum(lens) * 2 * nkv * hd * 2
+    io_bytes = 2 * len(lens) * nkv * t * g * hd * 2
+    return bound(kv_bytes + io_bytes, 4 * sum(lens) * nkv * t * g * hd,
+                 torch.bfloat16)
+
+
+FAMILY_LENS = {1: [1, 32, 33, 2048, 100, 513, 1000, 7],
+               4: [4, 5, 36, 2048, 100, 513, 1000, 7],
+               64: [64, 65, 96, 2048, 128, 513, 1000, 200]}
+
+
+def phase_family_kernels() -> None:
+    """Phase 3f: fc_gemv at every FC group of one layer of each family
+    model (f32 at m = 8; bf16 at m = 8, 32 and 512), decode_attention and
+    paged_decode_attention at hd 128 with each model's GQA geometry (t = 1,
+    4, 64; S = 2048; pages of 16), held against their plain versions, the
+    paged kernel bit-equal to the dense one; then each layer's FC groups
+    and the attention at t = 1 and 64 timed (bf16, m = 8) beside the
+    library call and the bound."""
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    for arch, _ in FAMILY_PATHS:
+        cfg = get_config(arch)
+        for dtype, ms in ((torch.float32, (8,)),
+                          (torch.bfloat16, (8, 32, 512))):
+            for K, ns in fc_groups(cfg):
+                ws = [(torch.randn(K, n, generator=gen, device=DEV)
+                       / math.sqrt(K)).to(dtype) for n in ns]
+                for m in ms:
+                    x = torch.randn(m, K, generator=gen, device=DEV).to(dtype)
+                    ys = fc_mod.fc_gemv_group(x, ws)
+                    torch.cuda.synchronize()
+                    errs = [max_err(y, fc_mod.fc_gemv_ref(x, w))
+                            for y, w in zip(ys, ws)]
+                    check(all(ok for _, ok, _ in errs)
+                          and all(y.shape == (m, n) for y, n in zip(ys, ns)),
+                          f"fc_gemv_group {str(dtype)[6:]} {arch} m={m} K={K} "
+                          f"N={ns} ({fc_plan_note(K, ns)}): max_abs_err "
+                          f"{max(e for e, _, _ in errs):.3e} "
+                          f"(tol {errs[0][2]})")
+                del ws
+        nkv, g, hd = cfg.num_kv_heads, cfg.group_size, cfg.resolved_head_dim
+        for dtype in (torch.float32, torch.bfloat16):
+            for t, lens in FAMILY_LENS.items():
+                q, k, v, ln = _attn_inputs(gen, dtype, t, lens, nkv=nkv, g=g,
+                                           hd=hd)
+                got = attn_mod.decode_attention(q, k, v, ln, q_rows=t)
+                kp, vp, clean, _ = _paged_pool(gen, dtype, lens, 16, nkv=nkv,
+                                               hd=hd)
+                paged = paged_mod.paged_decode_attention(q, kp, vp, ln, clean,
+                                                         q_rows=t)
+                blocks = clean[:, :2048 // 16]
+                dense = attn_mod.decode_attention(
+                    q, paged_mod.gather_kv_pages(kp, blocks).contiguous(),
+                    paged_mod.gather_kv_pages(vp, blocks).contiguous(), ln,
+                    q_rows=t)
+                torch.cuda.synchronize()
+                err, ok, tol = max_err(
+                    got, attn_mod.decode_attention_ref(q, k, v, ln, t))
+                perr, pok, _ = max_err(paged, paged_mod.paged_decode_attention_ref(
+                    q, kp, vp, ln, clean, t))
+                check(ok and pok and bool(torch.isfinite(got).all())
+                      and torch.equal(paged, dense),
+                      f"decode_attention / paged {str(dtype)[6:]} {arch} t={t} "
+                      f"nkv={nkv} g={g} hd={hd} S=2048 "
+                      f"({plan_note(8, nkv, t * g)}): max_abs_err dense "
+                      f"{err:.3e}, paged {perr:.3e} (tol {tol}), paged "
+                      "bit-equal to dense")
+                del q, k, v, kp, vp
+        _fc_group_times(gen, fc_groups(cfg), f"one {arch} layer", reps=3)
+        for t in (1, 64):
+            lens = FAMILY_LENS[t]
+            sets = [_attn_inputs(gen, torch.bfloat16, t, lens, nkv=nkv, g=g,
+                                 hd=hd) for _ in range(6)]
+            k_ms = time_ms(lambda q, k, v, ln: attn_mod.decode_attention(
+                q, k, v, ln, q_rows=t), sets, reps=3)
+            p_ms = time_ms(lambda q, k, v, ln: attn_mod.decode_attention_ref(
+                q, k, v, ln, t), sets, reps=3)
+            l_ms = time_ms(_sdpa, [_sdpa_args(*s, t) for s in sets], reps=3)
+            b_ms, b_by = _attn_bound(lens, t, nkv, g, hd)
+            print(f"      decode_attention bf16 {arch} t={t} b=8 nkv={nkv} "
+                  f"g={g} hd={hd} S=2048: kernel {k_ms:.4f} ms "
+                  f"({plan_note(8, nkv, t * g)}), plain {p_ms:.4f} ms, sdpa "
+                  f"{l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+            del sets
+
+
+def _family_run(cfg, params, label: str, layout: str, alpha: float,
+                sanitize: bool = False):
+    """Phase 4's 8 requests through one engine (attn_pim), the launch
+    counts set to 0 just before `run()` and read just after.  Every steady
+    iteration makes the engine's `transfer_budget` host transfers (one,
+    plus one per MoE layer); ``sanitize`` runs it under the sanitizer,
+    which holds them to it.  Returns ({req_id: tokens}, launches)."""
+    eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
+                     prefill_len=64, alpha=alpha, attn_pim=True,
+                     kv_layout=layout, page_size=16, sanitize=sanitize,
+                     device=DEV)
+    _submit_main(eng, cfg)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(max_iterations=500)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    reasons = sorted(r.finished_reason for r in results)
+    check(len(results) == 8 and all(r in ("eos", "length") for r in reasons),
+          f"{label}: 8 requests finished ({reasons})")
+    check_healthy(eng, label)
+    toks = [t for r in results for t in r.tokens]
+    check(len(toks) > 0 and all(0 <= t < cfg.vocab_size for t in toks),
+          f"{label}: {len(toks)} tokens within the vocabulary")
+    attn = "paged_decode_attention" if layout == "paged" else "decode_attention"
+    other = "decode_attention" if layout == "paged" else "paged_decode_attention"
+    # alpha 0 runs "pu" but for the first decode step (RLP is 0 at the
+    # initial schedule, as in the reference); alpha 99 "pim" throughout
+    variants = {s.fc_variant for s in eng.stats}
+    per_step = len(fc_groups(cfg)) * cfg.num_layers
+    check(launches[attn] > 0 and launches[other] == launches["ssd_scan"] == 0
+          and (launches["fc_gemv"] > 0) == ("pim" in variants)
+          and launches["fc_gemv"] % per_step == 0
+          and (variants == {"pim"} if alpha > 8 else "pu" in variants),
+          f"{label}: FC variants {sorted(variants)}, launches {launches} "
+          f"(fc_gemv {len(fc_groups(cfg))} per layer of each pim step)")
+    steady = [s for s in eng.stats if s.admitted == 0]
+    budget = 1 + (cfg.num_layers if cfg.moe is not None else 0)
+    check(bool(steady) and eng.transfer_budget == budget
+          and all(s.transfers == budget for s in steady),
+          f"{label}: {len(steady)} steady iterations, {budget} host "
+          "transfer(s) each (the fetch, one per MoE layer)")
+    if sanitize:
+        rep = eng.sanitize_report()
+        check(rep.steady_iterations > 0 and rep.transfer_budget == budget
+              and rep.transfers_per_steady_iter == budget
+              and torch.cuda.get_sync_debug_mode() == 0,
+              f"{label}: {rep.steady_iterations} sanitized steady iterations "
+              f"at {rep.transfers_per_steady_iter} transfers each (budget "
+              f"{rep.transfer_budget}), sync-debug mode back to default")
+    if layout == "paged":
+        _check_drained(eng, label)
+    med = statistics.median(s.wall_s * 1e3 for s in steady)
+    print(f"      {label}: {len(toks)} tokens in {eng.iteration} iterations, "
+          f"{wall:.3f} s, {len(toks) / wall:.1f} tok/s; median steady "
+          f"iteration {med:.2f} ms ({len(steady)} its)", flush=True)
+    return {r.req_id: r.tokens for r in results}, launches
+
+
+def _family_trace(cfg, params) -> None:
+    """Phase 5f: five steady granite-8b iterations (8 live requests,
+    dense, alpha 99: FC-PIM every step) under torch.profiler: busy share,
+    and FC-PIM's device time against its byte bound (every layer's FC
+    weights streamed once)."""
+    rng = np.random.default_rng(15)
+    eng = PapiEngine(cfg, params, max_slots=8, cache_capacity=2048,
+                     prefill_len=64, alpha=99, attn_pim=True, device=DEV)
+    for i in range(8):
+        eng.submit(ServeRequest(i, rng.integers(3, cfg.vocab_size,
+                                                size=32).tolist(),
+                                max_new_tokens=32))
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = _kernels(prof)
+    w_bytes = sum(K * sum(ns) for K, ns in fc_groups(cfg)) * 2 * cfg.num_layers
+    b_ms, _ = bound(w_bytes, 0, torch.bfloat16)
+    if not kern:
+        print(f"      trace {cfg.name}: profiler saw no device time (not "
+              "measured)", flush=True)
+        return
+    busy = sum(k[0] for k in kern)
+    fc = [k for k in kern if "fc_gemv" in k[1]]
+    attn = [k for k in kern if "attn_split" in k[1] or "attn_merge" in k[1]]
+    fc_ms = sum(k[0] for k in fc) / 5e3
+    top = sorted(kern, reverse=True)[:5]
+    check(all(s.transfers == 1 and s.fc_variant == "pim"
+              for s in eng.stats[-5:]),
+          f"trace {cfg.name}: five pim iterations, one transfer each")
+    print(f"      trace {cfg.name} dense pim: 5 steady iterations "
+          f"{wall_us / 5e3:.2f} ms each, device busy {busy / 5e3:.2f} ms each "
+          f"({busy / wall_us:.1%}); FC-PIM {fc_ms:.4f} ms in "
+          f"{sum(k[2] for k in fc) // 5} CUDA launches each ({fc_ms / (busy / 5e3):.1%} "
+          f"of busy), bound {b_ms:.4f} ms ({w_bytes / 1e6:.0f} MB of FC "
+          f"weights at 3.35 TB/s, {b_ms / fc_ms:.1%} of it); Attn-PIM "
+          f"{sum(k[0] for k in attn) / 5e3:.4f} ms; top: "
+          + "; ".join(f"{name[:40]} {dev / 5e3:.3f} ms x{cnt // 5}"
+                      for dev, name, cnt in top), flush=True)
+
+
+def phase_family_paths() -> dict:
+    """Phases 4n and 5f: each family model at full width, bf16, random
+    weights from seed 0, one resident at a time, serves phase 4's 8
+    requests dense and paged, under "pu" (alpha 0) and "pim" (alpha 99);
+    paged streams equal dense ones per variant, and pu's tokens equal to
+    pim's are counted; an MoE model also serves dense pim under the
+    sanitizer.  granite-8b's steady iteration is traced (5f).
+    Returns the kernels' launches summed over the runs."""
+    total = dict.fromkeys(MODS, 0)
+    for arch, depth in FAMILY_PATHS:
+        cfg = family_cfg(arch, depth)
+        torch.cuda.empty_cache()
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+        weights = torch.cuda.memory_allocated() / 2 ** 30
+        torch.cuda.reset_peak_memory_stats()   # the init's f32 transients
+        name = f"{arch}" + (f" ({depth} of {get_config(arch).num_layers} "
+                            "layers)" if depth else "")
+        out = {}
+        for alpha, variant in ((0.0, "pu"), (99.0, "pim")):
+            for layout in ("dense", "paged"):
+                out[layout, variant], ln = _family_run(
+                    cfg, params, f"{name} {layout} {variant}", layout, alpha)
+                for k, n in ln.items():
+                    total[k] += n
+            check(out["paged", variant] == out["dense", variant],
+                  f"{name} {variant}: the paged streams equal the dense ones")
+        if cfg.moe is not None:
+            got, ln = _family_run(cfg, params, f"{name} dense pim sanitized",
+                                  "dense", 99.0, sanitize=True)
+            for k, n in ln.items():
+                total[k] += n
+            check(got == out["dense", "pim"],
+                  f"{name}: the sanitized streams equal the unsanitized ones")
+        same, n = _same_tokens(out["dense", "pim"], out["dense", "pu"])
+        print(f"      {name}: {same} of {n} bf16 tokens under pim equal pu's; "
+              f"weights {weights:.2f} GiB, peak memory while serving "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+              flush=True)
+        if arch == "granite-8b":
+            _family_trace(cfg, params)
+        del params
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_family_parity() -> None:
+    """Phase 6g: f32, full width, 2 layers.  Phase 4's 8 requests (eos
+    off) through the kernels (alpha 99: fc_gemv every step and mixed wave;
+    Attn-PIM) by run() and serve() (phase 4h's Poisson schedule), dense and
+    paged, equal the plain path's run() (pu, plain attention) token for
+    token; olmoe also speculating (spec_len 2, the perfect draft)."""
+    for arch in FAMILY_PARITY:
+        cfg = family_cfg(arch, 2, "float32")
+        torch.cuda.empty_cache()
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(3))
+        base = dict(max_slots=8, cache_capacity=2048, prefill_len=64,
+                    eos_token=cfg.vocab_size, device=DEV)
+        plain = PapiEngine(cfg, params, alpha=0, **base)
+        _submit_main(plain, cfg)
+        want = {r.req_id: r.tokens for r in plain.run(500)}
+        runs = []
+        for layout in ("dense", "paged"):
+            kw = dict(base, alpha=99, attn_pim=True, kv_layout=layout)
+            eng = PapiEngine(cfg, params, **kw)
+            _submit_main(eng, cfg)
+            runs.append((f"run() {layout}",
+                         {r.req_id: r.tokens for r in eng.run(500)}))
+            eng = PapiEngine(cfg, params, **kw)
+            finals = _consume(eng.serve(_main_schedule(cfg), max_iterations=500),
+                              f"{arch} f32 2 layers serve() {layout}")
+            runs.append((f"serve() {layout}",
+                         {i: r.tokens for i, r in finals.items()}))
+            if cfg.moe is not None:
+                eng = PapiEngine(cfg, params, spec_len=2, draft=(cfg, params),
+                                 **kw)
+                _submit_main(eng, cfg)
+                runs.append((f"spec_len 2 {layout}",
+                             {r.req_id: r.tokens for r in eng.run(500)}))
+        for what, got in runs:
+            same, total = _same_tokens(got, want)
+            note = ""
+            if got != want:
+                i = next(i for i in want if want[i] != got.get(i))
+                a, b = want[i], got.get(i, [])
+                j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                         min(len(a), len(b)))
+                note = (f"; first divergence: request {i} token {j}, margin "
+                        f"{_top2_margin(cfg, params, i, a[:j]):.3e}")
+            check(got == want, f"{arch} f32 2 layers, kernels, {what}: the "
+                  f"streams equal the plain path's ({same} of {total} "
+                  f"tokens){note}")
+        del params
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     global CARD
     card = CARD = card_line()
@@ -2906,6 +3260,9 @@ def main() -> int:
     timed(phase_ssm_state_cost, ssm_params)
     del ssm_params
     timed(phase_ssm_parity)
+    timed(phase_family_kernels)
+    family_launches = timed(phase_family_paths)
+    timed(phase_family_parity)
     # the sum over every path's run, each with the counts set to 0 just
     # before it
     print(f"      launches by path: qwen2-0.5b dense and paged (phases 4, "
@@ -2918,12 +3275,15 @@ def main() -> int:
           f"{json.dumps(durable_launches)}; qwen2-0.5b traced (phase 4l, "
           f"2 runs): {json.dumps(traced_launches)}; "
           + "; ".join(f"{arch}: {json.dumps(ln)}"
-                      for arch, ln in ssm_launches.items()), flush=True)
+                      for arch, ln in ssm_launches.items())
+          + f"; the other families (phase 4n, 21 runs): "
+          f"{json.dumps(family_launches)}", flush=True)
     launches = {name: n + spec_launches[name] + serve_launches[name]
                 + failure_launches.get(name, 0)
                 + durable_launches.get(name, 0)
                 + traced_launches.get(name, 0)
                 + sum(ln[name] for ln in ssm_launches.values())
+                + family_launches[name]
                 for name, n in launches.items()}
 
     rows = [

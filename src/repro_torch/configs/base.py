@@ -1,14 +1,13 @@
 """Model configuration: the port's own copy of the subset of
 `repro.configs.base` that the serving path and the core read —
-`ModelConfig` with its dense, MoE (`MoEConfig`, read by the AI estimate
-and the device models only: the port serves no MoE model yet), SSM
-(`SSMConfig`, Mamba2) and hybrid (`HybridConfig`, zamba2) fields,
+`ModelConfig` with its dense, MoE (`MoEConfig`), SSM (`SSMConfig`,
+Mamba2), hybrid (`HybridConfig`, zamba2) and M-RoPE (qwen2-vl) fields,
 `resolved_head_dim`, `group_size`, `num_attention_applications` and the
 `reduced()` smoke twin."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal
+from typing import Literal, Sequence
 
 Family = Literal["dense", "moe", "ssm", "hybrid", "vlm", "audio"]
 
@@ -68,9 +67,13 @@ class ModelConfig:
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
     norm_eps: float = 1e-5
     rope_theta: float = 10000.0
+    # M-RoPE (qwen2-vl): positions are (temporal, height, width) triples;
+    # the hd/2 rotary frequencies are split into 3 sections
+    m_rope: bool = False
+    m_rope_sections: Sequence[int] = (16, 24, 24)
     tie_embeddings: bool = False
-    causal: bool = True
-    decoder: bool = True
+    causal: bool = True     # encoder-only archs set False
+    decoder: bool = True    # False: encoder-only (no KV cache, no decode)
     moe: MoEConfig | None = None
     ssm: SSMConfig | None = None
     hybrid: HybridConfig | None = None
@@ -127,6 +130,9 @@ class ModelConfig:
             norm=self.norm,
             norm_eps=self.norm_eps,
             rope_theta=self.rope_theta,
+            m_rope=self.m_rope,
+            m_rope_sections=((8, 12, 12) if self.m_rope
+                             else self.m_rope_sections),
             tie_embeddings=self.tie_embeddings,
             causal=self.causal,
             decoder=self.decoder,

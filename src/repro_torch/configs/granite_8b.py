@@ -1,0 +1,19 @@
+"""granite-8b — dense llama-arch (code), GQA kv=8. [arXiv:2405.04324; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-8b",
+    family="dense",
+    num_layers=36,
+    d_model=4_096,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=14_336,
+    vocab_size=49_152,
+    head_dim=128,
+    qkv_bias=False,
+    mlp="swiglu",
+    norm="rmsnorm",
+    rope_theta=10_000_000.0,
+    tie_embeddings=True,
+)

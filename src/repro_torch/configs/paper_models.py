@@ -1,9 +1,9 @@
 """The paper's own evaluation models (PAPI §7.1) plus OPT-30B (§3.1
 roofline) — the port's copy of `repro.configs.paper_models`.
 
-They drive the device models and system simulators of `core`.  They are
-data only here: the port's model refuses their gelu MLP and layernorm
-(`models.model._check_family`), so the engine does not serve them.
+They drive the device models and system simulators of `core`, and are
+data only here: the port's model refuses the gelu MLP of GPT-3 and OPT
+(`models.model._check_family`), and no entry point serves LLaMA-65B.
 """
 from repro_torch.configs.base import ModelConfig
 

@@ -21,12 +21,15 @@ counterpart of `repro.debug.sanitize`, with the same names and report.
   engine, traced or not; uploads are not counted as transfers either way.
 - ``EngineSanitizer.after_step`` holds the transfer budget: a steady fused
   decode iteration (no admission, no arrivals, no prefill slots, no
-  degraded step, no preemption) makes EXACTLY ``transfer_budget`` host
-  transfers.  The reference's compile census reads its jit caches; the
-  port has none, so its census has two parts: ``programs`` counts the
-  distinct program keys the engine's `_call` dispatched, and a kernel
-  built or loaded by `kernels._build` after the engine's first steady
-  iteration raises `SanitizeError` (a kernel was built in steady state).
+  degraded step, no preemption) makes EXACTLY the engine's
+  ``transfer_budget`` host transfers: its one fetch, and one per MoE
+  layer of each forward (`models.moe` reads its per-expert counts; the
+  reference has no such copy).  The reference's compile census reads its
+  jit caches; the port has none, so its census has two parts:
+  ``programs`` counts the distinct program keys the engine's `_call`
+  dispatched, and a kernel built or loaded by `kernels._build` after the
+  engine's first steady iteration raises `SanitizeError` (a kernel was
+  built in steady state).
 
 ``rank_promotion`` and ``debug_nans`` keep the reference's keyword names
 and do nothing: PyTorch has no switch that raises on implicit rank
@@ -167,6 +170,7 @@ class EngineSanitizer:
             return
         if self._loaded is None:
             self._loaded = loaded
+        self.report.transfer_budget = engine.transfer_budget
         self.report.steady_iterations += 1
         self.report.steady_transfers += st.transfers
         if st.transfers != self.report.transfer_budget:

@@ -7,6 +7,14 @@ trace with random weights made from ``--seed``.
     python -m repro_torch.launch.serve --arch mamba2-1.3b
     python -m repro_torch.launch.serve --arch qwen2-0.5b --attn-pim \\
         --spec-len 4 --draft-arch qwen2-0.5b
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b --attn-pim
+
+``--arch`` takes every assigned decoder: qwen2-0.5b, granite-8b,
+command-r-plus-104b, deepseek-67b (dense), granite-moe-1b-a400m,
+olmoe-1b-7b (MoE), qwen2-vl-7b (the VLM backbone, M-RoPE), mamba2-1.3b
+(SSM) and zamba2-1.2b (hybrid), or ``<arch>-smoke`` for the reduced twin.
+hubert-xlarge is encoder-only and refused, as the reference's engine
+refuses it.
 
 Requests follow `repro.launch.serve`: ``--requests`` draws from
 `core.traces.generate_trace(--task)` (default general-qa, 16 requests),
@@ -83,6 +91,7 @@ from repro_torch.models import init_params
 from repro_torch.serving import (EngineCrashError, PapiEngine, ServeRequest,
                                  Tracer, export_prometheus, latency_summary,
                                  parse_fault_specs, write_trace)
+from repro_torch.serving.engine import check_decoder
 
 # the generation budget's cap
 MAX_NEW = 64
@@ -239,7 +248,9 @@ def main(argv=None) -> None:
     ap.add_argument("--sanitize", action="store_true",
                     help="run under the host-sync sanitizer: sync-debug "
                          "mode 'error' around every step on the card, and "
-                         "exactly one host transfer per steady iteration")
+                         "exactly the engine's transfer budget per steady "
+                         "iteration (one, plus one per MoE layer of each "
+                         "forward)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -251,6 +262,7 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    check_decoder(cfg)     # before building weights the engine would refuse
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen)
     draft = None

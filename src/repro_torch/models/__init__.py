@@ -1,6 +1,6 @@
-"""The port's model: layers, the FC hook, the Mamba2 block and the step
-functions of the dense, SSM and hybrid families, over a dense KV slab or
-(dense only) a paged KV pool."""
+"""The port's model: layers, the FC hook, the MoE layer, the Mamba2 block
+and the step functions of the dense, MoE, VLM, SSM and hybrid families,
+over a dense KV slab or (the KV-only families) a paged KV pool."""
 from repro_torch.models.layers import attn_impl, current_attn_impl
 from repro_torch.models.linear import current_fc_variant, fc_variant
 from repro_torch.models.model import (chunk_logits, decode_step, init_cache,

@@ -1,10 +1,12 @@
-"""Transformer building blocks of the dense path: norm, RoPE, SwiGLU MLP,
-projections and attention — ports of `repro.models.layers`.
+"""Transformer building blocks of the decoder families: norms, RoPE and
+qwen2-vl's M-RoPE, SwiGLU MLP, projections and attention — ports of
+`repro.models.layers`.
 
 Numerics follow the reference rounding point for rounding point, because
 in bf16 they decide whether greedy tokens match: statistics and softmax in
 f32, `rmsnorm` casts its rsqrt back to the activation dtype before the
-multiplies, `swiglu` runs silu in f32 and casts back, RoPE rotates split
+multiplies, `layernorm` normalizes in f32 and casts before the scale,
+`swiglu` runs silu in f32 and casts back, RoPE and M-RoPE rotate split
 halves in f32.  Attention comes as
   * `flash_attention` / `dense_attention` — prefill (plain PyTorch, the
     reference's XLA code; never `scaled_dot_product_attention`);
@@ -57,6 +59,23 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor,
     return x * inv * weight.to(x.dtype)
 
 
+def layernorm(x: torch.Tensor, weight: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Scale-only LayerNorm (no bias, as the reference's parameters)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype) * weight.to(
+        x.dtype)
+
+
+def norm(x: torch.Tensor, weight: torch.Tensor, kind: str,
+         eps: float) -> torch.Tensor:
+    if kind == "rmsnorm":
+        return rmsnorm(x, weight, eps)
+    return layernorm(x, weight, eps)
+
+
 def rope_freqs(head_dim: int, theta: float,
                device: torch.device | None = None) -> torch.Tensor:
     """Inverse frequencies, shape [head_dim // 2] (f32)."""
@@ -72,6 +91,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     inv = rope_freqs(hd, theta, x.device)
     angles = positions[..., None].float() * inv            # [b, seq, hd/2]
     angles = angles[..., None, :]                          # over heads
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_m_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                 sections: tuple[int, ...]) -> torch.Tensor:
+    """qwen2-vl's multimodal RoPE.  x: [b, seq, heads, hd]; positions:
+    [b, 3, seq] (temporal, height, width).  The hd/2 frequency slots are
+    split into `sections`, section i rotated by position stream i; as the
+    reference's ``jnp.repeat(..., total_repeat_length=hd // 2)``, sections
+    past hd/2 slots are cut and the last one fills what they leave (the
+    smoke twin's (8, 12, 12) at hd 32 rotates 8 slots by t, 8 by h).  A
+    [b, seq] position array is refused: it has no height and width rows."""
+    hd = x.shape[-1]
+    if positions.dim() != 3 or positions.shape[1] != len(sections):
+        raise ValueError(
+            f"M-RoPE takes positions [b, {len(sections)}, seq] for sections "
+            f"{tuple(sections)}, got {tuple(positions.shape)}")
+    inv = rope_freqs(hd, theta, x.device)
+    half = hd // 2
+    parts, lo = [], 0
+    for i, n in enumerate(sections):
+        hi = half if i == len(sections) - 1 else min(lo + n, half)
+        if hi > lo:
+            parts.append(positions[:, i, :, None].float() * inv[lo:hi])
+        lo = hi
+    angles = torch.cat(parts, dim=-1)[..., None, :]     # [b, seq, 1, hd/2]
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

@@ -1,6 +1,9 @@
-"""The port's decoder — `repro.models.model` for the dense, SSM (mamba2)
-and hybrid (zamba2) families, over a dense KV slab or (dense only) a paged
-KV pool.
+"""The port's decoder — `repro.models.model` for the decoder families:
+dense (rmsnorm or layernorm, tied or untied head), MoE, the VLM backbone
+with M-RoPE, SSM (mamba2) and hybrid (zamba2), over a dense KV slab or
+(the pure attention families) a paged KV pool.  The audio encoder
+(hubert) is refused: it has no decode step, and the reference runs it only
+in training.
 
 Parameters keep the reference's pytree: nested dicts whose per-layer
 leaves are stacked on a leading ``num_layers`` axis (the weight bridge
@@ -39,10 +42,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+# the families whose whole cache is KV, and so can be paged
+KV_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,12 +60,21 @@ class PSpec:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.family not in FAMILIES or cfg.moe is not None
-            or cfg.mlp != "swiglu" or cfg.norm != "rmsnorm"
-            or not cfg.tie_embeddings):
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: the audio encoder (bidirectional attention, gelu "
+            "MLP, frame frontend) has no decode step; the reference runs it "
+            "only in training, which the port has not ported yet")
+    if cfg.family not in FAMILIES or cfg.mlp != "swiglu":
         raise NotImplementedError(
             f"{cfg.name}: the port serves {'/'.join(FAMILIES)} models with "
-            "swiglu/rmsnorm, tied embeddings and no MoE only")
+            "a swiglu MLP only")
+
+
+def host_copies_per_forward(cfg: ModelConfig) -> int:
+    """Device->host copies one forward of the model makes: one per MoE
+    layer (`moe.moe_mlp` reads its per-expert counts), none otherwise."""
+    return cfg.num_layers if cfg.family == "moe" else 0
 
 
 def _attn_spec(cfg: ModelConfig, residual_std: float) -> dict:
@@ -86,6 +101,17 @@ def _mlp_spec(cfg: ModelConfig, residual_std: float) -> dict:
         "w_gate": PSpec((d, f), std=std),
         "w_up": PSpec((d, f), std=std),
         "w_down": PSpec((f, d), std=residual_std),
+    }
+
+
+def _moe_spec(cfg: ModelConfig, residual_std: float) -> dict:
+    d, f, e = cfg.d_model, cfg.moe.d_ff, cfg.moe.num_experts
+    std = d ** -0.5
+    return {
+        "w_router": PSpec((d, e), std=std),
+        "w_gate": PSpec((e, d, f), std=std),
+        "w_up": PSpec((e, d, f), std=std),
+        "w_down": PSpec((e, f, d), std=residual_std),
     }
 
 
@@ -117,12 +143,16 @@ def _layer_spec(cfg: ModelConfig, residual_std: float) -> dict:
     if cfg.family in ("ssm", "hybrid"):
         return {"norm": PSpec((d,), "ones"),
                 "ssm": _ssm_spec(cfg, residual_std)}
-    return {
+    block = {
         "norm1": PSpec((d,), "ones"),
         "attn": _attn_spec(cfg, residual_std),
         "norm2": PSpec((d,), "ones"),
-        "mlp": _mlp_spec(cfg, residual_std),
     }
+    if cfg.family == "moe":
+        block["moe"] = _moe_spec(cfg, residual_std)
+    else:
+        block["mlp"] = _mlp_spec(cfg, residual_std)
+    return block
 
 
 def model_spec(cfg: ModelConfig) -> dict:
@@ -148,6 +178,8 @@ def model_spec(cfg: ModelConfig) -> dict:
             "norm2": PSpec((d,), "ones"),
             "mlp": _mlp_spec(cfg, residual_std),
         }
+    if cfg.decoder and not cfg.tie_embeddings:
+        spec["lm_head"] = {"w": PSpec((d, v), std=d ** -0.5)}
     return spec
 
 
@@ -188,7 +220,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                device: torch.device | str) -> dict:
-    """Decode cache: per-slot positions; dense: [L, b, S, nkv, hd] K/V;
+    """Decode cache: per-slot positions; dense, moe, vlm: [L, b, S, nkv,
+    hd] K/V;
     ssm: ``ssm``, an `SSMState` of [L, b, ...] tensors (the SSM state f32);
     hybrid: both, with K/V [napps, b, S, nkv, hd] for the shared block's
     applications."""
@@ -200,7 +233,7 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
         cache["ssm"] = S.SSMState(*(
             torch.zeros((cfg.num_layers,) + x.shape, dtype=x.dtype,
                         device=device) for x in one))
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in KV_FAMILIES + ("hybrid",):
         shape = (cfg.num_attention_applications(), batch, capacity,
                  cfg.num_kv_heads, cfg.resolved_head_dim)
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
@@ -216,7 +249,7 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
     physical pages.  Page 0 is the garbage page: the tables start at 0, so
     writes of slots not yet admitted land there harmlessly."""
     _check_family(cfg)
-    if cfg.family != "dense":
+    if cfg.family not in KV_FAMILIES:
         raise ValueError(
             f"paged KV cache needs a pure attention KV cache; {cfg.family} "
             "carries SSM state that has no sequence dim to page")
@@ -314,6 +347,16 @@ def _write_kv_paged(k_cache, v_cache, k_new, v_new, pos, tables,
     return k_cache, v_cache
 
 
+def _apply_positional(cfg: ModelConfig, q, k, positions):
+    """RoPE, or M-RoPE over [b, 3, s] position triples."""
+    if cfg.m_rope:
+        sections = tuple(cfg.m_rope_sections)
+        return (L.apply_m_rope(q, positions, cfg.rope_theta, sections),
+                L.apply_m_rope(k, positions, cfg.rope_theta, sections))
+    return (L.apply_rope(q, positions, cfg.rope_theta),
+            L.apply_rope(k, positions, cfg.rope_theta))
+
+
 def _decode_attention(q, k_cache, v_cache, pos, tables=None):
     """THE decision point for decode-path attention: a [b, t, nh, hd]
     window at absolute positions pos .. pos + t - 1 (KV position j is
@@ -341,10 +384,9 @@ def attention_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
     """Pre-norm attention sub-block.  Returns h (the KV is written in
     place when `kv` is given).  `tables` [b, max_blocks] marks the paged
     layout: `kv` are then page pools [num_pages, page, nkv, hd]."""
-    a_in = L.rmsnorm(h, p["norm1"], cfg.norm_eps)
+    a_in = L.norm(h, p["norm1"], cfg.norm, cfg.norm_eps)
     q, k, v = L.qkv_project(a_in, p["attn"])
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    q, k = _apply_positional(cfg, q, k, positions)
     if mode == "decode" and tables is not None:
         _write_kv_paged(kv[0], kv[1], k, v, pos, tables,
                         valid_lens=write_lens)
@@ -365,7 +407,11 @@ def attention_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
 
 
 def mlp_block(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
-    m_in = L.rmsnorm(h, p["norm2"], cfg.norm_eps)
+    """Pre-norm MLP or MoE sub-block (serving drops the MoE aux loss, which
+    only training reads)."""
+    m_in = L.norm(h, p["norm2"], cfg.norm, cfg.norm_eps)
+    if cfg.family == "moe":
+        return h + M.moe_mlp(m_in, p["moe"], cfg.moe)[0]
     return h + L.swiglu_mlp(m_in, p["mlp"])
 
 
@@ -374,7 +420,7 @@ def ssm_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
               out: S.SSMState | None = None) -> torch.Tensor:
     """Pre-norm Mamba2 sub-block: the prefill writes the state (when
     given) in place, the decode step reads it and writes `out`."""
-    u = L.rmsnorm(h, p["norm"], cfg.norm_eps)
+    u = L.norm(h, p["norm"], cfg.norm, cfg.norm_eps)
     y, _ = S.mamba2_block(u, p["ssm"], cfg.ssm, cfg.d_model, state=state,
                           decode=(mode == "decode"), out=out)
     return h + y
@@ -448,18 +494,40 @@ def embed_tokens(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
     return params["embed"]["w"][tokens.long()]
 
 
+def _window_positions(cfg, pos: torch.Tensor, t: int) -> torch.Tensor:
+    """Positions pos + j of a t-token window per slot ([b, t]); an M-RoPE
+    model gets the same index in all three streams ([b, 3, t])."""
+    positions = pos[:, None] + torch.arange(t, device=pos.device)[None, :]
+    if cfg.m_rope:
+        positions = positions[:, None, :].expand(-1, 3, -1)
+    return positions
+
+
 def embed_inputs(cfg, params, batch: dict):
-    """Token embedding.  Returns (h [b, s, d], positions)."""
+    """Token embedding; a VLM batch may put precomputed patch embeddings
+    ahead of the text, with their position triples.  Returns (h [b, s, d],
+    positions).  Without ``positions``, token j sits at position j; an
+    M-RoPE model gets j in all three streams, as its decode steps do (the
+    reference's tokens-only prefill rotates the height and width sections
+    by a filled-in garbage position instead: ROADMAP queue 3)."""
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        text = embed_tokens(cfg, params, batch["tokens"])
+        h = torch.cat([batch["patch_embeds"].to(text.dtype), text], dim=1)
+        return h, batch["positions"]
     tokens = batch["tokens"]
     h = embed_tokens(cfg, params, tokens)
     if "positions" in batch:
         return h, batch["positions"]
-    return h, torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    start = torch.zeros(tokens.shape[0], dtype=torch.int32,
+                        device=tokens.device)
+    return h, _window_positions(cfg, start, tokens.shape[1])
 
 
 def lm_logits(cfg, params, h: torch.Tensor) -> torch.Tensor:
-    """Tied head: logits = rmsnorm(h) @ embed^T."""
-    h = L.rmsnorm(h, params["final_norm"]["w"], cfg.norm_eps)
+    """norm(h) @ lm_head, or @ embed^T for a tied head."""
+    h = L.norm(h, params["final_norm"]["w"], cfg.norm, cfg.norm_eps)
+    if "lm_head" in params:
+        return torch.matmul(h, params["lm_head"]["w"])
     return torch.matmul(h, params["embed"]["w"].t())
 
 
@@ -468,10 +536,14 @@ def lm_logits(cfg, params, h: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def prefill(cfg, params, batch: dict, cache: dict):
-    """Process the prompt, fill the cache, return last-position logits."""
+    """Process the prompt, fill the cache, return last-position logits.
+    Without ``prompt_lens``, every row is a whole prompt."""
     h, positions = embed_inputs(cfg, params, batch)
     h = backbone(cfg, params, h, positions, cache, "prefill")
-    prompt_lens = batch["prompt_lens"]
+    prompt_lens = batch.get("prompt_lens")
+    if prompt_lens is None:
+        prompt_lens = torch.full((h.shape[0],), h.shape[1],
+                                 dtype=torch.int32, device=h.device)
     cache["pos"] = prompt_lens.to(torch.int32)
     idx = torch.clamp(prompt_lens.long() - 1, 0, h.shape[1] - 1)
     h_last = h[torch.arange(h.shape[0], device=h.device), idx][:, None]
@@ -560,9 +632,8 @@ def chunk_logits(cfg, params, cache: dict, tokens: torch.Tensor,
     with chunk_lens == 0) and the cache."""
     b, t = tokens.shape
     pos = cache["pos"]
-    positions = pos[:, None] + torch.arange(t, device=pos.device)[None, :]
-    h, positions = embed_inputs(cfg, params, {"tokens": tokens,
-                                              "positions": positions})
+    h, positions = embed_inputs(cfg, params, {
+        "tokens": tokens, "positions": _window_positions(cfg, pos, t)})
     h = backbone(cfg, params, h, positions, cache, "decode",
                  write_lens=chunk_lens)
     idx = torch.clamp(chunk_lens.long() - 1, 0, t - 1)
@@ -597,9 +668,8 @@ def decode_step(cfg, params, cache: dict, tokens: torch.Tensor):
     """tokens [b, t] -> (logits [b, t, V], cache)."""
     b, t = tokens.shape
     pos = cache["pos"]
-    positions = pos[:, None] + torch.arange(t, device=pos.device)[None, :]
-    h, positions = embed_inputs(cfg, params, {"tokens": tokens,
-                                              "positions": positions})
+    h, positions = embed_inputs(cfg, params, {
+        "tokens": tokens, "positions": _window_positions(cfg, pos, t)})
     # the new SSM state goes to fresh tensors, as `pos` is replaced: the
     # state this step read stays as it was
     new = (S.SSMState(*map(torch.empty_like, cache["ssm"]))

@@ -20,7 +20,9 @@ Each iteration:
      accept-longest-prefix (`sampler.accept_speculative`) and the rewind
      of both caches' positions, all on the device.  The iteration's ONE
      host transfer fetches the tokens (with the accepted counts and the
-     eos flags when speculating);
+     eos flags when speculating); an MoE model's layers add one copy
+     each per forward (`models.moe`), counted in the iteration's
+     transfers and in `transfer_budget`;
   3. feeds the finish flags to `core.scheduler.PapiScheduler`, which
      compares AI ~= RLP * TLP with alpha and picks "pu" (matmul) or "pim"
      (`fc_gemv`) for the next iteration's FC projections (the draft's
@@ -46,6 +48,10 @@ equal the offline ``submit()`` + ``run()`` streams of the same requests.
 chunk waves and verify windows alike — through the Attn-PIM kernel.
 Admission runs under the ambient FC variant ("pu"), as in the reference.
 
+Every decoder family is served.  The pure attention ones (dense, MoE, the
+VLM backbone) take chunk waves, the paged layout and speculation.  An MoE
+model's scheduler reads its per-expert parallelism RLP·TLP·top_k/E
+(`core.ai.effective_parallelism`), so its FC variant follows that figure.
 The SSM (mamba2) and hybrid (zamba2) families carry per-slot SSM state
 that has no sequence dim to mask, so they take no chunk waves: a prompt
 longer than ``prefill_len`` is rejected honestly, as in the reference.
@@ -131,7 +137,7 @@ tracer times (wall clock on the CPU, a CUDA event pair on the card,
 resolved after the iteration's one fetch).  Under the default
 `NullTracer` `_call` is a bare call.  ``sanitize=True``
 (`debug.sanitize`) runs each step under PyTorch's sync-debug mode on the
-card and holds steady iterations to one host transfer.
+card and holds steady iterations to `transfer_budget` host transfers.
 
 Not ported yet: mesh execution, ``run(abort_in_flight=False)``, and
 speculation on the SSM and hybrid families (a state rewind).
@@ -155,6 +161,8 @@ from repro_torch.models import (attn_impl, current_fc_variant, decode_step,
                                 fc_variant, init_cache, init_paged_cache,
                                 mixed_step, prefill_chunk, prefill_to_pages,
                                 prefill_to_slots)
+from repro_torch.models import moe as M
+from repro_torch.models.model import KV_FAMILIES, host_copies_per_forward
 from repro_torch.serving.faults import (FAULT_NAN, FAULT_NONE,
                                         FaultInjector)
 from repro_torch.serving.journal import (SNAPSHOT_VERSION, Journal, recover,
@@ -317,6 +325,12 @@ class IterStats:
     decode_slots: int = 0    # slots that ran a decode step this iteration
 
 
+def check_decoder(cfg: ModelConfig) -> None:
+    """Refuse an encoder-only model: it has no decode step to serve."""
+    if not cfg.has_decode_step:
+        raise ValueError(f"{cfg.name} is encoder-only")
+
+
 class PapiEngine:
     """Serving engine on one device (``cuda`` unless ``device="cpu"``).
 
@@ -340,8 +354,7 @@ class PapiEngine:
                  sanitize: bool = False,
                  journal: Journal | str | None = None,
                  device: torch.device | str | None = None) -> None:
-        if not cfg.has_decode_step:
-            raise ValueError(f"{cfg.name} is encoder-only")
+        check_decoder(cfg)
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', not "
                              f"{kv_layout!r}")
@@ -368,7 +381,7 @@ class PapiEngine:
         # chunked prefill masks its KV writes per slot; SSM state has no
         # sequence dim to mask, so stateful families keep single-window
         # prefill and reject longer prompts honestly
-        self._can_chunk = cfg.family in ("dense", "moe", "vlm", "audio")
+        self._can_chunk = cfg.family in KV_FAMILIES
         # telemetry: NULL_TRACER's hooks are no-ops and `_call` is then a
         # bare call, so the untraced hot path is unchanged
         self.tracer = tracer if tracer is not None else NULL_TRACER
@@ -762,6 +775,16 @@ class PapiEngine:
     @property
     def _speculating(self) -> bool:
         return self.spec_len > 1 and self.draft_cfg is not None
+
+    @property
+    def transfer_budget(self) -> int:
+        """Device->host copies of a steady decode iteration: the one fetch,
+        and one per MoE layer of each forward (`models.moe`): the
+        target's, and the draft's spec_len when speculating."""
+        n = 1 + host_copies_per_forward(self.cfg)
+        if self._speculating:
+            n += self.spec_len * host_copies_per_forward(self.draft_cfg)
+        return n
 
     def _clamp_spec_window_dense(self, tlp: int) -> int:
         """Dense slab: admission kept ``prompt + budget + old window <=
@@ -1573,7 +1596,7 @@ class PapiEngine:
 
     def _step_impl(self) -> None:
         t0 = time.perf_counter()
-        transfers0 = self.host_transfers
+        transfers0, copies0 = self.host_transfers, M.host_copies()
         results0, preempted0 = len(self.results), self.preemptions
         self._degraded_this_step = False
         if self.tracer.enabled:
@@ -1607,6 +1630,7 @@ class PapiEngine:
         active = self.active_slots
         if not active:
             # still an iteration: counted, watched and checked
+            self.host_transfers += M.host_copies() - copies0
             self.scheduler.observe_counts(0, admitted)
             if self.tracer.enabled:
                 self._trace_scheduler()
@@ -1704,6 +1728,7 @@ class PapiEngine:
                        or len(self.results) > results0
                        or self.preemptions > preempted0)
         self._check_invariants()
+        self.host_transfers += M.host_copies() - copies0
         pool = {}
         if self.kv is not None:
             ps = self.kv.stats(sum(self._tokens_written(s)
@@ -1750,4 +1775,4 @@ class PapiEngine:
 
 __all__ = ["AllocatorInvariantError", "EngineCrashError", "EngineStallError",
            "IterStats", "PapiEngine", "ServeRequest", "ServeResult",
-           "TokenEvent"]
+           "TokenEvent", "check_decoder"]

@@ -82,10 +82,18 @@ def test_moe_config_and_reduced_twin_match_reference(name):
 
 @pytest.mark.parametrize("name", ["olmoe-1b-7b", "LLAMA_65B", "GPT3_66B"])
 def test_model_refuses_moe_and_paper_models(name):
-    """The port's model serves no MoE and no gelu/layernorm model yet."""
+    """The port's model refuses what it does not serve: a gelu MLP (GPT-3,
+    OPT).  MoE, layernorm and untied heads are served, so olmoe's and
+    LLaMA-65B's smoke twins build, the MoE leaves in place of the MLP's."""
     _, port = _cfgs(name)
-    with pytest.raises(NotImplementedError):
-        init_params(port.reduced(), torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(0)
+    if port.mlp == "gelu":
+        with pytest.raises(NotImplementedError, match="swiglu"):
+            init_params(port.reduced(), gen)
+        return
+    params = init_params(port.reduced(), gen)
+    assert ("moe" in params["layers"]) == (port.moe is not None)
+    assert ("mlp" in params["layers"]) == (port.moe is None)
 
 
 # --------------------------------------------------------------------- AI

@@ -126,6 +126,7 @@ def _stats(transfers, **kw):
 class _FakeEngine:
     fused = True
     device = torch.device("cpu")
+    transfer_budget = 1
 
     def __init__(self, stats):
         self.stats = stats
