@@ -35,7 +35,9 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      the kernel's precision) and the precision of each product; the
      speculative verify window's shapes ride along: fc_gemv at m = 32 (8
      slots x spec_len 4, checked and timed) and both attention kernels at
-     t = 4 (the main geometry and the split edges);
+     t = 4 (the main geometry and the split edges); zamba2-1.2b's verify
+     (phase 4o) too: fc_gemv at each shared-block group at m = 32 and
+     decode_attention at t = 4, nkv 32, g 1;
      serve()'s mixed wave rides along: fc_gemv at m = 256 and 512 (8 slots
      x a prefill window of 32 or 64) for each qwen2 group, checked and timed,
      and both attention kernels at t = 64 with lens past the 2048-token
@@ -66,8 +68,9 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      rejects completes on the paged engine, its chunk waves and decodes
      past position 2048 through the paged kernel;
      4d: full-width bf16 mamba2-1.3b (48 layers) serves 8 ragged prompts
-     in a 512-token window and rejects a 600-token one: ssd_scan launched
-     48 times per admission wave, no FC or attention kernel;
+     in a 512-token window (each row's SSM state stopped at its prompt's
+     end) and rejects a 600-token one: ssd_scan launched 48 times per
+     admission wave, no FC or attention kernel;
      4e: full-width bf16 zamba2-1.2b (38 layers, attn_pim) on the same
      requests: ssd_scan 38 per wave, fc_gemv (4 per shared-block
      application of each pim step) and decode_attention launched, both FC
@@ -147,6 +150,19 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      equal dense ones; prints tokens/s, the median
      steady iteration, the bf16 tokens under pim equal to pu's, the
      weights and the peak memory while serving;
+     4o: phase 4d's requests served speculatively (spec_len 4, the dense
+     slab) on full-width bf16 mamba2-1.3b and zamba2-1.2b (attn_pim), with
+     the perfect draft and a cut draft (the first 6 layers): every request
+     finishes, one transfer per speculative iteration, ssd_scan launched
+     once per layer of the target and the draft per admission wave; on
+     zamba2 fc_gemv 4 per application at m = 32 in each "pim" verify and
+     4 per draft application and step at m = 8, decode_attention once per
+     application at t = 4 and per draft application and step at t = 1;
+     prints accepted per window (and the partial accepts), tokens/s
+     against 4d's / 4e's TLP = 1 run, the bf16 tokens equal to it and the
+     peak memory; then one verify window (8 slots, t = 4) keeping the
+     per-token SSM states plus the rewind, against one keeping the last
+     state only: device busy and the memory allocated beyond the cache;
   5. trace five steady iterations per KV layout and FC variant with
      torch.profiler (device busy share, top kernels, FC-PIM's, Attn-PIM's
      and the finite-logits guard's device time and CUDA launches per
@@ -187,6 +203,11 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      command-r-plus-104b and deepseek-67b through run() and serve(),
      dense and paged (olmoe also spec_len 2 with the perfect draft): the
      streams equal the plain path's run() token for token;
+     6h: f32, full width, mamba2 2 layers and zamba2 7, the kernels on:
+     a prompt padded into the 512-token window gives the first-decode
+     logits of the prompt alone within 1e-3; the cut draft's spec_len 4
+     streams (a partial accept seen) equal the spec_len 1 streams, else
+     the first divergence and the margin there;
   7. print the `kernels` JSON line, the card line, and last the device JSON.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -230,7 +251,8 @@ from repro_torch.launch.serve import arrival_schedule  # noqa: E402
 from repro_torch.models import (attn_impl, decode_step, fc_variant,  # noqa: E402
                                 init_cache, init_paged_cache, init_params,
                                 mixed_step, prefill, prefill_to_pages,
-                                prefill_to_slots, ssd_impl)
+                                prefill_to_slots, rewind_ssm, ssd_impl,
+                                ssm_step_buffers)
 from repro_torch.debug import SanitizeError  # noqa: E402
 from repro_torch.serving import (EngineCrashError,  # noqa: E402
                                  EngineStallError, FaultInjector, Journal,
@@ -441,6 +463,21 @@ def phase_fc_gemv() -> dict:
                       f"fc_gemv_group {str(dtype)[6:]} m={m} K={K} N={ns}: "
                       f"{one} launch, bit-equal to single launches and to "
                       "a second run")
+        # zamba2's speculative verify under "pim" (phase 4o): each group of
+        # the shared block at m = 8 slots x spec_len 4
+        for K, ns in ZAMBA_FC_GROUPS:
+            x = torch.randn(32, K, generator=gen, device=DEV).to(dtype)
+            ws = [(torch.randn(K, n, generator=gen, device=DEV)
+                   / math.sqrt(K)).to(dtype) for n in ns]
+            ys = fc_mod.fc_gemv_group(x, ws)
+            torch.cuda.synchronize()
+            errs = [max_err(y, fc_mod.fc_gemv_ref(x, w))
+                    for y, w in zip(ys, ws)]
+            check(all(ok for _, ok, _ in errs)
+                  and all(y.shape == (32, n) for y, n in zip(ys, ns)),
+                  f"fc_gemv_group {str(dtype)[6:]} m=32 K={K} N={ns} (the "
+                  f"zamba2-1.2b verify window): max_abs_err "
+                  f"{max(e for e, _, _ in errs):.3e} (tol {errs[0][2]})")
         # serve()'s mixed wave under "pim": every projection at m =
         # max_slots x prefill_len (8 x 32 at the launcher's defaults, 8 x 64
         # at phase 4h's engine), m_rows(m) = 64 rows a pass over the weights
@@ -469,6 +506,8 @@ def phase_fc_gemv() -> dict:
     # the speculative verify window: 8 slots x spec_len 4
     _fc_group_times(gen, FC_GROUPS, "one qwen2-0.5b layer, verify window",
                     m=32)
+    _fc_group_times(gen, ZAMBA_FC_GROUPS, "one zamba2-1.2b shared-block "
+                    "application, verify window", m=32)
     for m in MIXED_MS:
         _fc_group_times(gen, FC_GROUPS, "one qwen2-0.5b layer, mixed wave",
                         m=m)
@@ -503,8 +542,8 @@ def _sdpa(q, k, v, mask):
 # (label, t, lens, KV geometry) of the dense attention kernel's main-path
 # calls: qwen2-0.5b's GQA decode (t=1), chunk waves (t=64) and speculative
 # verify windows (t=4) in 2048-token slots, and zamba2-1.2b's MHA shared
-# block (g=1, nkv=32) decoding in 1024-token slots, lens up to the longest
-# prompt plus its budget
+# block (g=1, nkv=32) decoding (t=1) and verifying (t=4, phase 4o) in
+# 1024-token slots, lens up to the longest prompt plus its budget
 ATTN_CASES = [
     ("qwen2-0.5b", 1, [1, 32, 33, 2048, 100, 513, 1000, 7],
      dict(nkv=2, g=7, S=2048)),
@@ -513,6 +552,8 @@ ATTN_CASES = [
     ("qwen2-0.5b", 4, [4, 5, 36, 2048, 100, 513, 1000, 7],
      dict(nkv=2, g=7, S=2048)),
     ("zamba2-1.2b", 1, [1, 12, 33, 512, 100, 300, 576, 64],
+     dict(nkv=32, g=1, S=1024)),
+    ("zamba2-1.2b", 4, [4, 15, 36, 515, 103, 303, 579, 67],
      dict(nkv=32, g=1, S=1024)),
 ]
 
@@ -1249,20 +1290,32 @@ SSM_PROMPT_LENS = [12, 512, 100, 37, 256, 480, 64, 300]
 SSM_ENGINE = dict(max_slots=8, cache_capacity=1024, prefill_len=512, alpha=4)
 
 
-def _serve_ssm(arch: str, params, attn_pim: bool) -> tuple[dict, dict]:
-    """Phases 4d / 4e: serve the SSM requests at full width, with every
-    kernel's launch count set to 0 just before `run()` and read just
-    after.  Returns (launches, {"waves": n, "tokens": n, "wall_s": s})."""
-    cfg = get_config(arch)
-    label = f"{arch} path"
-    eng = PapiEngine(cfg, params, attn_pim=attn_pim, device=DEV,
-                     **SSM_ENGINE)
+def _ssm_prompts(cfg) -> list:
+    """Phase 4d's 9 prompts: SSM_PROMPT_LENS and the 600-token one as
+    request 3, seed 8."""
     rng = np.random.default_rng(8)
     reqs = [rng.integers(3, cfg.vocab_size, size=n).tolist()
             for n in SSM_PROMPT_LENS]
     reqs.insert(3, rng.integers(3, cfg.vocab_size, size=600).tolist())
-    for i, prompt in enumerate(reqs):
+    return reqs
+
+
+def _submit_ssm(eng, cfg) -> None:
+    """Phase 4d's 9 requests, budgets 8 + 7 (i % 9)."""
+    for i, prompt in enumerate(_ssm_prompts(cfg)):
         eng.submit(ServeRequest(i, prompt, max_new_tokens=8 + 7 * (i % 9)))
+
+
+def _serve_ssm(arch: str, params, attn_pim: bool) -> tuple[dict, dict]:
+    """Phases 4d / 4e: serve the SSM requests at full width, with every
+    kernel's launch count set to 0 just before `run()` and read just
+    after.  Returns (launches, {"waves": n, "tokens": n, "wall_s": s,
+    "streams": {req_id: tokens}})."""
+    cfg = get_config(arch)
+    label = f"{arch} path"
+    eng = PapiEngine(cfg, params, attn_pim=attn_pim, device=DEV,
+                     **SSM_ENGINE)
+    _submit_ssm(eng, cfg)
     zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1315,19 +1368,199 @@ def _serve_ssm(arch: str, params, attn_pim: bool) -> tuple[dict, dict]:
           + ", ".join(f"median steady iteration under {v} "
                       f"{statistics.median(x):.2f} ms ({len(x)} its)"
                       for v, x in per.items() if x), flush=True)
-    return launches, {"waves": waves, "tokens": len(toks), "wall_s": wall}
+    return launches, {"waves": waves, "tokens": len(toks), "wall_s": wall,
+                      "streams": {r.req_id: r.tokens for r in results}}
 
 
-def phase_ssm_paths() -> tuple[dict, dict]:
+SSM_ARCHES = (("mamba2-1.3b", False), ("zamba2-1.2b", True))   # attn_pim
+
+
+def phase_ssm_paths() -> tuple[dict, dict, dict]:
     """Phases 4d (mamba2-1.3b) and 4e (zamba2-1.2b, attn_pim) at full
-    width, bf16, random weights from seed 0."""
-    launches, params_by_arch = {}, {}
-    for arch, attn_pim in (("mamba2-1.3b", False), ("zamba2-1.2b", True)):
+    width, bf16, random weights from seed 0.  Returns (launches, params,
+    run info) by arch."""
+    launches, params_by_arch, info = {}, {}, {}
+    for arch, attn_pim in SSM_ARCHES:
         params = init_params(get_config(arch),
                              torch.Generator(device=DEV).manual_seed(0))
-        launches[arch], _ = _serve_ssm(arch, params, attn_pim)
+        launches[arch], info[arch] = _serve_ssm(arch, params, attn_pim)
         params_by_arch[arch] = params
-    return launches, params_by_arch
+    return launches, params_by_arch, info
+
+
+def _cut(cfg, params, n: int):
+    """The model cut to its first n layers (a hybrid keeps its shared
+    block): the cut draft of phases 4o and 6h."""
+    def take(tree):
+        return {k: take(v) if isinstance(v, dict) else v[:n]
+                for k, v in tree.items()}
+    return dataclasses.replace(cfg, num_layers=n), dict(
+        params, layers=take(params["layers"]))
+
+
+def _record_accepts(eng) -> list:
+    """Keep each speculative window's accepted counts (device tensors, no
+    sync) beside the live slots, by wrapping the engine's rewind; read
+    them with `_accepts` after the run."""
+    seen, rewind = [], eng._rewind
+
+    def record(accepted, *rest):
+        seen.append((accepted.clone(), list(eng.active_slots)))
+        return rewind(accepted, *rest)
+    eng._rewind = record
+    return seen
+
+
+def _accepts(seen) -> list[int]:
+    """The accepted count of every live slot of every window."""
+    return [a for acc, live in seen
+            for s, a in enumerate(acc.tolist()) if s in live]
+
+
+# the cut drafts of phase 4o: the first shared-block segment of zamba2 (6
+# layers), as many of mamba2's 48
+SSM_CUT = 6
+
+
+def _serve_ssm_spec(cfg, params, draft, label, attn_pim, plain) -> dict:
+    """One speculative run of phase 4o (spec_len 4, the dense slab) on
+    phase 4d's requests, the launch counts set to 0 just before `run()`
+    and read just after."""
+    dcfg = draft[0]
+    eng = PapiEngine(cfg, params, attn_pim=attn_pim, spec_len=SPEC_LEN,
+                     draft=draft, device=DEV, **SSM_ENGINE)
+    _submit_ssm(eng, cfg)
+    seen = _record_accepts(eng)
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = eng.run(max_iterations=500)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counts()
+    by_m = dict(fc_mod.LAUNCHES_BY_M)
+    attn_by_t = dict(attn_mod.LAUNCHES_BY_ROWS)
+    waves = sum(1 for s in eng.stats if s.admitted > 0)
+
+    got = {r.req_id: r for r in results}
+    check_healthy(eng, label)
+    check(len(got) == 9 and got[3].finished_reason == "rejected"
+          and all(r.finished_reason in ("eos", "length")
+                  for i, r in got.items() if i != 3),
+          f"{label}: 8 requests finished, the 600-token one rejected "
+          f"({sorted(r.finished_reason for r in got.values())})")
+    streams = {i: r.tokens for i, r in got.items() if i != 3}
+    toks = sum(len(t) for t in streams.values())
+    steady = [s for s in eng.stats if s.admitted == 0]
+    check(bool(steady) and all(s.transfers == 1 for s in steady),
+          f"{label}: {len(steady)} speculative iterations without "
+          "admission, one host transfer each")
+    L, Ld = cfg.num_layers, dcfg.num_layers
+    check(waves >= 1 and launches["ssd_scan"] == (L + Ld) * waves,
+          f"{label}: ssd_scan launched {launches['ssd_scan']} times in "
+          f"{waves} admission wave(s): {L} for the target and {Ld} for the "
+          "draft per wave")
+    ran = _ran_variants(eng)
+    n_pim = ran.count("pim")
+    if cfg.family == "ssm":
+        check(launches["fc_gemv"] == launches["decode_attention"]
+              == launches["paged_decode_attention"] == 0,
+              f"{label}: no FC or attention kernel launched ({launches})")
+    else:
+        apps = cfg.num_attention_applications()
+        dapps = dcfg.num_attention_applications()
+        check(n_pim > 0 and by_m.get(8 * SPEC_LEN, 0) == 4 * apps * n_pim
+              and launches["fc_gemv"] == 4 * n_pim * (apps
+                                                      + SPEC_LEN * dapps),
+              f"{label}: fc_gemv launched {launches['fc_gemv']} times "
+              f"({by_m} by m) in {n_pim} pim iterations of {len(ran)}: 4 x "
+              f"{apps} applications at m = {8 * SPEC_LEN} (the verify) and "
+              f"4 x {dapps} x {SPEC_LEN} draft steps at m = 8")
+        check(attn_by_t.get(SPEC_LEN, 0) == apps * len(ran)
+              and attn_by_t.get(1, 0) == dapps * SPEC_LEN * len(ran)
+              and launches["paged_decode_attention"] == 0,
+              f"{label}: decode_attention calls by window t {attn_by_t}: "
+              f"{apps} at t = {SPEC_LEN} (the verify) and "
+              f"{dapps * SPEC_LEN} at t = 1 (the draft) per iteration, over "
+              f"{len(ran)} iterations")
+    acc = _accepts(seen)
+    same, total = _same_tokens(streams, plain["streams"])
+    tlp1 = plain["tokens"] / plain["wall_s"]
+    print(f"      {label} [{CARD}]: {toks} tokens in {eng.iteration} "
+          f"iterations ({n_pim} pim), {wall:.3f} s, {toks / wall:.1f} tok/s "
+          f"against {tlp1:.1f} at TLP = 1 ({toks / wall / tlp1:.2f}x); "
+          f"accepted per window {statistics.mean(acc):.3f} "
+          f"({sum(1 < a < SPEC_LEN for a in acc)} partial of {len(acc)}); "
+          f"{same} of {total} bf16 tokens equal the TLP = 1 run's; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB", flush=True)
+    return launches
+
+
+def _verify_cost(cfg, params) -> None:
+    """Phase 4o: one verify window (8 slots, t = spec_len) of the full
+    model with the per-token SSM states kept and a rewind to a partial
+    prefix, against the same window keeping only the last state: device
+    busy of one call (torch.profiler) and the memory it allocates beyond
+    the cache."""
+    cache = init_cache(cfg, 8, SSM_ENGINE["cache_capacity"], DEV)
+    window = torch.randint(3, cfg.vocab_size, (8, SPEC_LEN), device=DEV,
+                           dtype=torch.int32)
+    n = torch.tensor([1, 2, 3, 4, 4, 3, 2, 1], dtype=torch.int32, device=DEV)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def kept():
+        c = dict(cache)
+        steps = ssm_step_buffers(c, SPEC_LEN)
+        decode_step(cfg, params, c, window, steps)
+        rewind_ssm(c, steps, n)
+
+    def last_only():
+        decode_step(cfg, params, dict(cache), window)
+
+    out = []
+    for name, fn in (("per-token states + rewind", kept),
+                     ("last state only", last_only)):
+        fn()                                                  # warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        kern = _kernels(prof)
+        busy = (f"{sum(k[0] for k in kern) / 1e3:.3f} ms busy" if kern
+                else "device time not measured")
+        out.append(f"{name} {busy}, {extra / 2 ** 30:.2f} GiB allocated "
+                   "beyond the cache")
+    nbytes = sum(x.numel() * x.element_size() for x in cache["ssm"])
+    print(f"      verify window {cfg.name} [{CARD}] (8 slots, t = "
+          f"{SPEC_LEN}, {nbytes / 2 ** 30:.2f} GiB of SSM state): "
+          + "; ".join(out), flush=True)
+    del cache
+
+
+def phase_ssm_spec(params_by_arch, info) -> dict:
+    """Phase 4o: phase 4d's requests served speculatively (spec_len 4, the
+    dense slab) on full-width bf16 mamba2-1.3b and zamba2-1.2b (attn_pim),
+    with the perfect draft (the target) and a cut draft (its first 6
+    layers); then one verify window's cost.  Returns the launches summed
+    over the four runs."""
+    total = {}
+    for arch, attn_pim in SSM_ARCHES:
+        cfg, params = get_config(arch), params_by_arch[arch]
+        for name, draft in (("perfect draft", (cfg, params)),
+                            (f"cut draft ({SSM_CUT} layers)",
+                             _cut(cfg, params, SSM_CUT))):
+            ln = _serve_ssm_spec(cfg, params, draft, f"spec {arch} {name}",
+                                 attn_pim, info[arch])
+            for k, v in ln.items():
+                total[k] = total.get(k, 0) + v
+        _verify_cost(cfg, params)
+    return total
 
 
 def phase_wave_trace(params_by_arch) -> None:
@@ -1415,6 +1648,95 @@ def phase_ssm_parity() -> None:
                   f"vs plain max_abs_err {err:.3e} (tol 1e-3), greedy "
                   f"agreement {agree:.3f}")
         del params
+
+
+def _ssm_margin(cfg, params, seq: list) -> float:
+    """The top-1 minus top-2 logit after `seq` on the plain path: its
+    tokens as one decode window from a fresh cache (any length, where the
+    chunked scan wants one the chunk divides)."""
+    cache = init_cache(cfg, 1, len(seq) + 1, DEV)
+    with ssd_impl("plain"), fc_variant("pu"), attn_impl("xla"):
+        logits, _ = decode_step(cfg, params, cache, torch.tensor(
+            [seq], dtype=torch.int32, device=DEV))
+    top = torch.topk(logits[0, -1].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def phase_ssm_spec_parity() -> None:
+    """Phase 6h: f32, full width, mamba2 2 layers and zamba2 7 (one shared
+    application and a remainder layer), the kernels on (ssd_scan, pim FC
+    at alpha 99, Attn-PIM).  Phase 4d's prompts that the scan takes alone
+    (one chunk of at most 256 rows, or whole chunks), padded into the
+    512-token window:
+    the first decode step's logits equal those of each prompt prefilled in
+    a window of its own length within 1e-3.  Then the cut draft's spec_len
+    4 streams (a partial accept seen) equal the spec_len 1 streams, else
+    the first divergence and the plain path's margin there."""
+    rng = np.random.default_rng(11)
+    for arch, depth, cut in (("mamba2-1.3b", 2, 1), ("zamba2-1.2b", 7, 6)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=depth,
+                                  dtype="float32")
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(3))
+        P = SSM_ENGINE["prefill_len"]
+        attn_pim = cfg.family == "hybrid"
+        with fc_variant("pim"), attn_impl("pim" if attn_pim else "xla"):
+            errs = []
+            cs = cfg.ssm.chunk_size
+            for n in [n for n in SSM_PROMPT_LENS if n <= cs or n % cs == 0]:
+                prompt = rng.integers(3, cfg.vocab_size, size=n)
+                logits = []
+                for window in (P, n):
+                    toks = torch.zeros((1, window), dtype=torch.int32,
+                                       device=DEV)
+                    toks[0, :n] = torch.from_numpy(prompt).to(DEV)
+                    cache = init_cache(cfg, 1, 1024, DEV)
+                    first, cache = prefill_to_slots(
+                        cfg, params, {"tokens": toks, "prompt_lens":
+                                      torch.tensor([n], dtype=torch.int32,
+                                                   device=DEV)},
+                        cache, torch.zeros(1, dtype=torch.int32, device=DEV))
+                    out, _ = decode_step(cfg, params, cache, first[:, None])
+                    logits.append(out[0, 0])
+                errs.append((n, (logits[0] - logits[1]).abs().max().item()))
+        worst = max(e for _, e in errs)
+        check(worst <= 1e-3,
+              f"f32 {arch} {depth} layers: first-decode logits of a prompt "
+              f"padded into the {P}-token window against the prompt alone, "
+              "max_abs_err by prompt length "
+              + ", ".join(f"{n}: {e:.2e}" for n, e in errs) + " (tol 1e-3)")
+
+        draft = _cut(cfg, params, cut)
+        out, seen = {}, None
+        for k in (1, SPEC_LEN):
+            eng = PapiEngine(cfg, params, attn_pim=attn_pim, spec_len=k,
+                             draft=draft if k > 1 else None,
+                             eos_token=cfg.vocab_size, device=DEV,
+                             **{**SSM_ENGINE, "alpha": 99})
+            _submit_ssm(eng, cfg)
+            if k > 1:
+                seen = _record_accepts(eng)
+            out[k] = {r.req_id: r.tokens for r in eng.run(500)}
+            check_healthy(eng, f"f32 {arch} spec_len {k}")
+        acc = _accepts(seen)
+        partial = sum(1 < a < SPEC_LEN for a in acc)
+        same, total = _same_tokens(out[SPEC_LEN], out[1])
+        ok = out[SPEC_LEN] == out[1]
+        note = ""
+        if not ok:
+            prompts = _ssm_prompts(cfg)
+            i = next(i for i in out[1] if out[1][i] != out[SPEC_LEN].get(i))
+            a, b = out[1][i], out[SPEC_LEN].get(i, [])
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            note = (f"; first divergence: request {i} token {j}, margin "
+                    f"{_ssm_margin(cfg, params, prompts[i] + a[:j]):.3e}")
+        check(ok and partial > 0,
+              f"lossless f32 {arch} {depth} layers: spec_len {SPEC_LEN} "
+              f"(cut draft, {cut} layers; mean accepted "
+              f"{statistics.mean(acc):.3f}, {partial} partial accepts of "
+              f"{len(acc)}) streams equal the spec_len 1 streams ({same} of "
+              f"{total} tokens){note}")
+        del params, draft
 
 
 # ---------------------------------------------------------------------------
@@ -2775,12 +3097,7 @@ def phase_ssm_decode_trace(params_by_arch) -> None:
     tr = Tracer()
     eng = PapiEngine(cfg, params_by_arch[cfg.name], tracer=tr, device=DEV,
                      **SSM_ENGINE)
-    rng = np.random.default_rng(8)
-    reqs = [rng.integers(3, cfg.vocab_size, size=n).tolist()
-            for n in SSM_PROMPT_LENS]
-    reqs.insert(3, rng.integers(3, cfg.vocab_size, size=600).tolist())
-    for i, prompt in enumerate(reqs):
-        eng.submit(ServeRequest(i, prompt, max_new_tokens=8 + 7 * (i % 9)))
+    _submit_ssm(eng, cfg)
     results = eng.run(max_iterations=500)
     steady = [s for s in eng.stats if not s.admitted]
     check(len(results) == 9 and all(s.transfers == 1 for s in steady),
@@ -3254,12 +3571,14 @@ def main() -> int:
     timed(phase_serve_parity)
     timed(phase_failure_parity)
     timed(phase_durability_parity)
-    ssm_launches, ssm_params = timed(phase_ssm_paths)
+    ssm_launches, ssm_params, ssm_info = timed(phase_ssm_paths)
+    ssm_spec_launches = timed(phase_ssm_spec, ssm_params, ssm_info)
     timed(phase_ssm_decode_trace, ssm_params)
     timed(phase_wave_trace, ssm_params)
     timed(phase_ssm_state_cost, ssm_params)
     del ssm_params
     timed(phase_ssm_parity)
+    timed(phase_ssm_spec_parity)
     timed(phase_family_kernels)
     family_launches = timed(phase_family_paths)
     timed(phase_family_parity)
@@ -3276,6 +3595,8 @@ def main() -> int:
           f"2 runs): {json.dumps(traced_launches)}; "
           + "; ".join(f"{arch}: {json.dumps(ln)}"
                       for arch, ln in ssm_launches.items())
+          + f"; mamba2-1.3b and zamba2-1.2b speculative (phase 4o, 4 runs): "
+          f"{json.dumps(ssm_spec_launches)}"
           + f"; the other families (phase 4n, 21 runs): "
           f"{json.dumps(family_launches)}", flush=True)
     launches = {name: n + spec_launches[name] + serve_launches[name]
@@ -3283,6 +3604,7 @@ def main() -> int:
                 + durable_launches.get(name, 0)
                 + traced_launches.get(name, 0)
                 + sum(ln[name] for ln in ssm_launches.values())
+                + ssm_spec_launches[name]
                 + family_launches[name]
                 for name, n in launches.items()}
 

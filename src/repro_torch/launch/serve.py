@@ -5,6 +5,8 @@ trace with random weights made from ``--seed``.
         [--kv paged --page-size 16]
     python -m repro_torch.launch.serve --arch zamba2-1.2b --attn-pim
     python -m repro_torch.launch.serve --arch mamba2-1.3b
+    python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+        --spec-len 4 --draft-arch mamba2-1.3b
     python -m repro_torch.launch.serve --arch qwen2-0.5b --attn-pim \\
         --spec-len 4 --draft-arch qwen2-0.5b
     python -m repro_torch.launch.serve --arch olmoe-1b-7b --attn-pim
@@ -66,9 +68,10 @@ sanitizer (`debug.sanitize`: PyTorch's sync-debug mode on the card, one
 host transfer per steady iteration) and prints its report.
 
 The SSM (mamba2) and hybrid (zamba2) families reject prompts longer than
-``--prefill-len``, refuse ``--kv paged``, as the reference does, and
-refuse a draft with ``--spec-len`` above 1 (their SSM state has no
-rewind).
+``--prefill-len`` and refuse ``--kv paged``, as the reference does.  They
+speculate on the dense slab (``--spec-len k --draft-arch
+mamba2-1.3b|zamba2-1.2b``): a partial accept rewinds the SSM state to the
+accepted prefix, so the streams equal the TLP = 1 streams.
 
 Runs on the card (``--device cpu`` for the plain PyTorch path).  Prints
 the per-iteration scheduler decisions — RLP, TLP, the AI estimate and the

@@ -7,7 +7,8 @@ from repro_torch.models.model import (chunk_logits, decode_step, init_cache,
                                       init_paged_cache, init_params,
                                       mixed_step, model_spec, prefill,
                                       prefill_chunk, prefill_to_pages,
-                                      prefill_to_slots)
+                                      prefill_to_slots, rewind_ssm,
+                                      ssm_step_buffers)
 from repro_torch.models.ssm import current_ssd_impl, ssd_impl
 from repro_torch.models.weights import params_from_jax
 
@@ -16,4 +17,4 @@ __all__ = ["attn_impl", "chunk_logits", "current_attn_impl",
            "fc_variant", "init_cache", "init_paged_cache", "init_params",
            "mixed_step", "model_spec", "params_from_jax", "prefill",
            "prefill_chunk", "prefill_to_pages", "prefill_to_slots",
-           "ssd_impl"]
+           "rewind_ssm", "ssd_impl", "ssm_step_buffers"]

@@ -18,7 +18,11 @@ write into the cache tensors they are given, and every entry point returns
 the same cache dict with its ``pos`` replaced.  `decode_step` replaces
 ``ssm`` too: it writes the new state into fresh tensors, so a caller that
 kept the dict's old entries still holds the pre-step state (the serving
-engine's finite-logits guard puts them back).  A cache holding
+engine's finite-logits guard puts them back).  Given per-token buffers
+(`ssm_step_buffers`), it keeps the state after each token of its window,
+and `rewind_ssm` then selects each slot's state at an accepted prefix
+(the speculative rewind).  The prefill stops each row's SSM state at its
+``prompt_lens``, so a prompt's padding never reaches it.  A cache holding
 ``block_tables`` is paged: its K/V are page pools ``[L, num_pages,
 page_size, nkv, hd]`` and the decode path resolves each logical position
 through the slot's block table.
@@ -31,7 +35,8 @@ Entry points:
   prefill_to_slots(cfg, params, batch, cache, src) -> (first_tokens, cache)
   prefill_to_pages(cfg, params, batch, cache, src) -> (first_tokens, cache)
   chunk_logits / prefill_chunk(cfg, params, cache, tokens, chunk_lens)
-  decode_step(cfg, params, cache, tokens) -> (logits, cache)
+  decode_step(cfg, params, cache, tokens, ssm_steps=None) -> (logits, cache)
+  ssm_step_buffers(cache, t) / rewind_ssm(cache, steps, n) -> cache
 """
 from __future__ import annotations
 
@@ -417,12 +422,14 @@ def mlp_block(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
 
 def ssm_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
               state: S.SSMState | None, mode: str,
-              out: S.SSMState | None = None) -> torch.Tensor:
+              out: S.SSMState | None = None,
+              lens: torch.Tensor | None = None) -> torch.Tensor:
     """Pre-norm Mamba2 sub-block: the prefill writes the state (when
-    given) in place, the decode step reads it and writes `out`."""
+    given) in place, stopping each row at lens[b]; the decode step reads
+    it and writes `out`."""
     u = L.norm(h, p["norm"], cfg.norm, cfg.norm_eps)
     y, _ = S.mamba2_block(u, p["ssm"], cfg.ssm, cfg.d_model, state=state,
-                          decode=(mode == "decode"), out=out)
+                          decode=(mode == "decode"), out=out, lens=lens)
     return h + y
 
 
@@ -441,15 +448,17 @@ def _transformer_backbone(cfg, params, h, positions, cache, mode,
     return h
 
 
-def _ssm_layers(cfg, params, h, cache, mode, lo, hi, ssm_out=None):
+def _ssm_layers(cfg, params, h, cache, mode, lo, hi, ssm_out=None,
+                lens=None):
     state = cache["ssm"] if cache is not None else None
     for i in range(lo, hi):
         h = ssm_block(cfg, layer_params(params, i), h, layer_state(state, i),
-                      mode, out=layer_state(ssm_out, i))
+                      mode, out=layer_state(ssm_out, i), lens=lens)
     return h
 
 
-def _hybrid_backbone(cfg, params, h, positions, cache, mode, ssm_out=None):
+def _hybrid_backbone(cfg, params, h, positions, cache, mode, ssm_out=None,
+                     lens=None):
     """zamba2: segments of `period` Mamba2 blocks, the shared (weight-tied)
     attention+MLP block after each — `num_layers // period` applications,
     application `app` on KV slab `app` — then the remainder segment."""
@@ -459,29 +468,30 @@ def _hybrid_backbone(cfg, params, h, positions, cache, mode, ssm_out=None):
     lo = 0
     for app in range(cfg.num_attention_applications()):
         h = _ssm_layers(cfg, params, h, cache, mode, lo, lo + period,
-                        ssm_out)
+                        ssm_out, lens)
         kv = (cache["k"][app], cache["v"][app]) if cache is not None else None
         h = attention_block(cfg, shared, h, positions, kv, pos, mode)
         h = mlp_block(cfg, shared, h)
         lo += period
     return _ssm_layers(cfg, params, h, cache, mode, lo, cfg.num_layers,
-                       ssm_out)
+                       ssm_out, lens)
 
 
 def backbone(cfg, params, h, positions, cache, mode, write_lens=None,
-             ssm_out=None):
-    """The family dispatch; `ssm_out` takes a decode step's new SSM state.
-    SSM state has no sequence dim to mask, so the stateful families take no
-    chunked-prefill writes."""
+             ssm_out=None, lens=None):
+    """The family dispatch; `ssm_out` takes a decode step's new SSM state,
+    and `lens` [b] stops a prefill's SSM state at each row's prompt end.
+    The stateful families take no chunked-prefill writes, as in the
+    reference (the `lens` mechanism could carry them later)."""
     if cfg.family in ("ssm", "hybrid") and write_lens is not None:
         raise ValueError(f"{cfg.family}: chunked prefill needs maskable KV "
                          "writes")
     if cfg.family == "ssm":
         return _ssm_layers(cfg, params, h, cache, mode, 0, cfg.num_layers,
-                           ssm_out)
+                           ssm_out, lens)
     if cfg.family == "hybrid":
         return _hybrid_backbone(cfg, params, h, positions, cache, mode,
-                                ssm_out)
+                                ssm_out, lens)
     return _transformer_backbone(cfg, params, h, positions, cache, mode,
                                  write_lens=write_lens)
 
@@ -537,10 +547,12 @@ def lm_logits(cfg, params, h: torch.Tensor) -> torch.Tensor:
 
 def prefill(cfg, params, batch: dict, cache: dict):
     """Process the prompt, fill the cache, return last-position logits.
-    Without ``prompt_lens``, every row is a whole prompt."""
+    Without ``prompt_lens``, every row is a whole prompt; with it, the SSM
+    state stops at each row's prompt end."""
     h, positions = embed_inputs(cfg, params, batch)
-    h = backbone(cfg, params, h, positions, cache, "prefill")
     prompt_lens = batch.get("prompt_lens")
+    h = backbone(cfg, params, h, positions, cache, "prefill",
+                 lens=prompt_lens)
     if prompt_lens is None:
         prompt_lens = torch.full((h.shape[0],), h.shape[1],
                                  dtype=torch.int32, device=h.device)
@@ -557,8 +569,9 @@ def prefill_to_slots(cfg, params, batch: dict, cache: dict,
     batch row admitted into slot s, or -1 to leave slot s untouched.  The
     temporary cache is sized to the prefill window, and only its first
     p_len KV positions are merged, so padded prompt rows never reach a
-    live slot's KV; an admitted slot's SSM state is replaced whole (it has
-    taken in the padding too, as in the reference).
+    live slot's KV; an admitted slot's SSM state is replaced whole by its
+    prompt's own (`prefill` stops it at the prompt's end; the reference's
+    takes in the padding).
     Returns (first_tokens [slots] int32, cache); -1 for untouched slots."""
     n, p_len = batch["tokens"].shape
     if "k" in cache:
@@ -664,19 +677,46 @@ def prefill_chunk(cfg, params, cache, tokens, chunk_lens):
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
-def decode_step(cfg, params, cache: dict, tokens: torch.Tensor):
-    """tokens [b, t] -> (logits [b, t, V], cache)."""
+def decode_step(cfg, params, cache: dict, tokens: torch.Tensor,
+                ssm_steps: S.SSMState | None = None):
+    """tokens [b, t] -> (logits [b, t, V], cache).  `ssm_steps`
+    (`ssm_step_buffers(cache, t)`) takes the SSM state after each of the t
+    tokens; ``cache["ssm"]`` is then its last token's."""
     b, t = tokens.shape
     pos = cache["pos"]
     h, positions = embed_inputs(cfg, params, {
         "tokens": tokens, "positions": _window_positions(cfg, pos, t)})
     # the new SSM state goes to fresh tensors, as `pos` is replaced: the
     # state this step read stays as it was
-    new = (S.SSMState(*map(torch.empty_like, cache["ssm"]))
-           if "ssm" in cache else None)
+    new = ssm_steps
+    if new is None and "ssm" in cache:
+        new = S.SSMState(*map(torch.empty_like, cache["ssm"]))
     h = backbone(cfg, params, h, positions, cache, "decode", ssm_out=new)
     logits = lm_logits(cfg, params, h)
     cache["pos"] = pos + t
-    if new is not None:
+    if ssm_steps is not None:
+        cache["ssm"] = S.SSMState(*(x[:, -1] for x in ssm_steps))
+    elif new is not None:
         cache["ssm"] = new
     return logits, cache
+
+
+def ssm_step_buffers(cache: dict, t: int) -> S.SSMState | None:
+    """Per-token SSM state buffers for a t-token decode window: each
+    tensor of ``cache["ssm"]`` with a [t] axis after the layer axis ([L,
+    t, b, ...]); None for a cache without SSM state."""
+    if "ssm" not in cache:
+        return None
+    return S.SSMState(*(x.new_empty((x.shape[0], t) + x.shape[1:])
+                        for x in cache["ssm"]))
+
+
+def rewind_ssm(cache: dict, steps: S.SSMState | None, n: torch.Tensor):
+    """Select each slot's SSM state after n[s] >= 1 tokens of the window
+    `steps` recorded (`decode_step`'s ``ssm_steps``) into fresh tensors,
+    on the device; the caller rewinds ``pos`` itself.  No-op for None."""
+    if steps is not None:
+        idx = n.long() - 1
+        slots = torch.arange(idx.shape[0], device=idx.device)
+        cache["ssm"] = S.SSMState(*(x[:, idx, slots] for x in steps))
+    return cache

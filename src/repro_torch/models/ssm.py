@@ -17,6 +17,14 @@ written.  The decode step reads ``state`` and writes the new one into
 place), so that a caller can keep the pre-step state of a decode step
 until its logits are known to be finite.
 
+A prefill given ``lens`` stops each row's state at its prompt's end: dt
+is zero past it, so the decay there is e^0 = 1 and the update 0, and the
+conv history is the K-1 inputs that end at the prompt's last token.  The
+window's padding then never reaches the state (the reference's does).  A
+decode step whose ``out`` has a leading [t] axis writes the state after
+each of the window's t tokens, so that a speculative verify can be
+rewound to any accepted prefix.
+
 `ssd_impl("plain")` sends `_ssd_chunked` to the plain version even for
 tensors on the card, so that the kernel path can be held against it.
 """
@@ -72,10 +80,14 @@ def init_state(batch: int, d_model: int, s: SSMConfig, dtype: torch.dtype,
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 state: torch.Tensor | None):
+                 state: torch.Tensor | None,
+                 lens: torch.Tensor | None = None, steps: bool = False):
     """Depthwise causal conv1d.  x: [b, l, c]; w: [K, c].  Returns
-    (y [b, l, c], new_state [b, K-1, c]): the last K-1 inputs, history
-    included (`state`, zeros when None)."""
+    (y [b, l, c], new_state [b, K-1, c]): the K-1 inputs that end at row
+    lens[b] - 1 of the window (its last row when `lens` is None), history
+    included (`state`, zeros when None), so that a row shorter than K-1
+    keeps the tail of its history.  With `steps`, new_state is the
+    history after each of the l rows, [l, b, K-1, c]."""
     k = w.shape[0]
     if state is None:
         hist = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
@@ -84,7 +96,13 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
         hist = state.to(x.dtype)
     xp = torch.cat([hist, x], dim=1)                   # [b, l+K-1, c]
     y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(k))
-    return y, xp[:, -(k - 1):, :]
+    if steps:
+        # the window starting at row j of xp is the history after j rows
+        return y, xp.unfold(1, k - 1, 1)[:, 1:].permute(1, 0, 3, 2)
+    if lens is None:
+        return y, xp[:, -(k - 1):, :]
+    rows = lens.long()[:, None] + torch.arange(k - 1, device=x.device)
+    return y, torch.gather(xp, 1, rows[..., None].expand(-1, -1, xp.shape[2]))
 
 
 def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -105,29 +123,36 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 def _ssd_recurrent(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor, state: torch.Tensor,
-                   out: torch.Tensor):
+                   out: torch.Tensor, steps: bool = False):
     """The recurrent step over t (small) tokens: x [b, t, nh, hp], dt
     [b, t, nh] f32, state [b, nh, hp, n] f32, read, and the new state
-    written to `out`.  Returns (y [b, t, nh, hp] in x's dtype, out)."""
+    written to `out`; with `steps`, out is [t, b, nh, hp, n] and out[i]
+    takes the state after token i.  Returns (y [b, t, nh, hp] in x's
+    dtype, out)."""
     ys, src = [], state
     for i in range(x.shape[1]):
+        dst = out[i] if steps else out
         dtt = dt[:, i].float()                                 # [b, nh]
         g = torch.exp(dtt * A[None, :])
         upd = torch.einsum("bh,bhp,bn->bhpn", dtt, x[:, i].float(),
                            B[:, i].float())
-        torch.mul(src, g[..., None, None], out=out).add_(upd)
-        src = out
-        ys.append(torch.einsum("bhpn,bn->bhp", out, C[:, i].float()))
+        torch.mul(src, g[..., None, None], out=dst).add_(upd)
+        src = dst
+        ys.append(torch.einsum("bhpn,bn->bhp", dst, C[:, i].float()))
     return torch.stack(ys, dim=1).to(x.dtype), out
 
 
 def mamba2_block(u: torch.Tensor, p: dict, s: SSMConfig, d_model: int,
                  state: SSMState | None = None, decode: bool = False,
-                 out: SSMState | None = None):
+                 out: SSMState | None = None,
+                 lens: torch.Tensor | None = None):
     """Full Mamba2 block on the normed input u [b, l, d].  Returns
     (out [b, l, d], new_state): the prefill's is `state` itself, updated
     in place, when one was given; the decode step (which needs both)
-    reads `state` and returns `out`, holding the new state."""
+    reads `state` and returns `out`, holding the new state — or, when
+    `out`'s tensors have a leading [l] axis, the state after each token.
+    `lens` [b] (prefill only): the valid rows of each window; the state
+    stops at them, and the output rows past them are garbage."""
     b, l, _ = u.shape
     di, nh, hp = s.d_inner(d_model), s.n_heads(d_model), s.head_dim
 
@@ -138,20 +163,29 @@ def mamba2_block(u: torch.Tensor, p: dict, s: SSMConfig, d_model: int,
     dt = torch.matmul(u, p["w_dt"])
 
     has = state is not None
-    cx, new_cx = _causal_conv(x, p["conv_x"], state.conv_x if has else None)
-    cB, new_cB = _causal_conv(Bp, p["conv_B"], state.conv_B if has else None)
-    cC, new_cC = _causal_conv(Cp, p["conv_C"], state.conv_C if has else None)
+    steps = decode and out is not None and out.ssm.dim() == 5
+    hist = state[:3] if has else (None,) * 3
+    cx, new_cx = _causal_conv(x, p["conv_x"], hist[0], lens, steps)
+    cB, new_cB = _causal_conv(Bp, p["conv_B"], hist[1], lens, steps)
+    cC, new_cC = _causal_conv(Cp, p["conv_C"], hist[2], lens, steps)
     cx = F.silu(cx.float()).to(u.dtype)
     cB = F.silu(cB.float()).to(u.dtype)
     cC = F.silu(cC.float()).to(u.dtype)
 
     xh = cx.reshape(b, l, nh, hp)
     dtf = F.softplus(dt.float() + p["dt_bias"].float())
+    if lens is not None:
+        # dt = 0 past the prompt: no decay (e^0) and no update there, so
+        # the state is the prompt's own (softplus itself is never 0)
+        valid = (torch.arange(l, device=u.device)[None, :]
+                 < lens.long()[:, None])
+        dtf = torch.where(valid[..., None], dtf, torch.zeros_like(dtf))
     A = -torch.exp(p["A_log"].float())
 
     if decode:
         assert has and out is not None, "the decode step needs both states"
-        y, new_ssm = _ssd_recurrent(xh, dtf, A, cB, cC, state.ssm, out.ssm)
+        y, new_ssm = _ssd_recurrent(xh, dtf, A, cB, cC, state.ssm, out.ssm,
+                                    steps=steps)
     else:
         y, new_ssm = _ssd_chunked(xh, dtf, A, cB, cC, s.chunk_size,
                                   state.ssm if has else None)

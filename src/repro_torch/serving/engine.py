@@ -18,9 +18,10 @@ Each iteration:
      iteration — k draft steps at t = 1, one target `decode_step` over the
      window ``[last, proposals[:-1]]`` at t = k (the verify), the
      accept-longest-prefix (`sampler.accept_speculative`) and the rewind
-     of both caches' positions, all on the device.  The iteration's ONE
-     host transfer fetches the tokens (with the accepted counts and the
-     eos flags when speculating); an MoE model's layers add one copy
+     of both caches to the accepted prefix (positions, and the SSM state
+     the window's steps kept per token), all on the device.  The
+     iteration's ONE host transfer fetches the tokens (with the accepted
+     counts and the eos flags when speculating); an MoE model's layers add one copy
      each per forward (`models.moe`), counted in the iteration's
      transfers and in `transfer_budget`;
   3. feeds the finish flags to `core.scheduler.PapiScheduler`, which
@@ -56,11 +57,14 @@ The SSM (mamba2) and hybrid (zamba2) families carry per-slot SSM state
 that has no sequence dim to mask, so they take no chunk waves: a prompt
 longer than ``prefill_len`` is rejected honestly, as in the reference.
 Every admission wave's prefill runs each SSM layer's chunked scan through
-the `ssd_scan` kernel.  They take no speculation either: a verify window
-advances each layer's SSM state by k tokens, and a partial accept rewinds
-only the KV position, so the reference's speculative streams on these
-families leave its TLP = 1 streams.  The engine refuses ``spec_len > 1``
-with a draft there instead.
+the `ssd_scan` kernel, with each row's state stopped at its prompt's end
+(the reference's takes in the window's padding).  They speculate on the
+dense slab: the verify keeps each layer's SSM state and conv history
+after every token of its window, the draft keeps its k steps' states, and
+a partial accept selects both at the accepted prefix (`models.rewind_ssm`)
+beside the position rewind.  The reference rewinds only the position, so
+its speculative streams on these families leave its TLP = 1 streams; the
+port's equal them.
 
 ``kv_layout="paged"`` holds the KV cache in a pool of ``page_size``-token
 pages (one Attn-PIM bank row each; `serving.kv_pages`), by default the
@@ -139,8 +143,7 @@ resolved after the iteration's one fetch).  Under the default
 (`debug.sanitize`) runs each step under PyTorch's sync-debug mode on the
 card and holds steady iterations to `transfer_budget` host transfers.
 
-Not ported yet: mesh execution, ``run(abort_in_flight=False)``, and
-speculation on the SSM and hybrid families (a state rewind).
+Not ported yet: mesh execution and ``run(abort_in_flight=False)``.
 """
 from __future__ import annotations
 
@@ -160,7 +163,8 @@ from repro_torch.debug.sanitize import EngineSanitizer
 from repro_torch.models import (attn_impl, current_fc_variant, decode_step,
                                 fc_variant, init_cache, init_paged_cache,
                                 mixed_step, prefill_chunk, prefill_to_pages,
-                                prefill_to_slots)
+                                prefill_to_slots, rewind_ssm,
+                                ssm_step_buffers)
 from repro_torch.models import moe as M
 from repro_torch.models.model import KV_FAMILIES, host_copies_per_forward
 from repro_torch.serving.faults import (FAULT_NAN, FAULT_NONE,
@@ -288,6 +292,13 @@ def _plain_step(cfg, params, cache, last, code):
     return greedy(logits[:, -1]), _nonfinite(logits), cache
 
 
+def _step_slice(steps, j: int):
+    """Step j's [L, 1, b, ...] slice of per-token SSM state buffers, for
+    one of the draft's t = 1 steps (None without SSM state)."""
+    return None if steps is None else type(steps)(*(x[:, j:j + 1]
+                                                     for x in steps))
+
+
 def _guarded_wave(cfg, params, cache, toks, lens, pin_mask, pin_pos, code):
     """The mixed wave program: `mixed_step`, the logits fault, greedy
     tokens and the guard's flag."""
@@ -370,7 +381,6 @@ class PapiEngine:
                              f"{cfg.vocab_size}: their tokens must agree")
         self.cfg, self.params = cfg, params
         self.draft_cfg, self.draft_params = draft if draft else (None, None)
-        self._check_speculation(spec_len)
         self.spec_len = spec_len
         self.fused = fused
         self.max_slots = max_slots
@@ -380,8 +390,10 @@ class PapiEngine:
         self.attn_pim = attn_pim
         # chunked prefill masks its KV writes per slot; SSM state has no
         # sequence dim to mask, so stateful families keep single-window
-        # prefill and reject longer prompts honestly
-        self._can_chunk = cfg.family in KV_FAMILIES
+        # prefill and reject longer prompts honestly — as target or draft,
+        # since the draft's cache is prefilled in the same waves
+        self._can_chunk = all(c.family in KV_FAMILIES
+                              for c in (cfg, self.draft_cfg) if c is not None)
         # telemetry: NULL_TRACER's hooks are no-ops and `_call` is then a
         # bare call, so the untraced hot path is unchanged
         self.tracer = tracer if tracer is not None else NULL_TRACER
@@ -502,7 +514,6 @@ class PapiEngine:
         live slot's headroom (a write past the capacity would clamp down
         onto live KV).  Narrower is always affordable; on a clamp the
         scheduler gets a smaller TLP than was asked for."""
-        self._check_speculation(tlp)
         if tlp != self.spec_len:
             tlp = (self._rebudget_spec_window(tlp) if self.kv is not None
                    else self._clamp_spec_window_dense(tlp))
@@ -758,20 +769,6 @@ class PapiEngine:
         return summary
 
     # ------------------------------------------------------------- internals
-    def _check_speculation(self, tlp: int) -> None:
-        """Refuse speculation where a partial accept cannot rewind: the SSM
-        state of the SSM and hybrid families has no position to rewind."""
-        if tlp > 1 and self.draft_cfg is not None:
-            ssm = [c.name for c in (self.cfg, self.draft_cfg)
-                   if c.family in ("ssm", "hybrid")]
-            if ssm:
-                raise ValueError(
-                    f"speculative decoding (spec_len={tlp}) on {ssm}: a "
-                    "verify window advances the SSM state by spec_len "
-                    "tokens and a partial accept would leave it unrewound "
-                    "(only the KV position rewinds), so the streams would "
-                    "not be lossless")
-
     @property
     def _speculating(self) -> bool:
         return self.spec_len > 1 and self.draft_cfg is not None
@@ -1493,12 +1490,17 @@ class PapiEngine:
                 return self._speculative_iteration_fused()
             return self._speculative_iteration_host()
 
-    def _rewind(self, accepted: torch.Tensor) -> None:
+    def _rewind(self, accepted: torch.Tensor, steps, draft_steps) -> None:
         """The target advanced k for every slot: rewind it to the accepted
-        prefix, and the draft (k steps ahead) to the target."""
+        prefix, and the draft (k steps ahead) to the target.  The SSM state
+        (`steps`, `draft_steps`: the per-token states the window's steps
+        kept, or None) is each slot's after `accepted` tokens of the
+        window, in both: the draft consumed exactly the window's tokens."""
         self.cache["pos"] = self.cache["pos"] - (self.spec_len - accepted)
         self.draft_cache["pos"] = torch.minimum(self.draft_cache["pos"],
                                                 self.cache["pos"])
+        rewind_ssm(self.cache, steps, accepted)
+        rewind_ssm(self.draft_cache, draft_steps, accepted)
 
     def _speculative_iteration_fused(self) -> tuple[np.ndarray, np.ndarray]:
         """Draft, verify, accept and rewind on the device; the host fetches
@@ -1522,21 +1524,24 @@ class PapiEngine:
         # 1) the draft proposes autoregressively, k steps at t = 1: the
         # extra step writes the KV of the window's last token, so a full
         # accept leaves the two caches in step
+        draft_steps = ssm_step_buffers(self.draft_cache, k)
         tok, props = last, []
-        for _ in range(k):
+        for j in range(k):
             logits, self.draft_cache = decode_step(
                 self.draft_cfg, self.draft_params, self.draft_cache,
-                tok[:, None])
+                tok[:, None], _step_slice(draft_steps, j))
             tok = greedy(logits[:, -1])
             props.append(tok)
         window = torch.stack([last] + props[:-1], dim=1)          # [slots, k]
-        # 2) the target verifies the window in one decode step (TLP = k)
+        # 2) the target verifies the window in one decode step (TLP = k),
+        # keeping its SSM state after each token
+        steps = ssm_step_buffers(self.cache, k)
         logits, self.cache = decode_step(self.cfg, self.params, self.cache,
-                                         window)
+                                         window, steps)
         logits = _inject_fault(logits, code)
         # 3) accept the longest matching prefix, rewind both caches
         out, accepted = accept_speculative(window, greedy(logits))
-        self._rewind(accepted)
+        self._rewind(accepted, steps, draft_steps)
         in_window = (torch.arange(k, device=self.device)[None, :]
                      < accepted[:, None])
         finished_eos = ((out == self.eos_token) & in_window).any(dim=1)
@@ -1549,17 +1554,20 @@ class PapiEngine:
         k = self.spec_len
         proposals = [self.slot_last.copy()]
         last = self._to_device(self.slot_last)[:, None]
-        for _ in range(k):
+        draft_steps = ssm_step_buffers(self.draft_cache, k)
+        for j in range(k):
             logits, self.draft_cache = self._call(
                 self._decode_key("draft", 1), decode_step, self.draft_cfg,
-                self.draft_params, self.draft_cache, last)
+                self.draft_params, self.draft_cache, last,
+                _step_slice(draft_steps, j))
             nxt = greedy(logits[:, -1])
             proposals.append(np.asarray(self._fetch(nxt)))
             last = nxt[:, None]
         window = np.stack(proposals[:k], axis=1)                  # [slots, k]
+        steps = ssm_step_buffers(self.cache, k)
         logits, self.cache = self._call(
             self._decode_key("verify", k), decode_step, self.cfg, self.params,
-            self.cache, self._to_device(window))
+            self.cache, self._to_device(window), steps)
         target = np.asarray(self._fetch(greedy(logits)))          # [slots, k]
         accepted = np.zeros(self.max_slots, np.int64)
         out = np.zeros((self.max_slots, k), np.int32)
@@ -1569,7 +1577,8 @@ class PapiEngine:
                 n += 1
             accepted[s] = n + 1                        # +1: the free token
             out[s, :n + 1] = target[s, :n + 1]
-        self._rewind(self._to_device(accepted.astype(np.int32)))
+        self._rewind(self._to_device(accepted.astype(np.int32)), steps,
+                     draft_steps)
         return out, accepted.astype(np.float64)
 
     def step(self) -> None:

@@ -31,7 +31,9 @@ admissions:
   trips on, included);
 * mamba2 (the SSM family, whose decode step writes its new state to
   fresh tensors): a stream with injected faults equals the fault-free
-  stream and the reference's.
+  stream and the reference run on each prompt alone (the reference
+  engine's prefill takes in the window's padding, ROADMAP queue 3; its
+  reasons and per-iteration counters must still be equal).
 """
 import numpy as np
 import pytest
@@ -52,6 +54,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.serving import (AllocatorInvariantError,  # noqa: E402
                                  EngineCrashError, EngineStallError,
                                  FaultInjector, PapiEngine, ServeRequest)
+from _ssm_oracle import greedy_streams  # noqa: E402
 
 ENGINE = dict(max_slots=4, cache_capacity=64, prefill_len=8, alpha=6.0,
               debug_invariants=True)
@@ -610,7 +613,8 @@ def test_ssm_guard_restores_the_state(mamba, kind):
     """mamba2 advances every layer's SSM state in a decode step; the
     port's poisoned step wrote the spare buffer, so the re-run starts from
     the pre-step state and the stream equals the fault-free one (and the
-    reference's, which drops the step's functional state)."""
+    reference's on each prompt alone; the reference engine drops the
+    step's functional state, and its schedule is the port's)."""
     (jcfg, jp), (cfg, tp) = mamba
     reqs = [([3, 5, 7], 10), ([4, 5], 10), ([9, 8, 7, 6], 10)]
     kw = dict(ENGINE, eos_token=cfg.vocab_size - 1)
@@ -624,8 +628,18 @@ def test_ssm_guard_restores_the_state(mamba, kind):
                                             FaultInjector(**faults))
         ref = JaxEngine(jcfg, jp, **jkw)
         eng = PapiEngine(cfg, tp, device="cpu", **tkw)
-        out[name] = _run_both(ref, eng, reqs)
+        _submit(ref, reqs, JaxRequest)
+        _submit(eng, reqs, ServeRequest)
+        want = _results(ref.run(max_iterations=500))
+        out[name] = _results(eng.run(max_iterations=500))
+        assert {i: (len(t), r, p) for i, (t, r, p) in out[name].items()} == {
+            i: (len(t), r, p) for i, (t, r, p) in want.items()}
+        assert _per_iteration(eng) == _per_iteration(ref)
         out[name + "_eng"] = eng
+    alone = greedy_streams(jcfg, jp, [(i, p, n) for i, (p, n) in
+                                      enumerate(reqs)],
+                           kw["eos_token"], kw["cache_capacity"])
+    assert {i: (t, r) for i, (t, r, _) in out["clean"].items()} == alone
     assert out["noisy"] == out["clean"]
     eng = out["noisy_eng"]
     # the pre-step state the engine keeps is never written by the step

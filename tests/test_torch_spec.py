@@ -14,8 +14,9 @@
   every window, ``fused=True`` equals the host loop with one transfer per
   fused iteration, and `set_spec_len` clamps or re-budgets (mirroring
   tests/test_serving.py and tests/test_serving_paged.py).
-* Refusals: a draft on mamba2 or zamba2 at spec_len > 1, and a draft with
-  another vocabulary.
+* The refusal of a draft with another vocabulary.  Speculation on the SSM
+  families serves since the port rewinds their state: its tests are in
+  tests/test_torch_ssm_spec.py.
 * A strict xfail that records a fault of the reference: its speculative
   streams on mamba2 leave its TLP = 1 streams (a partial accept rewinds
   the KV position, not the SSM state).
@@ -412,30 +413,6 @@ def test_set_spec_len_flips_the_scheduler(models):
 
 
 # --------------------------------------------------------------- refusals
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b"])
-def test_draft_on_ssm_families_is_refused(arch):
-    cfg = get_config(arch + "-smoke")
-    params = init_params(cfg, torch.Generator().manual_seed(0))
-    draft = (cfg, init_params(cfg, torch.Generator().manual_seed(9)))
-    with pytest.raises(ValueError, match="SSM state"):
-        PapiEngine(cfg, params, spec_len=3, draft=draft, device="cpu",
-                   **ENGINE)
-    eng = PapiEngine(cfg, params, spec_len=1, draft=draft, device="cpu",
-                     **ENGINE)                  # TLP 1: nothing to rewind
-    with pytest.raises(ValueError, match="SSM state"):
-        eng.set_spec_len(2)
-    assert eng.spec_len == 1
-
-
-def test_ssm_draft_for_a_dense_target_is_refused(models):
-    cfg, params = models["target"][1]
-    scfg = get_config("mamba2-1.3b-smoke")
-    sp = init_params(scfg, torch.Generator().manual_seed(9))
-    with pytest.raises(ValueError, match="SSM state"):
-        PapiEngine(cfg, params, spec_len=2, draft=(scfg, sp), device="cpu",
-                   **ENGINE)
-
-
 def test_draft_with_another_vocabulary_is_refused(models):
     cfg, params = models["target"][1]
     dcfg = dataclasses.replace(cfg, vocab_size=cfg.vocab_size + 1)

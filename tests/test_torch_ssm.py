@@ -7,7 +7,10 @@ the Pallas `ssd_scan` in interpret mode, the sequential oracle
 state, with and without an initial state) at the shapes of
 tests/test_kernels.py, 1e-4 in f32.  The Mamba2 pieces (`_causal_conv`,
 `_ssd_recurrent`, `mamba2_block`) and whole prefill + decode runs of the
-mamba2-1.3b and zamba2-1.2b smoke twins (f32) are held to 1e-4 too.  The
+mamba2-1.3b and zamba2-1.2b smoke twins (f32) are held to 1e-4 too.  A
+ragged batch's oracle is the reference run on each prompt alone
+(`_ssm_oracle.prompt_alone`): the port's prefill stops each row's SSM
+state at its prompt's end, the reference's takes in the padding.  The
 CUDA kernel's own cases are in tests/test_torch_kernels.py (``gpu``).
 """
 import dataclasses
@@ -30,6 +33,7 @@ from repro_torch import models as tm  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
+from _ssm_oracle import prompt_alone, stack_rows  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 ARCHES = ("mamba2-1.3b", "zamba2-1.2b")
@@ -162,6 +166,29 @@ def test_causal_conv_matches_reference(with_state):
     np.testing.assert_allclose(new.numpy(), np.asarray(jnew), **TOL)
 
 
+@pytest.mark.parametrize("with_state", [False, True])
+def test_causal_conv_stops_at_lens_like_the_prompt_alone(with_state):
+    """Rows of 1, 2 and 3 valid inputs (K - 1 = 3) and a full one in a
+    9-row window: each row's new history is the reference's on its valid
+    rows alone, so a row shorter than K - 1 keeps the tail of its history
+    (zeros without one); the valid output rows are the window's."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((4, 9, 24)).astype(np.float32)
+    w = rng.standard_normal((4, 24)).astype(np.float32)
+    st = rng.standard_normal((4, 3, 24)).astype(np.float32)
+    lens = [1, 2, 3, 9]
+    y, new = tssm._causal_conv(_t(x), _t(w), _t(st) if with_state else None,
+                               lens=torch.tensor(lens, dtype=torch.int32))
+    for r, n in enumerate(lens):
+        jy, jnew = jssm._causal_conv(
+            jnp.asarray(x[r:r + 1, :n]), jnp.asarray(w),
+            jnp.asarray(st[r:r + 1]) if with_state else None)
+        np.testing.assert_allclose(y[r:r + 1, :n].numpy(), np.asarray(jy),
+                                   **TOL)
+        np.testing.assert_allclose(new[r:r + 1].numpy(), np.asarray(jnew),
+                                   **TOL)
+
+
 @pytest.mark.parametrize("t", [1, 3])
 def test_ssd_recurrent_matches_reference(t):
     x, dt, A, B, C, s0 = _scan_inputs(8 + t, 2, 2, t, 32, 16)
@@ -271,18 +298,19 @@ def test_bridge_keeps_a_log_and_dt_bias_f32_in_bf16(arch):
     ("mamba2-1.3b", "pu", "xla"), ("zamba2-1.2b", "pu", "xla"),
     ("zamba2-1.2b", "pim", "pim")])
 def test_prefill_and_decode_match_reference(models, arch, fc, attn):
-    """prefill of three ragged prompts + 3 decode steps: logits within
-    1e-4 of the JAX model and greedy tokens equal (zamba2 also through
-    the FC-PIM and Attn-PIM kernels' plain versions)."""
+    """prefill of three ragged prompts in one window + 3 decode steps:
+    logits within 1e-4 of the reference run on each prompt alone and
+    greedy tokens equal (zamba2 also through the FC-PIM and Attn-PIM
+    kernels' plain versions)."""
     jcfg, jp, cfg, tp = models[arch]
     rng = np.random.default_rng(10)
     n, P, cap = 3, 64, 96
     toks = rng.integers(3, cfg.vocab_size, size=(n, P)).astype(np.int32)
     lens = np.array([P, 40, 7], np.int32)
-    jl, jc = jax.jit(jm.prefill, static_argnums=0)(
-        jcfg, jp, {"tokens": jnp.asarray(toks),
-                   "prompt_lens": jnp.asarray(lens)},
-        jm.init_cache(jcfg, n, cap))
+    alone = [prompt_alone(jcfg, jp, toks[r, :lens[r]].tolist(), cap)
+             for r in range(n)]
+    jl = jnp.stack([a[0] for a in alone])
+    jc = stack_rows([a[1] for a in alone])
     # the FC / attention contexts are read while tracing: one program here
     with jax_fc_variant(fc), jax_attn_impl(attn):
         jdecode = jax.jit(jm.decode_step, static_argnums=0)
@@ -331,31 +359,42 @@ def test_decode_step_keeps_the_state_it_read(models, arch):
 
 @pytest.mark.parametrize("arch", ARCHES)
 def test_prefill_to_slots_merges_ssm_state_like_reference(models, arch):
+    """Three ragged prompts admitted into slots 2, 0 and 3 of a live
+    cache: each admitted slot holds the reference's state on its prompt
+    alone (and, zamba2, its prompt's KV), slot 1 is untouched."""
     jcfg, jp, cfg, tp = models[arch]
     rng = np.random.default_rng(11)
     slots, P, cap = 4, 32, 48
     toks = rng.integers(3, cfg.vocab_size, size=(3, P)).astype(np.int32)
     lens = np.array([P, 5, 2], np.int32)
     src = np.array([1, -1, 0, 2], np.int32)
+    alone = [prompt_alone(jcfg, jp, toks[r, :lens[r]].tolist(), cap)
+             for r in range(3)]
     # a live cache: slot 1 (untouched) must keep its state
-    jc = jm.init_cache(jcfg, slots, cap)
-    jc["ssm"] = jax.tree.map(lambda x: x + 0.25, jc["ssm"])
     tc = tm.init_cache(cfg, slots, cap, "cpu")
     for x in tc["ssm"]:
         x.add_(0.25)
-    jfirst, jc = jax.jit(jm.prefill_to_slots, static_argnums=0)(
-        jcfg, jp, {"tokens": jnp.asarray(toks),
-                   "prompt_lens": jnp.asarray(lens)}, jc, jnp.asarray(src))
     tfirst, tc = tm.prefill_to_slots(
         cfg, tp, {"tokens": _t(toks), "prompt_lens": _t(lens)}, tc, _t(src))
-    np.testing.assert_array_equal(tfirst.numpy(), np.asarray(jfirst))
-    np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(jc["pos"]))
-    for mine, ref in zip(tc["ssm"], jc["ssm"]):
-        np.testing.assert_allclose(mine.numpy(), np.asarray(ref), **TOL)
+    assert tfirst.tolist() == [
+        -1 if r < 0 else int(np.argmax(np.asarray(alone[r][0])))
+        for r in src]
+    assert tc["pos"].tolist() == [0 if r < 0 else int(lens[r]) for r in src]
+    for s, r in enumerate(src):
+        if r < 0:
+            continue
+        jc = alone[r][1]
+        for mine, ref in zip(tc["ssm"], jc["ssm"]):
+            np.testing.assert_allclose(mine[:, s].numpy(),
+                                       np.asarray(ref[:, 0]), **TOL)
+        if "k" in tc:
+            n = int(lens[r])
+            for key in ("k", "v"):
+                np.testing.assert_allclose(
+                    tc[key][:, s, :n].numpy(), np.asarray(jc[key][:, 0, :n]),
+                    **TOL)
     assert bool((tc["ssm"].ssm[:, 1] == 0.25).all())
     if "k" in tc:
-        np.testing.assert_allclose(tc["k"].numpy(), np.asarray(jc["k"]),
-                                   **TOL)
         assert tc["k"].shape[0] == cfg.num_attention_applications()
 
 

@@ -1,19 +1,21 @@
-"""The port's serving engine on the SSM families against
-`repro.serving.PapiEngine`.
+"""The port's serving engine on the SSM families against the JAX package.
 
 The mamba2-1.3b and zamba2-1.2b smoke twins (f32; d_state 16, head_dim 32,
-chunk 32), the same weights through `params_from_jax`, the same requests:
-greedy token streams and per-iteration FC variants must be identical.
+chunk 32), the same weights through `params_from_jax`, the same requests.
 The prefill window of 64 tokens gives two 32-row scan chunks per
 admission wave; alpha=2 on 4 slots crosses pu -> pim as RLP decays; a
 prompt longer than the window is rejected in both packages (SSM state has
 no sequence dim to mask, so there are no chunk waves).  zamba2 runs with
 ``attn_pim`` off and on.
 
-The last tests record a fault that both packages share: a prompt shorter
-than the prefill window pushes the window's zero padding through the conv
-and the SSM recurrence, so decode starts from a state that differs from
-the one the prompt alone gives.
+The port's prefill stops each row's SSM state at its prompt's end, and
+the reference's takes in the window's zero padding (ROADMAP queue 3).  So
+the greedy token streams are held against the reference run on each
+prompt alone (`_ssm_oracle.greedy_streams`), and the per-iteration FC
+variants, which follow only the schedule, against the reference engine
+on the same requests.  The last tests hold a prompt padded into a larger
+window to its decode state alone: the port's own, and the reference's on
+the prompt alone.
 """
 import numpy as np
 import pytest
@@ -31,6 +33,7 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import (decode_step, init_cache,  # noqa: E402
                                 params_from_jax, prefill_to_slots)
 from repro_torch.serving import PapiEngine, ServeRequest  # noqa: E402
+from _ssm_oracle import greedy_streams, prompt_alone  # noqa: E402
 
 ENGINE = dict(max_slots=4, cache_capacity=128, prefill_len=64, alpha=2.0,
               eos_token=1)
@@ -69,23 +72,36 @@ def _streams(results):
                                            ("zamba2-1.2b", False),
                                            ("zamba2-1.2b", True)])
 def test_streams_match_reference_engine(models, arch, attn_pim):
+    """The streams equal the reference on each prompt alone.  The
+    schedule is held against the reference engine where it does not
+    depend on the tokens: with eos off in both engines, every request's
+    length and reason and the FC variant of every iteration are equal
+    (with eos on, a padded reference stream may emit eos elsewhere)."""
     jcfg, jparams, cfg, params = models[arch]
-    ref = JaxEngine(jcfg, jparams, attn_pim=attn_pim, **ENGINE)
     eng = PapiEngine(cfg, params, attn_pim=attn_pim, device="cpu", **ENGINE)
+    for i, prompt, budget in _requests():
+        eng.submit(ServeRequest(i, prompt, budget))
+    got = _streams(eng.run(max_iterations=200))
+    want = greedy_streams(jcfg, jparams, [r for r in _requests() if r[0] != 3],
+                          ENGINE["eos_token"], ENGINE["cache_capacity"])
+    assert got.pop(3) == ([], "rejected")            # 70 > prefill_len
+    assert got == want
+    assert all(reason in ("eos", "length") for _, reason in got.values())
+    steady = [s for s in eng.stats if s.admitted == 0]
+    assert steady and all(s.transfers == 1 for s in steady)
+
+    no_eos = dict(ENGINE, eos_token=cfg.vocab_size)   # never emitted
+    ref = JaxEngine(jcfg, jparams, attn_pim=attn_pim, **no_eos)
+    eng = PapiEngine(cfg, params, attn_pim=attn_pim, device="cpu", **no_eos)
     for i, prompt, budget in _requests():
         ref.submit(JaxRequest(i, prompt, budget))
         eng.submit(ServeRequest(i, prompt, budget))
-    want = _streams(ref.run(max_iterations=200))
-    got = _streams(eng.run(max_iterations=200))
-    assert got == want
-    assert got[3] == ([], "rejected")            # 70 > prefill_len
-    assert all(reason in ("eos", "length") for i, (_, reason) in got.items()
-               if i != 3)
+    lengths = [{i: (len(t), r) for i, (t, r) in _streams(e.run(200)).items()}
+               for e in (ref, eng)]
+    assert lengths[1] == lengths[0]
     assert [s.fc_variant for s in eng.stats] == [
         s.fc_variant for s in ref.stats]
     assert {"pu", "pim"} <= {s.fc_variant for s in eng.stats}
-    steady = [s for s in eng.stats if s.admitted == 0]
-    assert steady and all(s.transfers == 1 for s in steady)
 
 
 def test_launcher_serves_ssm_families_on_cpu(capsys):
@@ -116,8 +132,6 @@ def _first_decode_logits(cfg, params, prompt, window):
     return first, logits[0, 0]
 
 
-@pytest.mark.xfail(strict=True, reason="padding reaches the SSM state in "
-                   "both packages (ROADMAP queue 3)")
 @pytest.mark.parametrize("arch", ARCHES)
 def test_padded_window_leaves_decode_state_unchanged(models, arch):
     """A 5-token prompt in an 8-token window must decode as the same
@@ -130,21 +144,18 @@ def test_padded_window_leaves_decode_state_unchanged(models, arch):
     torch.testing.assert_close(padded, alone, rtol=1e-4, atol=1e-4)
 
 
-def test_padded_window_fault_matches_reference(models):
-    """The fault is the reference's: the port's padded first-decode logits
-    equal the JAX package's (so parity holds, fault and all)."""
-    for arch in ARCHES:
-        jcfg, jparams, cfg, params = models[arch]
-        prompt = np.random.default_rng(12).integers(3, 256, size=5).tolist()
-        toks = np.zeros((1, 8), np.int32)
-        toks[0, :5] = prompt
-        jfirst, jc = jax.jit(jm.prefill_to_slots, static_argnums=0)(
-            jcfg, jparams, {"tokens": jnp.asarray(toks),
-                            "prompt_lens": jnp.asarray([5], jnp.int32)},
-            jm.init_cache(jcfg, 1, 32), jnp.zeros(1, jnp.int32))
-        jl, _ = jax.jit(jm.decode_step, static_argnums=0)(
-            jcfg, jparams, jc, jfirst[:, None])
-        first, logits = _first_decode_logits(cfg, params, prompt, 8)
-        assert int(first[0]) == int(jfirst[0])
-        np.testing.assert_allclose(logits.numpy(), np.asarray(jl[0, 0]),
-                                   rtol=1e-4, atol=1e-4)
+@pytest.mark.parametrize("arch", ARCHES)
+def test_padded_window_matches_reference_on_the_prompt_alone(models, arch):
+    """A 5-token prompt in an 8-token window: the port's first token and
+    first-decode logits equal the reference's on the prompt alone (its
+    prefill at length 5, then one decode step), within 1e-4."""
+    jcfg, jparams, cfg, params = models[arch]
+    prompt = np.random.default_rng(12).integers(3, 256, size=5).tolist()
+    jl, jc = prompt_alone(jcfg, jparams, prompt, 32)
+    jfirst = int(np.argmax(np.asarray(jl)))
+    jlogits, _ = jax.jit(jm.decode_step, static_argnums=0)(
+        jcfg, jparams, jc, jnp.asarray([[jfirst]], jnp.int32))
+    first, logits = _first_decode_logits(cfg, params, prompt, 8)
+    assert int(first[0]) == jfirst
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits[0, 0]),
+                               rtol=1e-4, atol=1e-4)
