@@ -208,17 +208,47 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      logits of the prompt alone within 1e-3; the cut draft's spec_len 4
      streams (a partial accept seen) equal the spec_len 1 streams, else
      the first divergence and the margin there;
-  7. print the `kernels` JSON line, the card line, and last the device JSON.
+  7. training, on the train path the reference lowers (no kernel: plain
+     matmuls, the plain blocked attention, the differentiable plain SSD
+     scan); bf16, random weights from seed 0, batch 8 x seq 512 as two
+     microbatches of 4 (accum 2), remat, AdamW (lr 3e-4, warmup 5):
+     7a: full-width qwen2-0.5b (24 layers) through `run_training`, 30
+     steps: every loss finite, the mean of the last 5 below the mean of the
+     first 5 minus 0.2; an async checkpoint at step 20, then `resume=True`
+     from it to step 30: `resumed_from == 20` and the 10 losses within
+     2e-2 relative of the uninterrupted run's steps 20-29; prints the
+     median step wall over steps 5-29, tokens/s and the peak memory, and
+     two steps traced with torch.profiler (device busy share, CUDA
+     launches, the top kernels);
+     7b: 5 steps each of full-width hubert-xlarge (frames and mask,
+     bidirectional, gelu; 48 layers), mamba2-1.3b (48) and zamba2-1.2b
+     (38) at chunk 256, and granite-moe-1b-a400m (24; its aux loss > 0):
+     finite losses and gradient norms, the step wall and the peak memory;
+     the models that do not fit one card with AdamW named with their
+     reckoned bytes;
+     7c: f32 (TF32 off), the qwen2 and mamba2 smoke twins: the first
+     step's gradients and 3 `make_train_step` steps (accum 2, remat) on
+     the card against the same on the CPU from the same weights, losses,
+     gradient norms, gradients and parameters within 1e-4;
+     7d: the four kernels' launch counts read 0 across 7a-7c and 7e, and
+     `fc_gemv` on a tensor that requires grad raises ("no backward");
+     7e: the launcher, `repro_torch.launch.train.main(["--arch",
+     "qwen2-0.5b", "--steps", "4", ...])`, prints its ``done: 4 steps``
+     line;
+  8. print the `kernels` JSON line, the card line, and last the device JSON.
 
 Exits non-zero without printing a result when no CUDA device is present or
 when run outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import logging
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -247,8 +277,11 @@ from repro_torch.kernels import fc_gemv as fc_mod  # noqa: E402
 from repro_torch.kernels import paged_decode_attention as paged_mod  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.kernels.ops import fc_layer_runners  # noqa: E402
+from repro_torch.data import DataConfig, make_batch, to_device  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.serve import arrival_schedule  # noqa: E402
 from repro_torch.models import (attn_impl, decode_step, fc_variant,  # noqa: E402
+                                forward_train, model_spec,
                                 init_cache, init_paged_cache, init_params,
                                 mixed_step, prefill, prefill_to_pages,
                                 prefill_to_slots, rewind_ssm, ssd_impl,
@@ -260,6 +293,10 @@ from repro_torch.serving import (EngineCrashError,  # noqa: E402
                                  latency_summary, read_records, recover,
                                  write_trace)
 from repro_torch.serving.engine import _nonfinite  # noqa: E402
+from repro_torch.training import (AdamWConfig, CheckpointManager,  # noqa: E402
+                                  TrainConfig, init_adamw, make_train_step,
+                                  run_training)
+from repro_torch.training.tree import leaves  # noqa: E402
 
 DEV = torch.device("cuda")
 
@@ -3524,6 +3561,290 @@ def phase_family_parity() -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: training
+# ---------------------------------------------------------------------------
+TRAIN_DATA = dict(batch=8, seq_len=512)
+TRAIN_ACCUM = 2
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=5)
+TRAIN_STEPS = 30
+TRAIN_FITS = ("hubert-xlarge", "mamba2-1.3b", "zamba2-1.2b",
+              "granite-moe-1b-a400m")
+TRAIN_TOO_BIG = ("olmoe-1b-7b", "qwen2-vl-7b", "granite-8b", "deepseek-67b",
+                 "command-r-plus-104b")
+# bytes a parameter takes to train with AdamW: the bf16 weight and
+# gradient, the f32 first and second moments
+TRAIN_BYTES_PER_PARAM = 12
+
+
+def param_count(cfg) -> int:
+    def walk(tree):
+        return sum(walk(v) if isinstance(v, dict) else math.prod(v.shape)
+                   for v in tree.values())
+    return walk(model_spec(cfg))
+
+
+def _microbatches(raw: dict) -> dict:
+    return {k: v.reshape((TRAIN_ACCUM, v.shape[0] // TRAIN_ACCUM)
+                         + v.shape[1:]) for k, v in raw.items()}
+
+
+def _finite(xs) -> bool:
+    return bool(xs) and all(math.isfinite(x) for x in xs)
+
+
+def phase_train_main() -> None:
+    """Phase 7a: full-width qwen2-0.5b through `run_training`, checkpoint
+    at step 20, resume to 30 against the uninterrupted run."""
+    cfg = get_config("qwen2-0.5b")
+    dcfg = DataConfig(**TRAIN_DATA)
+    ocfg = AdamWConfig(total_steps=TRAIN_STEPS, **TRAIN_OPT)
+    tokens = dcfg.batch * dcfg.seq_len
+    with _work_dir() as d:
+        tcfg = TrainConfig(steps=TRAIN_STEPS, accum=TRAIN_ACCUM, remat=True,
+                           checkpoint_every=20, checkpoint_dir=d,
+                           log_every=10, seed=0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run_training(cfg, tcfg, dcfg, ocfg, device=DEV)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = res.losses
+        check(len(losses) == TRAIN_STEPS and _finite(losses),
+              f"7a qwen2-0.5b: {len(losses)} losses, all finite")
+        first = statistics.mean(losses[:5])
+        last = statistics.mean(losses[-5:])
+        check(last < first - 0.2, f"7a qwen2-0.5b: the loss falls from "
+              f"{first:.4f} (mean of steps 0-4) to {last:.4f} (25-29), by "
+              "more than 0.2")
+        ckpt = CheckpointManager(d)
+        check(ckpt.all_steps() == [20, TRAIN_STEPS],
+              f"7a: checkpoints at steps {ckpt.all_steps()}")
+        shutil.rmtree(Path(d) / f"step_{TRAIN_STEPS:08d}")
+        t0 = time.perf_counter()
+        res2 = run_training(cfg, tcfg, dcfg, ocfg, resume=True, device=DEV)
+        wall2 = time.perf_counter() - t0
+        rel = max((abs(a - b) / abs(b)
+                   for a, b in zip(res2.losses, losses[20:])), default=0.0)
+        check(res2.resumed_from == 20 and len(res2.losses) == 10
+              and _finite(res2.losses) and rel <= 2e-2,
+              f"7a: resumed from {res2.resumed_from}, "
+              f"{len(res2.losses)} losses, within {rel:.2e} relative of "
+              "the uninterrupted run's steps 20-29 (limit 2e-2)")
+    med = statistics.median(res.step_s[5:])
+    print(f"      7a qwen2-0.5b [{CARD}]: losses "
+          + " ".join(f"{x:.3f}" for x in losses)
+          + f"; resumed {' '.join(f'{x:.3f}' for x in res2.losses)}",
+          flush=True)
+    print(f"      7a qwen2-0.5b [{CARD}]: step wall median "
+          f"{med * 1e3:.1f} ms over steps 5-{TRAIN_STEPS - 1} ({tokens} "
+          f"tokens a step: batch {dcfg.batch} x seq {dcfg.seq_len}, accum "
+          f"{TRAIN_ACCUM}, remat), {tokens / med:.0f} training tokens/s; "
+          f"peak memory {peak:.2f} GiB; run {wall:.1f} s of which steps "
+          f"{sum(res.step_s):.1f} s (the rest: weights, checkpoints at 20 "
+          f"and {TRAIN_STEPS}); resume {wall2:.1f} s of which steps "
+          f"{sum(res2.step_s):.1f} s", flush=True)
+    _train_trace(cfg)
+
+
+def _train_trace(cfg) -> None:
+    """Phase 7a's trace: two train steps of `cfg` (after two warm ones)
+    under torch.profiler: device busy share, CUDA launches and the
+    kernels that take the most."""
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+    opt = init_adamw(params)
+    step_fn = make_train_step(cfg, AdamWConfig(total_steps=4, **TRAIN_OPT),
+                              accum=TRAIN_ACCUM, remat=True)
+    batches = [to_device(_microbatches(make_batch(
+        cfg, DataConfig(**TRAIN_DATA), s)), DEV) for s in range(4)]
+    for b in batches[:2]:
+        params, opt, _, m = step_fn(params, opt, {}, b)
+    float(m["loss"])
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for b in batches[2:]:
+            params, opt, _, m = step_fn(params, opt, {}, b)
+            float(m["loss"])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = sorted(_kernels(prof), reverse=True)
+    busy = sum(k[0] for k in kern)
+    launches = sum(k[2] for k in kern)
+    if not kern:
+        print("      7a trace: not measured (no device time in the trace)",
+              flush=True)
+    else:
+        top = "; ".join(f"{name[:48]} {us / 2e3:.2f} ms x{n // 2}"
+                        for us, name, n in kern[:6])
+        print(f"      7a trace {cfg.name} [{CARD}], per step (2 traced): "
+              f"wall {wall_us / 2e3:.1f} ms, device busy {busy / 2e3:.1f} "
+              f"ms ({100 * busy / wall_us:.1f}%), {launches // 2} CUDA "
+              f"launches; top kernels: {top}", flush=True)
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def _train_steps(cfg, steps: int) -> dict:
+    """`steps` train steps of `cfg` from seed 0 (batch, accum, remat and
+    AdamW of phase 7), timed one by one.  Returns losses, gradient norms,
+    walls, the peak memory and the weights' GiB."""
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+    weights = torch.cuda.memory_allocated() / 2 ** 30
+    opt = init_adamw(params)
+    step_fn = make_train_step(cfg, AdamWConfig(total_steps=steps,
+                                               **TRAIN_OPT),
+                              accum=TRAIN_ACCUM, remat=True)
+    dcfg = DataConfig(**TRAIN_DATA)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"loss": [], "grad_norm": [], "wall": []}
+    err = {}
+    for step in range(steps):
+        batch = to_device(_microbatches(make_batch(cfg, dcfg, step)), DEV)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, err, m = step_fn(params, opt, err, batch)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["wall"].append(time.perf_counter() - t0)
+    out["peak"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["weights"] = weights
+    if cfg.moe is not None:
+        with torch.no_grad():
+            _, met = forward_train(cfg, params,
+                                   {k: v[0] for k, v in batch.items()})
+        out["aux"] = float(met["aux"])
+    del params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_families() -> None:
+    """Phase 7b: 5 steps of each other family that fits one card."""
+    for arch in TRAIN_FITS:
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        r = _train_steps(cfg, 5)
+        wall = time.perf_counter() - t0
+        check(_finite(r["loss"]) and _finite(r["grad_norm"]),
+              f"7b {arch}: finite losses "
+              + " ".join(f"{x:.3f}" for x in r["loss"])
+              + " and gradient norms "
+              + " ".join(f"{x:.3f}" for x in r["grad_norm"]))
+        if "aux" in r:
+            check(r["aux"] > 0, f"7b {arch}: the aux loss {r['aux']:.4f} > 0")
+        tokens = TRAIN_DATA["batch"] * TRAIN_DATA["seq_len"]
+        med = statistics.median(r["wall"][1:])
+        print(f"      7b {arch} [{CARD}] ({cfg.num_layers} layers, "
+              f"{param_count(cfg) / 1e9:.3f} B parameters, weights "
+              f"{r['weights']:.2f} GiB): step wall median {med * 1e3:.1f} ms "
+              f"over steps 1-4 (step 0 {r['wall'][0] * 1e3:.1f} ms), "
+              f"{tokens / med:.0f} tokens/s, peak memory {r['peak']:.2f} "
+              f"GiB; {wall:.1f} s with the weights' init", flush=True)
+    total = torch.cuda.get_device_properties(0).total_memory
+    for arch in TRAIN_TOO_BIG:
+        n = param_count(get_config(arch))
+        need = n * TRAIN_BYTES_PER_PARAM
+        print(f"      7b {arch}: not trained here: {n / 1e9:.2f} B "
+              f"parameters x {TRAIN_BYTES_PER_PARAM} bytes (bf16 weight and "
+              f"gradient, f32 moments) = {need / 2 ** 30:.1f} GiB before "
+              f"activations and the f32 gradient sum of accum (4 bytes "
+              f"more), against the card's {total / 2 ** 30:.1f} GiB",
+              flush=True)
+
+
+def _clone_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _clone_to(v, device) for k, v in tree.items()}
+    return tree.detach().clone().to(device)
+
+
+def phase_train_parity() -> None:
+    """Phase 7c: f32 smoke twins, the card against the CPU: the first
+    step's gradients, then 3 train steps from the same weights."""
+    tol = 1e-4
+    ocfg = AdamWConfig(lr=1e-5, warmup_steps=0, total_steps=3)
+    for arch, seq in (("qwen2-0.5b", 64), ("mamba2-1.3b", 64)):
+        cfg = get_config(arch + "-smoke")
+        host = init_params(cfg, torch.Generator().manual_seed(0))
+        dcfg = DataConfig(batch=4, seq_len=seq)
+        runs = []
+        for dev in (torch.device("cpu"), DEV):
+            params = _clone_to(host, dev)
+            ps = leaves(params)
+            for p in ps:
+                p.requires_grad_(True)
+            batch0 = to_device(make_batch(cfg, dcfg, 0), dev)
+            grads = torch.autograd.grad(
+                forward_train(cfg, params, batch0)[0], ps)
+            opt = init_adamw(params)
+            step_fn = make_train_step(cfg, ocfg, accum=2, remat=True)
+            met = []
+            for step in range(3):
+                batch = to_device(_microbatches(make_batch(cfg, dcfg, step)),
+                                  dev)
+                params, opt, _, m = step_fn(params, opt, {}, batch)
+                met.append((float(m["loss"]), float(m["grad_norm"])))
+            runs.append((met, [g.cpu() for g in grads],
+                         [p.detach().cpu() for p in leaves(params)]))
+
+        def worst(a, b):
+            return max(float(((x - y).abs() / (tol + tol * y.abs())).max())
+                       for x, y in zip(a, b))
+
+        (mc, gc, pc), (md, gd, pd) = runs
+        scal = max(abs(x - y) / (tol + tol * abs(y)) for a, b in zip(md, mc)
+                   for x, y in zip(a, b))
+        g_err, p_err = worst(gd, gc), worst(pd, pc)
+        check(max(scal, g_err, p_err) <= 1.0,
+              f"7c {cfg.name} f32: card vs CPU, losses and gradient norms of "
+              f"3 steps at {scal:.3f}, the first step's gradients at "
+              f"{g_err:.3f}, the parameters after 3 steps at {p_err:.3f} of "
+              f"the tolerance (1e-4 + 1e-4 |cpu|)")
+
+
+def phase_train_launcher() -> None:
+    """Phase 7e: the training launcher at full width, 4 steps."""
+    with _work_dir() as d:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            train_cli.main(["--arch", "qwen2-0.5b", "--steps", "4",
+                            "--checkpoint-dir", d])
+        wall = time.perf_counter() - t0
+        done = [x for x in buf.getvalue().splitlines()
+                if x.startswith("done:")]
+        check(len(done) == 1 and done[0].startswith("done: 4 steps")
+              and CheckpointManager(d).all_steps() == [4],
+              f"7e launcher --arch qwen2-0.5b --steps 4: {done} in "
+              f"{wall:.1f} s, checkpoint at step 4")
+
+
+def phase_training() -> dict:
+    """Phase 7 (7a-7e).  Returns the kernels' launches over it (all 0)."""
+    zero_counts()
+    phase_train_main()
+    phase_train_families()
+    phase_train_parity()
+    phase_train_launcher()
+    launches = read_counts()
+    check(not any(launches.values()),
+          f"7d: no kernel launched on the train path ({launches})")
+    x = torch.randn(8, 896, device=DEV, requires_grad=True)
+    w = torch.randn(896, 896, device=DEV)
+    try:
+        fc_mod.fc_gemv(x, w)
+        refused = "returned a tensor"
+    except RuntimeError as e:
+        refused = str(e)
+    check("fc_gemv has no backward" in refused and fc_mod.LAUNCHES == 0,
+          f"7d: fc_gemv under autograd raises ({refused[:60]})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     global CARD
     card = CARD = card_line()
@@ -3582,6 +3903,7 @@ def main() -> int:
     timed(phase_family_kernels)
     family_launches = timed(phase_family_paths)
     timed(phase_family_parity)
+    train_launches = timed(phase_training)
     # the sum over every path's run, each with the counts set to 0 just
     # before it
     print(f"      launches by path: qwen2-0.5b dense and paged (phases 4, "
@@ -3598,7 +3920,8 @@ def main() -> int:
           + f"; mamba2-1.3b and zamba2-1.2b speculative (phase 4o, 4 runs): "
           f"{json.dumps(ssm_spec_launches)}"
           + f"; the other families (phase 4n, 21 runs): "
-          f"{json.dumps(family_launches)}", flush=True)
+          f"{json.dumps(family_launches)}; training (phase 7): "
+          f"{json.dumps(train_launches)}", flush=True)
     launches = {name: n + spec_launches[name] + serve_launches[name]
                 + failure_launches.get(name, 0)
                 + durable_launches.get(name, 0)

@@ -94,3 +94,18 @@ def check(err: int, name: str) -> None:
     """Raise on the `cudaGetLastError()` a launch function returned."""
     if err != 0:
         raise RuntimeError(f"{name} launch failed with cudaError {err}")
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad.  A kernel
+    launched through ctypes has no backward: its output would silently
+    leave the autograd graph.  The wrappers call this before their
+    CPU/plain dispatch, so the plain path refuses exactly what the card
+    would."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward; call it under torch.no_grad() or on "
+            "tensors that do not require grad (training takes the plain "
+            "path)")

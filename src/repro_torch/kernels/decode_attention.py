@@ -141,6 +141,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """[b, nkv, t*g, hd] queries against the first `lens` cache positions
     -> [b, nkv, t*g, hd] in q's dtype, through Attn-PIM."""
     global LAUNCHES
+    _build.refuse_autograd("decode_attention", q, k_cache, v_cache)
     b, nkv, tg, hd = q.shape
     if (k_cache.dim() != 4 or k_cache.shape != v_cache.shape
             or k_cache.shape[0] != b or k_cache.shape[2] != nkv

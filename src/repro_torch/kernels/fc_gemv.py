@@ -119,6 +119,7 @@ def fc_gemv_group(x: torch.Tensor, ws: list[torch.Tensor]
     """[x @ w for w in ws]: x [m, K], each w [K, N_i] -> [m, N_i] in x's
     dtype, through FC-PIM in one launch."""
     global LAUNCHES
+    _build.refuse_autograd("fc_gemv", x, *ws)
     if not 1 <= len(ws) <= WEIGHTS_MAX:
         raise ValueError(f"fc_gemv_group takes 1 to {WEIGHTS_MAX} weights, "
                          f"got {len(ws)}")

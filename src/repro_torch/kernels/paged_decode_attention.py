@@ -77,6 +77,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     so the kernel trusts them (the engine's allocator only hands out pool
     pages)."""
     global LAUNCHES
+    _build.refuse_autograd("paged_decode_attention", q, k_pages, v_pages)
     b, nkv, tg, hd = q.shape
     if (k_pages.dim() != 4 or k_pages.shape != v_pages.shape
             or k_pages.shape[2] != nkv or k_pages.shape[3] != hd):

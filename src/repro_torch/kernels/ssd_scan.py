@@ -46,13 +46,24 @@ def chunk_cumsum(lt: torch.Tensor, cs: int) -> torch.Tensor:
                         dim=-1)
 
 
+def segment_decay(seg: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """L = e^seg on and below the diagonal, 0 above it, masked BEFORE the
+    exp.  Above the diagonal seg is a positive decay sum that passes f32's
+    exp limit (88.7) within a 256-row chunk under the init laws; e^seg is
+    then inf, and a `where` after the exp multiplies its zero gradient by
+    that inf (NaN).  e^-inf = 0 gives the same values, finite gradients."""
+    return torch.exp(seg.masked_fill(~mask, float("-inf")))
+
+
 def ssd_scan_ref(dtx: torch.Tensor, lt: torch.Tensor, B: torch.Tensor,
                  C: torch.Tensor, *, chunk: int = 256,
                  init_state: torch.Tensor | None = None,
                  out_dtype: torch.dtype | None = None):
     """Plain version: the chunked SSD algorithm of `repro.models.ssm.
     _ssd_chunked` in the kernel's layout, f32 throughout.  Returns
-    (y [b, nh, l, hp] in out_dtype (default dtx's), state [b, nh, hp, n])."""
+    (y [b, nh, l, hp] in out_dtype (default dtx's), state [b, nh, hp, n]).
+    Differentiable: it is also the training path's scan
+    (`models.ssm._ssd_chunked` in mode "train")."""
     b, nh, l, hp = dtx.shape
     n = B.shape[-1]
     cs = min(chunk, l)
@@ -67,7 +78,7 @@ def ssd_scan_ref(dtx: torch.Tensor, lt: torch.Tensor, B: torch.Tensor,
     CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     seg = cum[..., :, None] - cum[..., None, :]            # [b, nh, nc, i, j]
     mask = torch.ones((cs, cs), dtype=torch.bool, device=dtx.device).tril()
-    Lm = torch.where(mask, torch.exp(seg), torch.zeros((), device=dtx.device))
+    Lm = segment_decay(seg, mask)
     y = torch.einsum("bhcij,bhcjp->bhcip", CB[:, None] * Lm, x)
 
     decay_to_end = torch.exp(cum[..., -1:] - cum)          # [b, nh, nc, cs]
@@ -126,6 +137,7 @@ def ssd_scan(dtx: torch.Tensor, lt: torch.Tensor, B: torch.Tensor,
     [b, nh, hp, n] f32 or None (zeros) -> (y [b, nh, l, hp] in out_dtype
     (default dtx's), final state [b, nh, hp, n] f32)."""
     global LAUNCHES
+    _build.refuse_autograd("ssd_scan", dtx, lt, B, C, init_state)
     if dtx.dim() != 4 or lt.dim() != 3 or B.dim() != 3 or C.dim() != 3:
         raise ValueError("ssd_scan wants dtx[b,nh,l,hp], lt[b,nh,l], "
                          "B[b,l,n], C[b,l,n]")

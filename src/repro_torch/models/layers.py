@@ -1,15 +1,16 @@
-"""Transformer building blocks of the decoder families: norms, RoPE and
-qwen2-vl's M-RoPE, SwiGLU MLP, projections and attention — ports of
+"""Transformer building blocks: norms, RoPE and qwen2-vl's M-RoPE, the
+SwiGLU and GELU MLPs, projections and attention — ports of
 `repro.models.layers`.
 
 Numerics follow the reference rounding point for rounding point, because
 in bf16 they decide whether greedy tokens match: statistics and softmax in
 f32, `rmsnorm` casts its rsqrt back to the activation dtype before the
 multiplies, `layernorm` normalizes in f32 and casts before the scale,
-`swiglu` runs silu in f32 and casts back, RoPE and M-RoPE rotate split
+`swiglu` runs silu in f32 and casts back (`gelu_mlp` its tanh GELU), RoPE and M-RoPE rotate split
 halves in f32.  Attention comes as
-  * `flash_attention` / `dense_attention` — prefill (plain PyTorch, the
-    reference's XLA code; never `scaled_dot_product_attention`);
+  * `flash_attention` / `dense_attention` — prefill and training, causal
+    or (the audio encoder) bidirectional (plain PyTorch, the reference's
+    XLA code; never `scaled_dot_product_attention`);
   * `decode_attention_xla` — the plain decode path (oracle), over a dense
     slab or, for the paged layout, over `gather_kv_pages`' view;
   * `decode_attention_pim` / `decode_attention_pim_paged` — decode through
@@ -131,6 +132,14 @@ def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
     gate, up = papi_linear_group(x, [p["w_gate"], p["w_up"]])
     act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
     return papi_linear(act, p["w_down"])
+
+
+def gelu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """GPT-style 2-layer MLP with biases; tanh GELU in f32, cast back
+    (``jax.nn.gelu(approximate=True)``)."""
+    h = papi_linear(x, p["w_in"]) + p["b_in"]
+    h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return papi_linear(h, p["w_out"]) + p["b_out"]
 
 
 def qkv_project(x: torch.Tensor, p: dict):

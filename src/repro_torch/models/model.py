@@ -1,9 +1,9 @@
-"""The port's decoder — `repro.models.model` for the decoder families:
-dense (rmsnorm or layernorm, tied or untied head), MoE, the VLM backbone
-with M-RoPE, SSM (mamba2) and hybrid (zamba2), over a dense KV slab or
-(the pure attention families) a paged KV pool.  The audio encoder
-(hubert) is refused: it has no decode step, and the reference runs it only
-in training.
+"""The port's model — `repro.models.model`: dense (rmsnorm or layernorm,
+tied or untied head), MoE, the VLM backbone with M-RoPE, SSM (mamba2) and
+hybrid (zamba2) decoders, served over a dense KV slab or (the pure
+attention families) a paged KV pool, and the audio encoder (hubert:
+bidirectional, gelu MLP, frame inputs), which has no cache and no decode
+step and, as in the reference, runs only in training (`forward_train`).
 
 Parameters keep the reference's pytree: nested dicts whose per-layer
 leaves are stacked on a leading ``num_layers`` axis (the weight bridge
@@ -27,8 +27,18 @@ and `rewind_ssm` then selects each slot's state at an accepted prefix
 page_size, nkv, hd]`` and the decode path resolves each logical position
 through the slot's block table.
 
+Training (`forward_train`, mode "train") reaches no kernel wrapper, as
+the reference's training lowers only XLA code: the FC projections take
+``torch.matmul`` (the default "pu" variant), attention the plain
+`flash_attention`, the Mamba2 scan its differentiable plain version.
+``remat=True`` recomputes each layer's activations in the backward pass
+(`torch.utils.checkpoint`).  Per-layer views come from one `torch.unbind`
+of each stacked leaf, so a layer's gradient lands in its slice of the
+stacked leaf (weight decay sees the stacked layout, as in the reference).
+
 Entry points:
   init_params(cfg, generator)            -> params
+  forward_train(cfg, params, batch, remat=True) -> (loss, metrics)
   init_cache(cfg, batch, capacity, device)
   init_paged_cache(cfg, max_slots, num_pages, page_size, max_blocks, device)
   prefill(cfg, params, batch, cache)     -> (last_logits, cache)
@@ -41,9 +51,12 @@ Entry points:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -51,7 +64,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 # the families whose whole cache is KV, and so can be paged
 KV_FAMILIES = ("dense", "moe", "vlm")
 
@@ -65,15 +78,19 @@ class PSpec:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "audio":
+    if cfg.family not in FAMILIES or (cfg.mlp != "swiglu"
+                                      and cfg.family != "audio"):
         raise NotImplementedError(
-            f"{cfg.name}: the audio encoder (bidirectional attention, gelu "
-            "MLP, frame frontend) has no decode step; the reference runs it "
-            "only in training, which the port has not ported yet")
-    if cfg.family not in FAMILIES or cfg.mlp != "swiglu":
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves {'/'.join(FAMILIES)} models with "
-            "a swiglu MLP only")
+            f"{cfg.name}: the port runs {'/'.join(FAMILIES)} models with a "
+            "swiglu MLP (a gelu MLP in the audio encoder only)")
+
+
+def _check_decoder(cfg: ModelConfig) -> None:
+    """Refuse a cache or a decode step for an encoder-only model."""
+    _check_family(cfg)
+    if not cfg.has_decode_step:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no cache and "
+                         "no decode step (train it with forward_train)")
 
 
 def host_copies_per_forward(cfg: ModelConfig) -> int:
@@ -102,10 +119,17 @@ def _attn_spec(cfg: ModelConfig, residual_std: float) -> dict:
 def _mlp_spec(cfg: ModelConfig, residual_std: float) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     std = d ** -0.5
+    if cfg.mlp == "swiglu":
+        return {
+            "w_gate": PSpec((d, f), std=std),
+            "w_up": PSpec((d, f), std=std),
+            "w_down": PSpec((f, d), std=residual_std),
+        }
     return {
-        "w_gate": PSpec((d, f), std=std),
-        "w_up": PSpec((d, f), std=std),
-        "w_down": PSpec((f, d), std=residual_std),
+        "w_in": PSpec((d, f), std=std),
+        "b_in": PSpec((f,), "zeros"),
+        "w_out": PSpec((f, d), std=residual_std),
+        "b_out": PSpec((d,), "zeros"),
     }
 
 
@@ -183,6 +207,8 @@ def model_spec(cfg: ModelConfig) -> dict:
             "norm2": PSpec((d,), "ones"),
             "mlp": _mlp_spec(cfg, residual_std),
         }
+    if cfg.family == "audio":
+        spec["mask_embed"] = {"w": PSpec((d,), std=0.02)}
     if cfg.decoder and not cfg.tie_embeddings:
         spec["lm_head"] = {"w": PSpec((d, v), std=d ** -0.5)}
     return spec
@@ -230,7 +256,7 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     ssm: ``ssm``, an `SSMState` of [L, b, ...] tensors (the SSM state f32);
     hybrid: both, with K/V [napps, b, S, nkv, hd] for the shared block's
     applications."""
-    _check_family(cfg)
+    _check_decoder(cfg)
     dtype = DTYPES[cfg.dtype]
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
     if cfg.family in ("ssm", "hybrid"):
@@ -253,7 +279,7 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
     Attn-PIM bank row) and a per-slot block table mapping logical blocks to
     physical pages.  Page 0 is the garbage page: the tables start at 0, so
     writes of slots not yet admitted land there harmlessly."""
-    _check_family(cfg)
+    _check_decoder(cfg)
     if cfg.family not in KV_FAMILIES:
         raise ValueError(
             f"paged KV cache needs a pure attention KV cache; {cfg.family} "
@@ -270,12 +296,18 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
                                         dtype=torch.int32, device=device)}
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer i's slice of the stacked per-layer parameters (views)."""
-    def take(tree):
-        return {k: (take(v) if isinstance(v, dict) else v[i])
-                for k, v in tree.items()}
-    return take(params["layers"])
+def layer_list(params: dict, num_layers: int) -> list[dict]:
+    """Each layer's slice of the stacked per-layer parameters: views from
+    one `torch.unbind` per leaf, whose backward stacks the layers'
+    gradients into the stacked leaf's in one op."""
+    def split(tree):
+        out = [{} for _ in range(num_layers)]
+        for k, v in tree.items():
+            parts = split(v) if isinstance(v, dict) else torch.unbind(v)
+            for layer, part in zip(out, parts):
+                layer[k] = part
+        return out
+    return split(params["layers"])
 
 
 def layer_state(state: S.SSMState | None, i: int) -> S.SSMState | None:
@@ -353,7 +385,11 @@ def _write_kv_paged(k_cache, v_cache, k_new, v_new, pos, tables,
 
 
 def _apply_positional(cfg: ModelConfig, q, k, positions):
-    """RoPE, or M-RoPE over [b, 3, s] position triples."""
+    """RoPE, or M-RoPE over [b, 3, s] position triples; none for the audio
+    encoder (its convolutional positional frontend is stubbed, as in the
+    reference)."""
+    if cfg.family == "audio":
+        return q, k
     if cfg.m_rope:
         sections = tuple(cfg.m_rope_sections)
         return (L.apply_m_rope(q, positions, cfg.rope_theta, sections),
@@ -411,13 +447,15 @@ def attention_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
     return h + L.out_project(attn, p["attn"])
 
 
-def mlp_block(cfg: ModelConfig, p: dict, h: torch.Tensor) -> torch.Tensor:
-    """Pre-norm MLP or MoE sub-block (serving drops the MoE aux loss, which
-    only training reads)."""
+def mlp_block(cfg: ModelConfig, p: dict, h: torch.Tensor):
+    """Pre-norm MLP or MoE sub-block.  Returns (h, aux): the MoE layer's
+    load-balancing loss (which only training reads), None for an MLP."""
     m_in = L.norm(h, p["norm2"], cfg.norm, cfg.norm_eps)
     if cfg.family == "moe":
-        return h + M.moe_mlp(m_in, p["moe"], cfg.moe)[0]
-    return h + L.swiglu_mlp(m_in, p["mlp"])
+        y, aux = M.moe_mlp(m_in, p["moe"], cfg.moe)
+        return h + y, aux
+    mlp = L.swiglu_mlp if cfg.mlp == "swiglu" else L.gelu_mlp
+    return h + mlp(m_in, p["mlp"]), None
 
 
 def ssm_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
@@ -429,71 +467,93 @@ def ssm_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
     it and writes `out`."""
     u = L.norm(h, p["norm"], cfg.norm, cfg.norm_eps)
     y, _ = S.mamba2_block(u, p["ssm"], cfg.ssm, cfg.d_model, state=state,
-                          decode=(mode == "decode"), out=out, lens=lens)
+                          decode=(mode == "decode"), out=out, lens=lens,
+                          train=(mode == "train"))
     return h + y
 
 
-def _transformer_backbone(cfg, params, h, positions, cache, mode,
-                          write_lens=None):
-    """Loop over the stacked layers; each layer writes its own KV slab (or
-    its own page pool, when the cache carries block tables)."""
+def _remat(fn, remat: bool):
+    """fn, or fn under activation checkpointing: its activations are not
+    kept, and the backward pass runs it again."""
+    if not remat:
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+def _transformer_backbone(cfg, layers, h, positions, cache, mode,
+                          write_lens=None, remat=False):
+    """Loop over the layers; each layer writes its own KV slab (or its own
+    page pool, when the cache carries block tables).  Returns (h, the sum
+    of the MoE layers' aux losses, 0.0 without MoE)."""
     pos = cache["pos"] if cache is not None else None
     tables = cache.get("block_tables") if cache is not None else None
-    for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
-        kv = (cache["k"][i], cache["v"][i]) if cache is not None else None
+
+    def layer(h, lp, kv):
         h = attention_block(cfg, lp, h, positions, kv, pos, mode,
                             tables=tables, write_lens=write_lens)
-        h = mlp_block(cfg, lp, h)
-    return h
+        return mlp_block(cfg, lp, h)
+
+    run = _remat(layer, remat)
+    aux = 0.0
+    for i, lp in enumerate(layers):
+        kv = (cache["k"][i], cache["v"][i]) if cache is not None else None
+        h, aux_l = run(h, lp, kv)
+        if aux_l is not None:
+            aux = aux + aux_l
+    return h, aux
 
 
-def _ssm_layers(cfg, params, h, cache, mode, lo, hi, ssm_out=None,
-                lens=None):
+def _ssm_layers(cfg, layers, h, cache, mode, lo, hi, ssm_out=None,
+                lens=None, remat=False):
     state = cache["ssm"] if cache is not None else None
+    block = _remat(functools.partial(ssm_block, cfg), remat)
     for i in range(lo, hi):
-        h = ssm_block(cfg, layer_params(params, i), h, layer_state(state, i),
-                      mode, out=layer_state(ssm_out, i), lens=lens)
+        h = block(layers[i], h, layer_state(state, i), mode,
+                  layer_state(ssm_out, i), lens)
     return h
 
 
-def _hybrid_backbone(cfg, params, h, positions, cache, mode, ssm_out=None,
-                     lens=None):
+def _hybrid_backbone(cfg, layers, shared, h, positions, cache, mode,
+                     ssm_out=None, lens=None, remat=False):
     """zamba2: segments of `period` Mamba2 blocks, the shared (weight-tied)
     attention+MLP block after each — `num_layers // period` applications,
-    application `app` on KV slab `app` — then the remainder segment."""
+    application `app` on KV slab `app` — then the remainder segment.
+    `remat` covers the Mamba2 blocks, not the shared block, as in the
+    reference."""
     period = cfg.hybrid.period
     pos = cache["pos"] if cache is not None else None
-    shared = params["shared"]
     lo = 0
     for app in range(cfg.num_attention_applications()):
-        h = _ssm_layers(cfg, params, h, cache, mode, lo, lo + period,
-                        ssm_out, lens)
+        h = _ssm_layers(cfg, layers, h, cache, mode, lo, lo + period,
+                        ssm_out, lens, remat)
         kv = (cache["k"][app], cache["v"][app]) if cache is not None else None
         h = attention_block(cfg, shared, h, positions, kv, pos, mode)
-        h = mlp_block(cfg, shared, h)
+        h, _ = mlp_block(cfg, shared, h)
         lo += period
-    return _ssm_layers(cfg, params, h, cache, mode, lo, cfg.num_layers,
-                       ssm_out, lens)
+    return _ssm_layers(cfg, layers, h, cache, mode, lo, cfg.num_layers,
+                       ssm_out, lens, remat)
 
 
 def backbone(cfg, params, h, positions, cache, mode, write_lens=None,
-             ssm_out=None, lens=None):
+             ssm_out=None, lens=None, remat=False):
     """The family dispatch; `ssm_out` takes a decode step's new SSM state,
     and `lens` [b] stops a prefill's SSM state at each row's prompt end.
     The stateful families take no chunked-prefill writes, as in the
-    reference (the `lens` mechanism could carry them later)."""
+    reference (the `lens` mechanism could carry them later).  `remat`
+    (training only) checkpoints each layer.  Returns (h, aux): the MoE
+    layers' summed aux loss, 0.0 for the other families."""
     if cfg.family in ("ssm", "hybrid") and write_lens is not None:
         raise ValueError(f"{cfg.family}: chunked prefill needs maskable KV "
                          "writes")
+    layers = layer_list(params, cfg.num_layers)
     if cfg.family == "ssm":
-        return _ssm_layers(cfg, params, h, cache, mode, 0, cfg.num_layers,
-                           ssm_out, lens)
+        return _ssm_layers(cfg, layers, h, cache, mode, 0, cfg.num_layers,
+                           ssm_out, lens, remat), 0.0
     if cfg.family == "hybrid":
-        return _hybrid_backbone(cfg, params, h, positions, cache, mode,
-                                ssm_out, lens)
-    return _transformer_backbone(cfg, params, h, positions, cache, mode,
-                                 write_lens=write_lens)
+        return _hybrid_backbone(cfg, layers, params["shared"], h, positions,
+                                cache, mode, ssm_out, lens, remat), 0.0
+    return _transformer_backbone(cfg, layers, h, positions, cache, mode,
+                                 write_lens=write_lens, remat=remat)
 
 
 # ---------------------------------------------------------------------------
@@ -501,7 +561,9 @@ def backbone(cfg, params, h, positions, cache, mode, write_lens=None,
 # ---------------------------------------------------------------------------
 
 def embed_tokens(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["w"][tokens.long()]
+    # F.embedding's backward on the card sums by sorted index, without
+    # the atomics of an indexing backward
+    return F.embedding(tokens.long(), params["embed"]["w"])
 
 
 def _window_positions(cfg, pos: torch.Tensor, t: int) -> torch.Tensor:
@@ -515,11 +577,22 @@ def _window_positions(cfg, pos: torch.Tensor, t: int) -> torch.Tensor:
 
 def embed_inputs(cfg, params, batch: dict):
     """Token embedding; a VLM batch may put precomputed patch embeddings
-    ahead of the text, with their position triples.  Returns (h [b, s, d],
-    positions).  Without ``positions``, token j sits at position j; an
+    ahead of the text, with their position triples; the audio encoder takes
+    ``frames`` [b, s, d], the rows where ``mask`` is set replaced by
+    ``mask_embed``, cast to the model's dtype (the reference's jnp
+    promotion keeps f32 frames in f32 through a bf16 model; torch does not
+    mix dtypes in a matmul).  Returns (h [b, s, d], positions).  Without ``positions``, token j sits at position j; an
     M-RoPE model gets j in all three streams, as its decode steps do (the
     reference's tokens-only prefill rotates the height and width sections
     by a filled-in garbage position instead: ROADMAP queue 3)."""
+    if cfg.family == "audio":
+        frames = batch["frames"]
+        w = params["mask_embed"]["w"]
+        if "mask" in batch:
+            m = batch["mask"][..., None].to(frames.dtype)
+            frames = frames * (1 - m) + w.to(frames.dtype) * m
+        pos = torch.arange(frames.shape[1], device=frames.device)[None, :]
+        return frames.to(w.dtype), pos
     if cfg.family == "vlm" and "patch_embeds" in batch:
         text = embed_tokens(cfg, params, batch["tokens"])
         h = torch.cat([batch["patch_embeds"].to(text.dtype), text], dim=1)
@@ -541,18 +614,52 @@ def lm_logits(cfg, params, h: torch.Tensor) -> torch.Tensor:
     return torch.matmul(h, params["embed"]["w"].t())
 
 
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean token NLL, in f32."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
 # ---------------------------------------------------------------------------
 # Steps
 # ---------------------------------------------------------------------------
+
+def forward_train(cfg, params, batch: dict, *, remat: bool = True):
+    """One training forward: (loss, {"ce", "aux"}).  loss = ce + the MoE
+    aux weight x the layers' summed aux loss / num_layers; a VLM's targets
+    cover the text tail only, so the vision prefix is padded out of the
+    loss; an audio batch's ``target_mask`` picks the masked frames."""
+    h, positions = embed_inputs(cfg, params, batch)
+    h, aux = backbone(cfg, params, h, positions, None, "train", remat=remat)
+    logits = lm_logits(cfg, params, h)
+    targets = batch["targets"]
+    mask = batch.get("target_mask")
+    mask = (torch.ones(targets.shape, device=targets.device)
+            if mask is None else mask.float())
+    if cfg.family == "vlm":
+        pad = logits.shape[1] - targets.shape[1]
+        targets = F.pad(targets, (pad, 0))
+        mask = F.pad(mask, (pad, 0))
+    ce = cross_entropy(logits, targets, mask)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
+    loss = ce + aux_w * aux / max(cfg.num_layers, 1)
+    return loss, {"ce": ce.detach(), "aux": aux.detach()}
+
 
 def prefill(cfg, params, batch: dict, cache: dict):
     """Process the prompt, fill the cache, return last-position logits.
     Without ``prompt_lens``, every row is a whole prompt; with it, the SSM
     state stops at each row's prompt end."""
+    _check_decoder(cfg)
     h, positions = embed_inputs(cfg, params, batch)
     prompt_lens = batch.get("prompt_lens")
-    h = backbone(cfg, params, h, positions, cache, "prefill",
-                 lens=prompt_lens)
+    h, _ = backbone(cfg, params, h, positions, cache, "prefill",
+                    lens=prompt_lens)
     if prompt_lens is None:
         prompt_lens = torch.full((h.shape[0],), h.shape[1],
                                  dtype=torch.int32, device=h.device)
@@ -643,12 +750,13 @@ def chunk_logits(cfg, params, cache: dict, tokens: torch.Tensor,
     chunk_lens[s] tokens, pos advanced by chunk_lens.  Returns the logits
     after each slot's last valid chunk token ([slots, V]; garbage for rows
     with chunk_lens == 0) and the cache."""
+    _check_decoder(cfg)
     b, t = tokens.shape
     pos = cache["pos"]
     h, positions = embed_inputs(cfg, params, {
         "tokens": tokens, "positions": _window_positions(cfg, pos, t)})
-    h = backbone(cfg, params, h, positions, cache, "decode",
-                 write_lens=chunk_lens)
+    h, _ = backbone(cfg, params, h, positions, cache, "decode",
+                    write_lens=chunk_lens)
     idx = torch.clamp(chunk_lens.long() - 1, 0, t - 1)
     h_last = h[torch.arange(b, device=h.device), idx][:, None]
     logits = lm_logits(cfg, params, h_last)
@@ -682,6 +790,7 @@ def decode_step(cfg, params, cache: dict, tokens: torch.Tensor,
     """tokens [b, t] -> (logits [b, t, V], cache).  `ssm_steps`
     (`ssm_step_buffers(cache, t)`) takes the SSM state after each of the t
     tokens; ``cache["ssm"]`` is then its last token's."""
+    _check_decoder(cfg)
     b, t = tokens.shape
     pos = cache["pos"]
     h, positions = embed_inputs(cfg, params, {
@@ -691,7 +800,7 @@ def decode_step(cfg, params, cache: dict, tokens: torch.Tensor,
     new = ssm_steps
     if new is None and "ssm" in cache:
         new = S.SSMState(*map(torch.empty_like, cache["ssm"]))
-    h = backbone(cfg, params, h, positions, cache, "decode", ssm_out=new)
+    h, _ = backbone(cfg, params, h, positions, cache, "decode", ssm_out=new)
     logits = lm_logits(cfg, params, h)
     cache["pos"] = pos + t
     if ssm_steps is not None:

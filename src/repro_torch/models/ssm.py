@@ -6,7 +6,9 @@ Recurrence (per head h, head_dim p, state n):
 
 Prefill uses the chunked SSD form through the `ssd_scan` kernel (its plain
 version on the CPU); decode uses the O(1) recurrent step in plain PyTorch,
-as the reference does.  Precisions follow the reference: dtx = dt * x and
+as the reference does.  Training (``train=True``) takes the differentiable
+chunked form `ssd_scan_ref` on every device, as the reference's training
+lowers its plain `_ssd_chunked`: the kernel has no backward.  Precisions follow the reference: dtx = dt * x and
 the state in f32, B/C/y in the model dtype.
 
 The prefill updates a state handed in IN PLACE (the reference returns new
@@ -107,13 +109,16 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  B: torch.Tensor, C: torch.Tensor, chunk: int,
-                 init_state: torch.Tensor | None = None):
+                 init_state: torch.Tensor | None = None,
+                 train: bool = False):
     """Chunked SSD.  x [b, l, nh, hp], dt [b, l, nh] f32, A [nh] f32,
     B/C [b, l, n], init_state [b, nh, hp, n] f32 or None.  Returns
-    (y [b, l, nh, hp] in x's dtype, final_state [b, nh, hp, n] f32)."""
+    (y [b, l, nh, hp] in x's dtype, final_state [b, nh, hp, n] f32).
+    `train` takes the differentiable plain scan (the train path)."""
     dtx = (dt[..., None] * x.float()).permute(0, 2, 1, 3).contiguous()
     lt = (dt * A[None, None, :]).permute(0, 2, 1).contiguous()
-    scan = ssd_scan if current_ssd_impl() == "kernel" else ssd_scan_ref
+    scan = (ssd_scan if current_ssd_impl() == "kernel" and not train
+            else ssd_scan_ref)
     y, final = scan(dtx, lt, B.contiguous(), C.contiguous(), chunk=chunk,
                     init_state=(init_state.contiguous()
                                 if init_state is not None else None),
@@ -145,14 +150,15 @@ def _ssd_recurrent(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def mamba2_block(u: torch.Tensor, p: dict, s: SSMConfig, d_model: int,
                  state: SSMState | None = None, decode: bool = False,
                  out: SSMState | None = None,
-                 lens: torch.Tensor | None = None):
+                 lens: torch.Tensor | None = None, train: bool = False):
     """Full Mamba2 block on the normed input u [b, l, d].  Returns
     (out [b, l, d], new_state): the prefill's is `state` itself, updated
     in place, when one was given; the decode step (which needs both)
     reads `state` and returns `out`, holding the new state — or, when
     `out`'s tensors have a leading [l] axis, the state after each token.
     `lens` [b] (prefill only): the valid rows of each window; the state
-    stops at them, and the output rows past them are garbage."""
+    stops at them, and the output rows past them are garbage.  `train`
+    (no state): the differentiable scan, no kernel."""
     b, l, _ = u.shape
     di, nh, hp = s.d_inner(d_model), s.n_heads(d_model), s.head_dim
 
@@ -188,7 +194,7 @@ def mamba2_block(u: torch.Tensor, p: dict, s: SSMConfig, d_model: int,
                                     steps=steps)
     else:
         y, new_ssm = _ssd_chunked(xh, dtf, A, cB, cC, s.chunk_size,
-                                  state.ssm if has else None)
+                                  state.ssm if has else None, train=train)
 
     y = y + p["D"].to(u.dtype)[None, None, :, None] * xh
     y = y.reshape(b, l, di)

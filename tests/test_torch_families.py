@@ -22,8 +22,8 @@ caches within 1e-4 abs + 1e-4 rel, greedy tokens identical:
   equal it, dense and paged.  The reference's tokens-only `prefill`
   differs from its triple `prefill`: a strict xfail records that;
 * the registry resolves all ten assigned architectures and their twins as
-  the reference does; hubert is refused by the model, the engine and the
-  launcher.
+  the reference does; hubert's cache and decode steps are refused by the
+  model, and hubert by the engine and the launcher.
 
 The reference's side of each model comparison runs eagerly: one call per
 case at two layers costs less than a jit compile.
@@ -242,9 +242,14 @@ def test_registry_resolves_every_assigned_arch_as_the_reference():
 
 
 def test_hubert_is_refused_by_model_engine_and_launcher():
+    """The encoder has parameters (it trains: tests/test_torch_training.py)
+    but no cache and no decode step."""
     cfg = get_config("hubert-xlarge-smoke")
-    with pytest.raises(NotImplementedError, match="training"):
-        tm.init_params(cfg, torch.Generator().manual_seed(0))
+    tm.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="encoder-only"):
+        tm.init_cache(cfg, 2, 16, "cpu")
+    with pytest.raises(ValueError, match="encoder-only"):
+        tm.init_paged_cache(cfg, 2, 8, 4, None, "cpu")
     with pytest.raises(ValueError, match="encoder-only"):
         PapiEngine(cfg, {}, device="cpu")
     with pytest.raises(ValueError, match="encoder-only"):

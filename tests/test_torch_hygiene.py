@@ -51,6 +51,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.serving.kv_pages, repro_torch.serving.metrics\n"
         "import repro_torch.serving.faults\n"
         "import repro_torch.models, repro_torch.serving, repro_torch.launch.serve\n"
+        "import repro_torch.data, repro_torch.training, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
