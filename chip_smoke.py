@@ -208,6 +208,28 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      logits of the prompt alone within 1e-3; the cut draft's spec_len 4
      streams (a partial accept seen) equal the spec_len 1 streams, else
      the first divergence and the margin there;
+  6i. mesh serving on the tensor axis, ``--mesh 1,2`` with both ranks on
+     this one card (NCCL refuses two ranks on a device: gloo, every
+     collective staged through a host copy, counted as a host transfer),
+     in one spawned world (`launch.mesh.spawn_world`): first a one-rank
+     NCCL world (make_serving_mesh, an all_reduce and an all_gather on the
+     card); each rank's FC banks (column: q/k/v, gate/up; row: o, down,
+     reduced over the ranks) at qwen2-0.5b's and granite-8b's widths
+     (bf16, m = 8) against the plain unsharded product, both sharded
+     Attn-PIM wrappers at qwen2's (1 KV head a rank) and granite's (4 a
+     rank, g = 4) geometry, t = 1, 4 and 64, bit-equal to the unsharded
+     kernel's rows for the rank's heads and within tolerance of the plain
+     version; full-width full-depth qwen2-0.5b in the engine: f32 dense
+     (default rules: the slab split by sequence, plain attention),
+     attn_pim (sanitized), paged (Attn-PIM over pages) and speculative
+     (attn_pim, spec_len 4, the perfect draft) streams equal
+     the one-rank engine's token for token, both FC variants ran, steady
+     iterations at the engine's transfer budget, each kernel launched on
+     each rank; bf16 attn_pim: the share of equal tokens and the
+     first-step logit distance; granite-8b (full width, depth cut to 8)
+     bf16 attn_pim; each rank's bytes of weights and KV and tokens/s
+     beside the one-rank engine's (no claim); the shard shapes' kernel
+     times, the card alone;
   7. training, on the train path the reference lowers (no kernel: plain
      matmuls, the plain blocked attention, the differentiable plain SSD
      scan); bf16, random weights from seed 0, batch 8 x seq 512 as two
@@ -293,6 +315,12 @@ from repro_torch.serving import (EngineCrashError,  # noqa: E402
                                  latency_summary, read_records, recover,
                                  write_trace)
 from repro_torch.serving.engine import _nonfinite  # noqa: E402
+from repro_torch.distributed.sharding import (axis_rules,  # noqa: E402
+                                              local_block, serve_rules)
+from repro_torch.launch.mesh import (make_serving_mesh,  # noqa: E402
+                                     spawn_world)
+from repro_torch.models.linear import papi_linear_group  # noqa: E402
+from repro_torch.models.weights import shard_params  # noqa: E402
 from repro_torch.training import (AdamWConfig, CheckpointManager,  # noqa: E402
                                   TrainConfig, init_adamw, make_train_step,
                                   run_training)
@@ -3845,6 +3873,391 @@ def phase_training() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# Phase 6i: mesh serving on the tensor axis (--mesh 1,2), both ranks on
+# this card over gloo: every collective is staged through a host copy
+MESH_TP = 2
+MESH_PROMPTS = [24, 150, 40, 70, 12, 33]     # 150 and 70 chunk (window 64)
+MESH_ENGINE = dict(max_slots=8, cache_capacity=512, prefill_len=64, alpha=4)
+MESH_CASES = {"dense": {}, "attn_pim": dict(attn_pim=True, sanitize=True),
+              "paged": dict(kv_layout="paged", page_size=16, attn_pim=True),
+              "spec": dict(attn_pim=True, spec_len=4)}
+MESH_GRANITE_DEPTH = 8
+MESH_ATTN = {"qwen2-0.5b": (2, 7, 64), "granite-8b": (8, 4, 128)}
+MESH_TIMEOUT_S = 600
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _mesh_run(cfg, params, case: str, mesh=None) -> dict:
+    """One engine run of phase 6i's requests (one rank of the mesh, or the
+    one-rank engine), the launch counts set to 0 just before `run()`."""
+    kw = dict(MESH_CASES[case])
+    if kw.get("spec_len"):
+        kw["draft"] = (cfg, params)          # the perfect draft
+    eng = PapiEngine(cfg, params, mesh=mesh, device=DEV, **MESH_ENGINE,
+                     **kw)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate(MESH_PROMPTS):
+        eng.submit(ServeRequest(i, rng.integers(3, cfg.vocab_size,
+                                                size=n).tolist(),
+                                max_new_tokens=8 + 4 * i))
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(max_iterations=500)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steady = [s.transfers for s in eng.stats if s.admitted == 0
+              and s.decode_slots and not s.prefill_slots and not s.degraded]
+    rep = eng.sanitize_report()
+    return dict(
+        streams={r.req_id: list(r.tokens) for r in results},
+        reasons=sorted(r.finished_reason for r in results),
+        fc=sorted({s.fc_variant for s in eng.stats}), wall=wall,
+        tokens=sum(len(r.tokens) for r in results),
+        launches=read_counts(), steady=sorted(set(steady)),
+        budget=eng.transfer_budget, degraded=eng.degraded_steps,
+        sanitized=None if rep is None else rep.steady_iterations,
+        weight_bytes=_tree_bytes(eng.params),
+        kv_bytes=_tree_bytes({k: eng.cache[k] for k in ("k", "v")}),
+        kv_shape=tuple(eng.cache["k"].shape),
+        staged=0 if mesh is None else mesh.staged_copies)
+
+
+def _mesh_first_logits(cfg, params, mesh=None, rules=None) -> torch.Tensor:
+    """The prefill logits of phase 6i's first 4 prompts cut to 12 tokens
+    (on the mesh: the gathered vocabulary, the same on every rank)."""
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(np.stack([
+        rng.integers(3, cfg.vocab_size, size=n)[:12]
+        for n in MESH_PROMPTS[:4]])).to(DEV)
+    scope = (axis_rules(rules, mesh) if mesh is not None
+             else contextlib.nullcontext())
+    with scope, torch.no_grad():
+        if mesh is not None:
+            params = shard_params(cfg, params, rules, mesh)
+        cache = init_cache(cfg, 4, 64, DEV)
+        logits, _ = prefill(cfg, params, {"tokens": toks}, cache)
+    return logits.float().cpu()
+
+
+def _mesh_banks(mesh) -> dict:
+    """Each rank's FC banks at qwen2-0.5b's and granite-8b's widths (bf16,
+    m = 8, under serve_rules(attn_pim=True)): the column groups (q/k/v,
+    gate/up) against the columns of the plain unsharded product, the row
+    banks (o, down) reduced over the ranks against the whole product."""
+    out = {}
+    rules = serve_rules(attn_pim=True)
+    for arch in ("qwen2-0.5b", "granite-8b"):
+        cfg = get_config(arch)
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        q, kv, f = cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.d_ff
+        gen = torch.Generator(device=DEV).manual_seed(5)
+        banks = [("qkv", "col", d, [q, kv, kv], "heads", cfg.num_heads),
+                 ("o", "row", q, [d], "heads", cfg.num_heads),
+                 ("gate_up", "col", d, [f, f], "ffn", f),
+                 ("down", "row", f, [d], "ffn", f)]
+        for name, tp, K, ns, bank, units in banks:
+            x = torch.randn(8, K, generator=gen, device=DEV).bfloat16()
+            ws = [(torch.randn(K, n, generator=gen, device=DEV)
+                   / K ** 0.5).bfloat16() for n in ns]
+            want = [fc_mod.fc_gemv_ref(x, w) for w in ws]
+            if tp == "col":
+                xs = x
+                wl = [local_block(w, (None, "model"), mesh) for w in ws]
+            else:
+                xs = local_block(x, (None, "model"), mesh)
+                wl = [local_block(w, ("model", None), mesh) for w in ws]
+            n0 = fc_mod.LAUNCHES
+            with axis_rules(rules, mesh), fc_variant("pim"):
+                got = papi_linear_group(xs, wl, tp=tp, bank=bank,
+                                        units=units)
+            torch.cuda.synchronize()
+            errs, ok = [], True
+            for g, w_, full in zip(got, wl, want):
+                if tp == "col":
+                    r = mesh.coords["model"]
+                    full = full[:, r * w_.shape[1]:(r + 1) * w_.shape[1]]
+                e, good, _ = max_err(g, full)
+                errs.append(e)
+                ok = ok and good
+            out[f"{arch} {name}"] = dict(
+                err=max(errs), ok=ok, launches=fc_mod.LAUNCHES - n0,
+                shapes=[tuple(w.shape) for w in wl])
+    return out
+
+
+def _mesh_attention(mesh) -> dict:
+    """Both sharded Attn-PIM wrappers at qwen2's and granite's geometry,
+    t = 1, 4 and 64, bf16: bit-equal to the unsharded kernel's rows for
+    the rank's KV heads, within tolerance of the plain version."""
+    from repro_torch.kernels.decode_attention import decode_attention_sharded
+    from repro_torch.kernels.paged_decode_attention import \
+        paged_decode_attention_sharded
+    out = {}
+    r = mesh.coords["model"]
+    for arch, (nkv, g, hd) in MESH_ATTN.items():
+        n = nkv // MESH_TP
+        for t in (1, 4, 64):
+            gen = torch.Generator(device=DEV).manual_seed(t)
+            b, S, page = 8, 2048, 16
+            q = torch.randn(b, nkv, t * g, hd, generator=gen,
+                            device=DEV).bfloat16()
+            k = torch.randn(b, S, nkv, hd, generator=gen,
+                            device=DEV).bfloat16()
+            v = torch.randn(b, S, nkv, hd, generator=gen,
+                            device=DEV).bfloat16()
+            lens = torch.tensor([2048, 1, 700, 1500, 64, 513, 2000, 77],
+                                dtype=torch.int32, device=DEV)
+            lens = torch.clamp(lens, min=t)
+            ql = local_block(q, (None, "model"), mesh)
+            kl = local_block(k, (None, None, "model"), mesh)
+            vl = local_block(v, (None, None, "model"), mesh)
+            n0 = attn_mod.LAUNCHES
+            got = decode_attention_sharded(ql, kl, vl, lens, mesh=mesh,
+                                           heads=nkv, q_rows=t)
+            full = attn_mod.decode_attention(q, k, v, lens, q_rows=t)
+            ref = attn_mod.decode_attention_ref(q, k, v, lens, t)
+            mine = slice(r * n, (r + 1) * n)
+            e, ok, _ = max_err(got, ref[:, mine])
+            out[f"{arch} dense t={t}"] = dict(
+                bitwise=bool(torch.equal(got, full[:, mine])), err=e, ok=ok,
+                launches=attn_mod.LAUNCHES - n0 - 1,
+                shape=tuple(kl.shape))
+            pages = b * S // page
+            perm = torch.randperm(pages, generator=gen, device=DEV)
+            tables = perm.reshape(b, S // page).to(torch.int32).contiguous()
+            kp = torch.empty(pages, page, nkv, hd, dtype=k.dtype, device=DEV)
+            vp = torch.empty_like(kp)
+            kp[perm] = k.reshape(pages, page, nkv, hd)
+            vp[perm] = v.reshape(pages, page, nkv, hd)
+            kpl = local_block(kp, (None, None, "model"), mesh)
+            vpl = local_block(vp, (None, None, "model"), mesh)
+            n0 = paged_mod.LAUNCHES
+            got = paged_decode_attention_sharded(ql, kpl, vpl, lens, tables,
+                                                 mesh=mesh, heads=nkv,
+                                                 q_rows=t)
+            fullp = paged_mod.paged_decode_attention(q, kp, vp, lens, tables,
+                                                     q_rows=t)
+            e, ok, _ = max_err(got, ref[:, mine])
+            out[f"{arch} paged t={t}"] = dict(
+                bitwise=bool(torch.equal(got, fullp[:, mine])), err=e,
+                ok=ok, launches=paged_mod.LAUNCHES - n0 - 1,
+                shape=tuple(kpl.shape))
+    return out
+
+
+def _mesh_rank(rank: int, device, granite_depth: int) -> dict:
+    """One rank of phase 6i's world: the banks, the sharded attention, the
+    engine runs, the first-step logits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_serving_mesh(1, MESH_TP, device=device)
+    out = {"banks": _mesh_banks(mesh), "attention": _mesh_attention(mesh)}
+    cfg32 = family_cfg("qwen2-0.5b", dtype="float32")
+    params = init_params(cfg32, torch.Generator(device=DEV).manual_seed(0))
+    out["f32"] = {c: _mesh_run(cfg32, params, c, mesh) for c in MESH_CASES}
+    out["f32_logits"] = _mesh_first_logits(cfg32, params, mesh,
+                                           serve_rules())
+    del params
+    cfg16 = get_config("qwen2-0.5b")
+    params = init_params(cfg16, torch.Generator(device=DEV).manual_seed(0))
+    out["bf16"] = _mesh_run(cfg16, params, "attn_pim", mesh)
+    out["bf16_logits"] = _mesh_first_logits(cfg16, params, mesh,
+                                            serve_rules())
+    del params
+    gcfg = family_cfg("granite-8b", depth=granite_depth)
+    params = init_params(gcfg, torch.Generator(device=DEV).manual_seed(0))
+    out["granite"] = _mesh_run(gcfg, params, "attn_pim", mesh)
+    out["collectives"] = mesh.collectives
+    return out
+
+
+def _nccl_world_of_one() -> str:
+    """A one-rank NCCL world on the card: make_serving_mesh and an
+    all_reduce and an all_gather on CUDA tensors."""
+    import torch.distributed as dist
+    work = _work_dir()
+    dist.init_process_group("nccl", init_method=f"file://{work.name}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_serving_mesh(1, 1, device=DEV)
+        x = torch.arange(6, dtype=torch.float32, device=DEV)
+        dist.all_reduce(x)
+        parts = [torch.empty_like(x)]
+        dist.all_gather(parts, x)
+        torch.cuda.synchronize()
+        ok = torch.equal(parts[0], torch.arange(6, device=DEV).float())
+        check(ok and mesh.backend == "nccl" and not mesh.staged,
+              f"NCCL world of one: backend {mesh.backend}, collectives ok "
+              f"{ok}")
+        return mesh.backend
+    finally:
+        dist.destroy_process_group()
+        work.cleanup()
+
+
+def _shard_times() -> None:
+    """The shard shapes' kernel times, this process alone on the card: one
+    qwen2 / granite layer's FC-PIM groups whole and at the rank's shard
+    (bf16, m = 8), and Attn-PIM at t = 1 over all KV heads and a rank's."""
+    for arch in ("qwen2-0.5b", "granite-8b"):
+        cfg = get_config(arch)
+        whole = fc_groups(cfg)
+        d, hd = cfg.d_model, cfg.resolved_head_dim
+        q, kv, f = cfg.num_heads * hd, cfg.num_kv_heads * hd, cfg.d_ff
+        shard = [(d, [q // 2, kv // 2, kv // 2]), (q // 2, [d]),
+                 (d, [f // 2, f // 2]), (f // 2, [d])]
+        gen = torch.Generator(device=DEV).manual_seed(3)
+        times = {}
+        for label, groups in (("whole", whole), ("shard", shard)):
+            nbytes = sum(K * n * 2 for K, ns in groups for n in ns)
+            copies = max(1, -(-2 * L2_BYTES // nbytes))
+            sets = [[(torch.randn(8, K, generator=gen,
+                                  device=DEV).bfloat16(),
+                      [(torch.randn(K, n, generator=gen, device=DEV)
+                        / K ** 0.5).bfloat16() for n in ns])
+                     for K, ns in groups] for _ in range(copies)]
+
+            def layer(gs):
+                for x, ws in gs:
+                    fc_mod.fc_gemv_group(x, ws)
+
+            def plain(gs):
+                for x, ws in gs:
+                    for w in ws:
+                        torch.matmul(x, w)
+            times[label] = (time_ms(layer, [(g,) for g in sets]),
+                            time_ms(plain, [(g,) for g in sets]),
+                            bound(nbytes, sum(2 * 8 * K * n for K, ns
+                                              in groups for n in ns),
+                                  torch.bfloat16)[0])
+        nkv, g, hd = MESH_ATTN[arch]
+        at = {}
+        for label, n in (("whole", nkv), ("shard", nkv // 2)):
+            q_, k_, v_, lens = _attn_inputs(gen, torch.bfloat16, 1,
+                                            [2048] * 8, nkv=n, g=g, hd=hd)
+            at[label] = time_ms(
+                lambda a, b_, c, l_: attn_mod.decode_attention(
+                    a, b_, c, l_, splits=attn_mod.num_splits(
+                        8, nkv, g, attn_mod.sm_count(DEV))),
+                [(q_, k_, v_, lens)])
+        print(f"      {arch} shard times ({CARD}), bf16, m = 8: one layer's "
+              f"FC-PIM {times['whole'][0]:.4f} ms whole / "
+              f"{times['shard'][0]:.4f} ms a rank's shard (torch.matmul "
+              f"{times['whole'][1]:.4f} / {times['shard'][1]:.4f}, bound "
+              f"{times['whole'][2]:.4f} / {times['shard'][2]:.4f}); "
+              f"Attn-PIM t=1, b 8, lens 2048: {at['whole']:.4f} ms over "
+              f"{nkv} KV heads / {at['shard']:.4f} ms over a rank's "
+              f"{nkv // 2} (the unsharded split count)", flush=True)
+
+
+def phase_mesh() -> dict:
+    """Phase 6i (module docstring): the one-rank NCCL world, the one-rank
+    engine's runs here, the tp = 2 world, and the checks between them.
+    Returns the mesh path's launches, summed over the ranks' engine runs."""
+    print(f"      NCCL world of one: {_nccl_world_of_one()}", flush=True)
+    _shard_times()
+    cfg32 = family_cfg("qwen2-0.5b", dtype="float32")
+    params = init_params(cfg32, torch.Generator(device=DEV).manual_seed(0))
+    one = {c: _mesh_run(cfg32, params, c) for c in MESH_CASES}
+    one_logits32 = _mesh_first_logits(cfg32, params)
+    del params
+    cfg16 = get_config("qwen2-0.5b")
+    params = init_params(cfg16, torch.Generator(device=DEV).manual_seed(0))
+    one16 = _mesh_run(cfg16, params, "attn_pim")
+    one_logits16 = _mesh_first_logits(cfg16, params)
+    del params
+    gcfg = family_cfg("granite-8b", depth=MESH_GRANITE_DEPTH)
+    params = init_params(gcfg, torch.Generator(device=DEV).manual_seed(0))
+    one_granite = _mesh_run(gcfg, params, "attn_pim")
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn_world(_mesh_rank, MESH_TP, device="cuda",
+                        timeout_s=MESH_TIMEOUT_S,
+                        args=(MESH_GRANITE_DEPTH,),
+                        store_dir=ROOT / "build", threads=2)
+    print(f"      mesh (1, {MESH_TP}) world: {MESH_TP} ranks on one "
+          f"{torch.cuda.get_device_name(0)} over gloo, collectives staged "
+          f"through host copies; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    launches = {name: 0 for name in MODS}
+    for r, res in enumerate(ranks):
+        for key, b in res["banks"].items():
+            check(b["ok"] and b["launches"] == 1,
+                  f"rank {r} FC bank {key}: max err {b['err']:.3g}, "
+                  f"{b['launches']} fc_gemv launch at {b['shapes']}")
+        for key, a in res["attention"].items():
+            check(a["bitwise"] and a["ok"] and a["launches"] == 1,
+                  f"rank {r} {key}: bit-equal to the unsharded kernel "
+                  f"{a['bitwise']}, max err {a['err']:.3g} at {a['shape']}")
+        for case, got in res["f32"].items():
+            want = one[case]
+            label = f"rank {r} f32 {case}"
+            check(got["streams"] == want["streams"],
+                  f"{label}: streams equal the one-rank engine's "
+                  f"({_first_divergence(got['streams'], want['streams'])})")
+            check(got["fc"] == ["pim", "pu"], f"{label}: FC variants "
+                  f"{got['fc']}")
+            check(got["steady"] == [got["budget"]] and got["degraded"] == 0,
+                  f"{label}: steady transfers {got['steady']}, budget "
+                  f"{got['budget']}")
+            attn = ("paged_decode_attention" if case == "paged"
+                    else "decode_attention")
+            ln = got["launches"]
+            check(ln["fc_gemv"] > 0 and (ln[attn] > 0 or case == "dense"),
+                  f"{label}: launches {ln}")
+            for name, n in ln.items():
+                launches[name] += n
+        check(res["f32"]["attn_pim"]["sanitized"],
+              f"rank {r}: sanitized attn_pim run, "
+              f"{res['f32']['attn_pim']['sanitized']} steady iterations")
+        check(res["granite"]["kv_shape"][3] == 4,
+              f"rank {r} granite: {res['granite']['kv_shape'][3]} KV heads "
+              "a rank")
+        for key in ("bf16", "granite"):
+            for name, n in res[key]["launches"].items():
+                launches[name] += n
+        check(torch.equal(res["f32_logits"], ranks[0]["f32_logits"])
+              and torch.equal(res["bf16_logits"], ranks[0]["bf16_logits"]),
+              f"rank {r}: the same gathered logits as rank 0")
+    r0 = ranks[0]
+    d32 = (r0["f32_logits"] - one_logits32).abs().max().item()
+    d16 = (r0["bf16_logits"] - one_logits16).abs().max().item()
+    same16 = _same_tokens(r0["bf16"]["streams"], one16["streams"])
+    sameg = _same_tokens(r0["granite"]["streams"], one_granite["streams"])
+    print(f"      first-step logits, mesh vs one rank: f32 max |diff| "
+          f"{d32:.3g}, bf16 {d16:.3g} (bf16 row-bank partials rounded "
+          f"to bf16 by fc_gemv / matmul, summed in f32, rounded once); "
+          f"bf16 attn_pim tokens equal {same16[0]}/{same16[1]}; granite-8b "
+          f"(depth {MESH_GRANITE_DEPTH}) bf16 attn_pim tokens equal "
+          f"{sameg[0]}/{sameg[1]}", flush=True)
+    for label, got, want in (
+            [(f"qwen2 f32 {c}", r0["f32"][c], one[c]) for c in MESH_CASES]
+            + [("qwen2 bf16 attn_pim", r0["bf16"], one16),
+               (f"granite-8b/{MESH_GRANITE_DEPTH} bf16 attn_pim",
+                r0["granite"], one_granite)]):
+        print(f"      {label}: tp=2 {got['tokens'] / got['wall']:.1f} tok/s "
+              f"({got['wall']:.2f} s) vs tp=1 "
+              f"{want['tokens'] / want['wall']:.1f} tok/s; a rank holds "
+              f"{got['weight_bytes'] / 2**20:.1f} MiB of weights and "
+              f"{got['kv_bytes'] / 2**20:.1f} MiB of KV (one rank alone: "
+              f"{want['weight_bytes'] / 2**20:.1f} / "
+              f"{want['kv_bytes'] / 2**20:.1f} MiB); transfers per steady "
+              f"iteration {got['steady']} (one rank {want['steady']}); "
+              f"launches per rank {got['launches']}", flush=True)
+    print(f"      mesh launches (both ranks, engine runs): "
+          f"{json.dumps(launches)}; collectives on rank 0: "
+          f"{r0['collectives']}", flush=True)
+    return launches
+
+
 def main() -> int:
     global CARD
     card = CARD = card_line()
@@ -3903,6 +4316,7 @@ def main() -> int:
     timed(phase_family_kernels)
     family_launches = timed(phase_family_paths)
     timed(phase_family_parity)
+    mesh_launches = timed(phase_mesh)
     train_launches = timed(phase_training)
     # the sum over every path's run, each with the counts set to 0 just
     # before it
@@ -3920,7 +4334,8 @@ def main() -> int:
           + f"; mamba2-1.3b and zamba2-1.2b speculative (phase 4o, 4 runs): "
           f"{json.dumps(ssm_spec_launches)}"
           + f"; the other families (phase 4n, 21 runs): "
-          f"{json.dumps(family_launches)}; training (phase 7): "
+          f"{json.dumps(family_launches)}; mesh (phase 6i, 2 ranks x 6 "
+          f"runs): {json.dumps(mesh_launches)}; training (phase 7): "
           f"{json.dumps(train_launches)}", flush=True)
     launches = {name: n + spec_launches[name] + serve_launches[name]
                 + failure_launches.get(name, 0)
@@ -3929,6 +4344,7 @@ def main() -> int:
                 + sum(ln[name] for ln in ssm_launches.values())
                 + ssm_spec_launches[name]
                 + family_launches[name]
+                + mesh_launches[name]
                 for name, n in launches.items()}
 
     rows = [

@@ -135,11 +135,19 @@ def _launch_fn():
     return _fn
 
 
+def check_splits(splits: int | None) -> None:
+    if splits is not None and not 1 <= splits <= SPLITS_MAX:
+        raise ValueError(f"splits must lie in [1, {SPLITS_MAX}], got "
+                         f"{splits}")
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lens: torch.Tensor, *,
-                     q_rows: int = 1) -> torch.Tensor:
+                     q_rows: int = 1,
+                     splits: int | None = None) -> torch.Tensor:
     """[b, nkv, t*g, hd] queries against the first `lens` cache positions
-    -> [b, nkv, t*g, hd] in q's dtype, through Attn-PIM."""
+    -> [b, nkv, t*g, hd] in q's dtype, through Attn-PIM.  `splits` fixes
+    the KV split count (default `num_splits` of these shapes)."""
     global LAUNCHES
     _build.refuse_autograd("decode_attention", q, k_cache, v_cache)
     b, nkv, tg, hd = q.shape
@@ -171,7 +179,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("decode_attention needs contiguous inputs")
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("K/V must be 16-byte aligned (vector loads)")
-    ns = num_splits(b, nkv, tg, sm_count(q.device))
+    check_splits(splits)
+    ns = splits or num_splits(b, nkv, tg, sm_count(q.device))
     part = split_scratch(q, ns)
     out = torch.empty_like(q)
     err = _launch_fn()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -184,3 +193,40 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     LAUNCHES += 1
     LAUNCHES_BY_ROWS[q_rows] = LAUNCHES_BY_ROWS.get(q_rows, 0) + 1
     return out
+
+
+def shard_heads(heads: int, mesh, axis: str) -> int:
+    """KV heads one rank holds when `heads` are split over `axis`: heads /
+    size where that divides, else all of them (the unsharded fallback)."""
+    size = dict(mesh.shape).get(axis, 1) if mesh is not None else 1
+    return heads // size if size > 1 and heads % size == 0 else heads
+
+
+def sharded_splits(q: torch.Tensor, heads: int) -> int | None:
+    """The unsharded call's split count over all `heads` KV heads (None on
+    the CPU, whose plain version does not split)."""
+    if q.device.type != "cuda":
+        return None
+    b, _, tg, _ = q.shape
+    return num_splits(b, heads, tg, sm_count(q.device))
+
+
+def decode_attention_sharded(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, lens: torch.Tensor, *,
+                             mesh, heads: int, axis: str = "model",
+                             q_rows: int = 1) -> torch.Tensor:
+    """One Attn-PIM unit per KV-head shard — the reference's
+    `decode_attention_sharded` for one process per rank.  q [b, n, t*g,
+    hd] and K/V [b, S, n, hd] are this rank's blocks of a problem over
+    `heads` KV heads split over the mesh axis `axis` (n = heads / size);
+    the kernel runs on them with no cross-rank term and returns this
+    rank's block of the output.  Where `heads` does not divide the axis
+    the blocks are the whole tensors and every rank runs the unsharded
+    kernel.  The split count is the unsharded call's, so the block is bit
+    for bit the unsharded kernel's rows for these heads."""
+    n = shard_heads(heads, mesh, axis)
+    if q.shape[1] != n or k_cache.dim() != 4 or k_cache.shape[2] != n:
+        raise ValueError(f"this rank holds {n} of {heads} KV heads; got q "
+                         f"{tuple(q.shape)} and K {tuple(k_cache.shape)}")
+    return decode_attention(q, k_cache, v_cache, lens, q_rows=q_rows,
+                            splits=sharded_splits(q, heads))

@@ -19,6 +19,8 @@ the kernel never reads them and the plain version masks them.  `LAUNCHES`
 counts calls that ran the kernel, one per call; a call with more than one
 split issues two CUDA launches (the split pass and the merge).
 `LAUNCHES_BY_ROWS` counts the same calls by their window t (``q_rows``).
+`paged_decode_attention_sharded` splits the pools by KV head, one Attn-PIM
+unit per shard, as the dense module's `decode_attention_sharded` does.
 """
 from __future__ import annotations
 
@@ -28,9 +30,12 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (DTYPES, HEAD_DIMS,
+                                                  check_splits,
                                                   decode_attention_ref,
                                                   num_splits, row_tile,
-                                                  sm_count, split_scratch)
+                                                  shard_heads,
+                                                  sharded_splits, sm_count,
+                                                  split_scratch)
 
 LAUNCHES = 0
 LAUNCHES_BY_ROWS: dict[int, int] = {}
@@ -69,13 +74,14 @@ def _launch_fn():
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, lens: torch.Tensor,
                            tables: torch.Tensor, *,
-                           q_rows: int = 1) -> torch.Tensor:
+                           q_rows: int = 1,
+                           splits: int | None = None) -> torch.Tensor:
     """[b, nkv, t*g, hd] queries against the first `lens` logical positions
     of each request's pages -> [b, nkv, t*g, hd] in q's dtype, through
     Attn-PIM.  The table entries a request's length reaches must name pages
     of the pool: checking them on the card would cost a device->host copy,
     so the kernel trusts them (the engine's allocator only hands out pool
-    pages)."""
+    pages).  `splits` fixes the KV split count (default `num_splits`)."""
     global LAUNCHES
     _build.refuse_autograd("paged_decode_attention", q, k_pages, v_pages)
     b, nkv, tg, hd = q.shape
@@ -112,7 +118,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_decode_attention needs contiguous inputs")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("K/V pages must be 16-byte aligned (vector loads)")
-    ns = num_splits(b, nkv, tg, sm_count(q.device))
+    check_splits(splits)
+    ns = splits or num_splits(b, nkv, tg, sm_count(q.device))
     part = split_scratch(q, ns)
     out = torch.empty_like(q)
     err = _launch_fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -125,3 +132,25 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     LAUNCHES += 1
     LAUNCHES_BY_ROWS[q_rows] = LAUNCHES_BY_ROWS.get(q_rows, 0) + 1
     return out
+
+
+def paged_decode_attention_sharded(q: torch.Tensor, k_pages: torch.Tensor,
+                                   v_pages: torch.Tensor, lens: torch.Tensor,
+                                   tables: torch.Tensor, *, mesh, heads: int,
+                                   axis: str = "model",
+                                   q_rows: int = 1) -> torch.Tensor:
+    """One Attn-PIM unit per KV-head shard over pages — the reference's
+    `paged_decode_attention_sharded` for one process per rank: q [b, n,
+    t*g, hd] and the pools [P, page, n, hd] are this rank's blocks of
+    `heads` KV heads split over `axis` (n = heads / size, or all of them
+    where that does not divide), lens and tables are whole on every rank.
+    No cross-rank term; the unsharded call's split count keeps the block
+    bit-equal to the unsharded kernel's rows."""
+    n = shard_heads(heads, mesh, axis)
+    if q.shape[1] != n or k_pages.dim() != 4 or k_pages.shape[2] != n:
+        raise ValueError(f"this rank holds {n} of {heads} KV heads; got q "
+                         f"{tuple(q.shape)} and pages "
+                         f"{tuple(k_pages.shape)}")
+    return paged_decode_attention(q, k_pages, v_pages, lens, tables,
+                                  q_rows=q_rows,
+                                  splits=sharded_splits(q, heads))

@@ -1,0 +1,263 @@
+"""The serving mesh of the port: one process per rank over
+`torch.distributed`, the counterpart of `repro.launch.mesh`.
+
+    spawn_world(fn, world, device="cpu", timeout_s=90, args=(...))
+
+starts `world` ranks (``torch.multiprocessing`` spawn; rendezvous through
+a `FileStore` file, so no TCP port is taken and parallel worlds cannot
+collide), runs ``fn(rank, device, *args)`` in each and returns their
+results in rank order.  The backend is gloo on the CPU, NCCL when the
+host has a card per rank, and gloo again when several ranks share one card
+(NCCL refuses two ranks on one device): each rank then stages its
+collectives through host copies (`ServingMesh.staged`), which the serving
+engine counts as host transfers.  A rank that raises, or a world that is
+not done within ``timeout_s``, kills every rank and raises here: a hang
+costs seconds.  `fn` must be importable by module name in the child (a
+module-level function of this package or of a test helper module).
+
+`make_serving_mesh(dp, tp)` builds the (data, model) mesh over the world
+the calling rank joined: ``model`` is the tensor axis (one FC-PIM bank and
+one Attn-PIM unit per shard, PAPI §5.3), ``data`` replicates the engine.
+Its collectives (`ServingMesh.all_gather`, `all_reduce`) give every rank
+of a group the same bytes: `all_reduce` gathers the partials and adds them
+in rank order, in f32, whatever the backend's own reduction order.
+
+The reference's `make_production_mesh`, `make_host_mesh` and
+`force_host_device_count` exist for XLA's host-device trick (one process,
+N fake devices); a process per rank needs none of them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import pickle
+import queue as queue_mod
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.debug.sanitize import transfer_allowed
+
+
+def parse_mesh(spec: str) -> tuple[int, int]:
+    """Parse a ``--mesh dp,tp`` CLI value into (dp, tp)."""
+    parts = spec.split(",")
+    if len(parts) != 2:
+        raise ValueError(f"--mesh wants 'dp,tp', got {spec!r}")
+    dp, tp = (int(p) for p in parts)
+    if dp < 1 or tp < 1:
+        raise ValueError(f"mesh axes must be >= 1, got {spec!r}")
+    return dp, tp
+
+
+def world_backend(world: int, device: torch.device | str) -> str:
+    """gloo on the CPU and for ranks that share a card, NCCL with a card
+    per rank."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def rank_device(rank: int, world: int,
+                device: torch.device | str) -> torch.device:
+    """Rank `rank`'s device: the CPU, its own card, or card 0 shared."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev
+    if torch.cuda.device_count() >= world:
+        return torch.device("cuda", rank)
+    return torch.device("cuda", 0)
+
+
+@dataclasses.dataclass
+class ServingMesh:
+    """The (data, model) mesh as one rank sees it: the axis sizes, this
+    rank's coordinates, a process group per axis (None for an axis of size
+    1) and a gloo group for host-side agreement."""
+    shape: dict[str, int]
+    coords: dict[str, int]
+    groups: dict[str, Any]
+    host_group: Any
+    device: torch.device
+    backend: str
+    # collectives on CUDA tensors over gloo go through host copies
+    staged: bool
+    collectives: int = 0       # collectives run (all axes)
+    staged_copies: int = 0     # device->host copies they made
+
+    @property
+    def rank(self) -> int:
+        return dist.get_rank()
+
+    def all_gather(self, x: torch.Tensor, axis: str = "model",
+                   dim: int = 0) -> torch.Tensor:
+        """Concatenate every rank's `x` along `dim`, in rank order."""
+        return torch.cat(self._gather(x, axis), dim=dim)
+
+    def all_reduce(self, x: torch.Tensor, axis: str = "model"
+                   ) -> torch.Tensor:
+        """The sum of every rank's `x`, added in rank order in f32 and
+        cast back to x's dtype: the same bytes on every rank."""
+        parts = self._gather(x, axis)
+        acc = parts[0].float()
+        for p in parts[1:]:
+            acc = acc + p.float()
+        return acc.to(x.dtype)
+
+    def _gather(self, x: torch.Tensor, axis: str) -> list[torch.Tensor]:
+        group = self.groups.get(axis)
+        if group is None:
+            return [x]
+        self.collectives += 1
+        x = x.contiguous()
+        if not self.staged:
+            parts = [torch.empty_like(x) for _ in range(self.shape[axis])]
+            dist.all_gather(parts, x, group=group)
+            return parts
+        self.staged_copies += 1
+        with transfer_allowed():
+            host = x.cpu()
+            parts = [torch.empty_like(host) for _ in range(self.shape[axis])]
+            dist.all_gather(parts, host, group=group)
+            return [p.to(x.device) for p in parts]
+
+    def host_gather(self, arr: np.ndarray) -> list[np.ndarray]:
+        """Every rank's host array (same shape and dtype), in rank order,
+        over the host group (no device work)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, t, group=self.host_group)
+        return [p.numpy() for p in parts]
+
+    def host_any(self, flags: np.ndarray) -> np.ndarray:
+        """Element-wise OR of a bool array over every rank (host-side)."""
+        return np.any(np.stack(self.host_gather(flags.astype(np.uint8))),
+                      axis=0)
+
+
+def make_serving_mesh(dp: int = 1, tp: int = 1, *,
+                      device: torch.device | str | None = None
+                      ) -> ServingMesh:
+    """The serving engine's (data, model) mesh over the process group the
+    caller joined (world size dp * tp; rank r sits at data r // tp, model
+    r % tp).  Every rank must call it: it creates the axis groups."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_serving_mesh needs an initialised "
+                           "torch.distributed world (spawn_world)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world != dp * tp:
+        raise ValueError(f"mesh ({dp}, {tp}) needs {dp * tp} ranks, the "
+                         f"world has {world}")
+    backend = dist.get_backend()
+    dev = torch.device(device) if device is not None else (
+        rank_device(rank, world, "cuda") if backend == "nccl"
+        else torch.device("cpu"))
+    groups: dict[str, Any] = {"data": None, "model": None}
+    for d in range(dp):                      # every rank creates every group
+        g = dist.new_group([d * tp + j for j in range(tp)])
+        if tp > 1 and rank // tp == d:
+            groups["model"] = g
+    for j in range(tp):
+        g = dist.new_group([d * tp + j for d in range(dp)])
+        if dp > 1 and rank % tp == j:
+            groups["data"] = g
+    host_group = (dist.new_group(backend="gloo") if backend != "gloo"
+                  else dist.group.WORLD)
+    return ServingMesh(shape={"data": dp, "model": tp},
+                       coords={"data": rank // tp, "model": rank % tp},
+                       groups=groups, host_group=host_group, device=dev,
+                       backend=backend,
+                       staged=(backend == "gloo" and dev.type == "cuda"))
+
+
+def _rank_entry(rank: int, world: int, backend: str, store: str,
+                device: str, threads: int, timeout_s: float,
+                fn: Callable, args: Sequence, results) -> None:
+    try:
+        torch.set_num_threads(threads)
+        dev = rank_device(rank, world, device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend, init_method=f"file://{store}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            out = fn(rank, dev, *args)
+        finally:
+            dist.destroy_process_group()
+        # pickled here, by value: a tensor sent through the queue as is
+        # would be shared by a handle that dies with this process
+        results.put((rank, True, pickle.dumps(out)))
+    except Exception:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def spawn_world(fn: Callable, world: int, *,
+                device: torch.device | str = "cuda",
+                timeout_s: float = 90.0, args: Sequence = (),
+                store_dir: str | os.PathLike | None = None,
+                threads: int = 1) -> list:
+    """Run ``fn(rank, device, *args)`` on `world` spawned ranks and return
+    their results in rank order (module docstring).  `device` is "cpu" or
+    "cuda"; the rendezvous file goes under `store_dir` (default: a fresh
+    temporary directory)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("spawn_world on cuda needs a CUDA device")
+    backend = world_backend(world, dev)
+    if store_dir is not None:
+        os.makedirs(store_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="papi_world_", dir=store_dir)
+    store = os.path.join(tmp, "store")
+    ctx = torch.multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(r, world, backend, store, str(dev), threads,
+                               timeout_s, fn, tuple(args), results))
+             for r in range(world)]
+    deadline = time.monotonic() + timeout_s
+    got: dict[int, Any] = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(
+                    f"world of {world} ranks not done within {timeout_s}s "
+                    f"(ranks {sorted(got)} finished)")
+            try:
+                rank, ok, out = results.get(timeout=min(left, 1.0))
+            except queue_mod.Empty:
+                dead = [p for p in procs if p.exitcode not in (None, 0)]
+                if dead and not results.qsize():
+                    raise RuntimeError(
+                        f"rank process exited with {dead[0].exitcode} "
+                        "before reporting")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} of {world} failed:\n{out}")
+            got[rank] = pickle.loads(out)
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+        results.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [got[r] for r in range(world)]
+
+
+__all__ = ["ServingMesh", "make_serving_mesh", "parse_mesh", "rank_device",
+           "spawn_world", "world_backend"]

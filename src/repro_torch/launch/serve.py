@@ -73,6 +73,20 @@ speculate on the dense slab (``--spec-len k --draft-arch
 mamba2-1.3b|zamba2-1.2b``): a partial accept rewinds the SSM state to the
 accepted prefix, so the streams equal the TLP = 1 streams.
 
+Mesh serving (§5.3): ``--mesh DP,TP`` spawns DP x TP ranks
+(`launch.mesh.spawn_world`), one process each, and serves the same trace
+on every rank with the weights split over the tensor axis: FC-PIM banks,
+one Attn-PIM unit per KV-head shard (``--attn-pim``; ``--kv paged``
+always splits by KV head), the vocab-split embedding.  Every rank builds
+the full weights from ``--seed`` and keeps its block.  The backend is gloo
+on the CPU, NCCL with a card per rank, and gloo through host copies when
+the ranks share one card; rank 0 prints the usual lines and the mesh
+line, and alone writes the journal, the trace and the metrics.  Only
+``--mesh 1,TP`` on the dense and VLM decoders is served so far:
+
+    python -m repro_torch.launch.serve --arch qwen2-0.5b --mesh 1,2 \
+        [--attn-pim | --kv paged]
+
 Runs on the card (``--device cpu`` for the plain PyTorch path).  Prints
 the per-iteration scheduler decisions — RLP, TLP, the AI estimate and the
 chosen FC path — and, under ``--kv paged``, the page pool's watermark, as
@@ -81,6 +95,8 @@ chosen FC path — and, under ``--kv paged``, the page pool's watermark, as
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import logging
 import time
 
@@ -94,7 +110,12 @@ from repro_torch.models import init_params
 from repro_torch.serving import (EngineCrashError, PapiEngine, ServeRequest,
                                  Tracer, export_prometheus, latency_summary,
                                  parse_fault_specs, write_trace)
-from repro_torch.serving.engine import check_decoder
+from repro_torch.launch.mesh import (make_serving_mesh, parse_mesh,
+                                     spawn_world)
+from repro_torch.serving.engine import check_decoder, check_mesh
+
+# a mesh run's wall-clock limit (the world is killed past it)
+MESH_TIMEOUT_S = 3600.0
 
 # the generation budget's cap
 MAX_NEW = 64
@@ -168,7 +189,7 @@ def serve_live(eng: PapiEngine, sched, max_iterations: int = 2000) -> list:
     return results
 
 
-def main(argv=None) -> None:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--requests", type=int, default=16)
@@ -254,27 +275,56 @@ def main(argv=None) -> None:
                          "exactly the engine's transfer budget per steady "
                          "iteration (one, plus one per MoE layer of each "
                          "forward)")
+    ap.add_argument("--mesh", default=None, metavar="DP,TP",
+                    help="serve on DP x TP ranks, the weights split over "
+                         "the TP (tensor) axis, e.g. '1,2'; DP must be 1")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    return ap
 
-    if args.log_level:
-        logging.basicConfig(
-            level=getattr(logging, args.log_level.upper()),
-            format="%(asctime)s %(levelname)-7s %(name)s: %(message)s")
 
+def main(argv=None) -> None:
+    args = _parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
     check_decoder(cfg)     # before building weights the engine would refuse
+    if args.mesh:
+        dp, tp = parse_mesh(args.mesh)
+        check_mesh({"data": dp, "model": tp},
+                   [cfg] + ([get_config(args.draft_arch)]
+                            if args.draft_arch else []))
+        codes = spawn_world(_serve_rank, dp * tp, device=device.type,
+                            timeout_s=MESH_TIMEOUT_S,
+                            args=(argv, dp, tp), threads=2)
+        code = max(codes)
+    else:
+        code = _serve(args, device)
+    if code:
+        raise SystemExit(code)
+
+
+def _serve_rank(rank: int, device: torch.device, argv, dp: int,
+                tp: int) -> int:
+    """One rank of ``--mesh``: the whole launcher over this rank's block of
+    the weights; rank 0 prints, the others run silent."""
+    args = _parser().parse_args(argv)
+    mesh = make_serving_mesh(dp, tp, device=device)
+    quiet = (contextlib.redirect_stdout(io.StringIO()) if rank
+             else contextlib.nullcontext())
+    with quiet:
+        return _serve(args, device, mesh)
+
+
+def _build_engine(args, cfg, device, mesh, tracer) -> PapiEngine:
+    """The engine over weights made from the seed; under a mesh it keeps
+    this rank's block of them and the full weights go out of scope."""
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_params(cfg, gen)
     draft = None
     if args.draft_arch:
         dcfg = get_config(args.draft_arch)
         dgen = torch.Generator(device=device).manual_seed(args.seed + 1)
         draft = (dcfg, init_params(dcfg, dgen))
-    tracer = Tracer() if (args.trace or args.metrics_out) else None
-    eng = PapiEngine(cfg, params, max_slots=args.max_slots,
+    return PapiEngine(cfg, init_params(cfg, gen), max_slots=args.max_slots,
                      cache_capacity=args.capacity,
                      prefill_len=args.prefill_len, alpha=args.alpha,
                      spec_len=args.spec_len, draft=draft,
@@ -283,7 +333,27 @@ def main(argv=None) -> None:
                      faults=parse_fault_specs(args.fault,
                                               seed=args.fault_seed),
                      tracer=tracer, sanitize=args.sanitize,
-                     journal=args.journal, device=device)
+                     journal=args.journal, mesh=mesh, device=device)
+
+
+def _serve(args, device: torch.device, mesh=None) -> int:
+    """The launcher's run on one device or one rank; returns the exit
+    code (1 after an injected crash)."""
+    rank0 = mesh is None or mesh.rank == 0
+    if args.log_level and rank0:
+        logging.basicConfig(
+            level=getattr(logging, args.log_level.upper()),
+            format="%(asctime)s %(levelname)-7s %(name)s: %(message)s")
+    cfg = get_config(args.arch)
+    tracer = Tracer() if (args.trace or args.metrics_out) else None
+    eng = _build_engine(args, cfg, device, mesh, tracer)
+    if mesh is not None:
+        how = (f"{mesh.backend}, one card each" if mesh.backend == "nccl"
+               else f"gloo on one shared {mesh.device}, collectives staged "
+                    "through host copies" if mesh.staged
+               else f"gloo on {mesh.device}")
+        ranks = mesh.shape["data"] * mesh.shape["model"]
+        print(f"mesh: {dict(mesh.shape)} over {ranks} ranks ({how})")
     if args.resume:
         info = eng.restore(args.resume)
         print(f"resumed {info['resumed']} unfinished request(s) from "
@@ -313,7 +383,7 @@ def main(argv=None) -> None:
               + (f"; recover with --resume {args.journal}" if args.journal
                  else "; run with --journal PATH to make crashes "
                       "recoverable"))
-        raise SystemExit(1)
+        return 1
     wall = time.perf_counter() - t0
 
     by_reason: dict[str, int] = {}
@@ -335,7 +405,7 @@ def main(argv=None) -> None:
               f"transfers/iter (budget {rep.transfer_budget}), "
               f"{rep.programs} programs, {rep.recompiles} steady-state "
               "builds")
-    if draft is not None and args.spec_len > 1:
+    if args.draft_arch and args.spec_len > 1:
         acc = [s.accepted for s in eng.stats if s.new_tokens]
         mean = float(np.mean(acc)) if acc else 0.0
         print(f"speculation: spec_len {args.spec_len}, draft "
@@ -351,8 +421,9 @@ def main(argv=None) -> None:
     for s in eng.stats:
         print(f"{s.iteration:5d} {s.rlp:4d} {s.tlp:3d} {s.ai_estimate:5.1f}  "
               f"{s.fc_variant:7s} {s.new_tokens:5d}  {s.accepted:8.2f}")
-    if tracer is not None:
+    if tracer is not None and rank0:
         _report_trace(args, tracer)
+    return 0
 
 
 def _report_trace(args, tracer: Tracer) -> None:

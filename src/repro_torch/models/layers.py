@@ -24,11 +24,12 @@ import threading
 
 import torch
 
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_sharded)
 # gather_kv_pages: the paged layout's plain oracle path (the reference's
 # `layers.gather_kv_pages`), lives beside the paged kernel's plain version
 from repro_torch.kernels.paged_decode_attention import (  # noqa: F401
-    gather_kv_pages, paged_decode_attention)
+    gather_kv_pages, paged_decode_attention, paged_decode_attention_sharded)
 from repro_torch.models.linear import papi_linear, papi_linear_group
 
 _attn_state = threading.local()
@@ -127,27 +128,38 @@ def apply_m_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return out.to(x.dtype)
 
 
-def swiglu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """down( silu(gate(x)) * up(x) ); gate and up in one FC group."""
-    gate, up = papi_linear_group(x, [p["w_gate"], p["w_up"]])
+def swiglu_mlp(x: torch.Tensor, p: dict,
+               units: int | None = None) -> torch.Tensor:
+    """down( silu(gate(x)) * up(x) ); gate and up in one FC group (column
+    banks over "ffn"), down a row bank; `units` is the global FFN width,
+    which a mesh needs to tell whether the banks are split."""
+    gate, up = papi_linear_group(x, [p["w_gate"], p["w_up"]], tp="col",
+                                 units=units)
     act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return papi_linear(act, p["w_down"])
+    return papi_linear(act, p["w_down"], tp="row", units=units)
 
 
-def gelu_mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+def gelu_mlp(x: torch.Tensor, p: dict,
+             units: int | None = None) -> torch.Tensor:
     """GPT-style 2-layer MLP with biases; tanh GELU in f32, cast back
-    (``jax.nn.gelu(approximate=True)``)."""
-    h = papi_linear(x, p["w_in"]) + p["b_in"]
+    (``jax.nn.gelu(approximate=True)``).  The banks as `swiglu_mlp`'s."""
+    h = papi_linear(x, p["w_in"], tp="col", units=units) + p["b_in"]
     h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return papi_linear(h, p["w_out"]) + p["b_out"]
+    return papi_linear(h, p["w_out"], tp="row", units=units) + p["b_out"]
 
 
-def qkv_project(x: torch.Tensor, p: dict):
+def qkv_project(x: torch.Tensor, p: dict, heads: int | None = None,
+                kv_heads: int | None = None):
     """[b, s, d] -> q [b, s, nH, hd], k/v [b, s, nKV, hd], projected in
-    one FC group."""
+    one FC group of column banks (over "heads" for the q weight of a GQA
+    model, "kv_heads" otherwise, as the reference).  Under a mesh the
+    weights are the rank's blocks, so the heads are the rank's; `heads` /
+    `kv_heads` are the global counts."""
     b, s, d = x.shape
     ws = [p["w_q"], p["w_k"], p["w_v"]]
-    ys = papi_linear_group(x, [w.reshape(d, -1) for w in ws])
+    bank = "kv_heads" if heads == kv_heads else "heads"
+    ys = papi_linear_group(x, [w.reshape(d, -1) for w in ws], tp="col",
+                           bank=bank, units=heads)
     q, k, v = (y.reshape(b, s, *w.shape[1:]) for y, w in zip(ys, ws))
     if "b_q" in p:
         q = q + p["b_q"]
@@ -156,11 +168,14 @@ def qkv_project(x: torch.Tensor, p: dict):
     return q, k, v
 
 
-def out_project(attn: torch.Tensor, p: dict) -> torch.Tensor:
-    """[b, s, nH, hd] -> [b, s, d]."""
+def out_project(attn: torch.Tensor, p: dict,
+                heads: int | None = None) -> torch.Tensor:
+    """[b, s, nH, hd] -> [b, s, d]: a row bank over "heads" (`heads`
+    global), whose partial products a mesh sums over the tensor group."""
     b, s, nh, hd = attn.shape
     w = p["w_o"]
-    return papi_linear(attn.reshape(b, s, nh * hd), w.reshape(nh * hd, -1))
+    return papi_linear(attn.reshape(b, s, nh * hd), w.reshape(nh * hd, -1),
+                       tp="row", bank="heads", units=heads)
 
 
 def expand_kv_heads(k: torch.Tensor, nh: int) -> torch.Tensor:
@@ -270,29 +285,45 @@ def unfold_query_window(out: torch.Tensor, t: int, nh: int) -> torch.Tensor:
 
 
 def decode_attention_pim(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor,
-                         lens: torch.Tensor) -> torch.Tensor:
+                         v_cache: torch.Tensor, lens: torch.Tensor,
+                         shard: tuple | None = None) -> torch.Tensor:
     """Decode attention through the Attn-PIM kernel for any window t >= 1;
-    the t rows sit at absolute positions lens - t .. lens - 1."""
+    the t rows sit at absolute positions lens - t .. lens - 1.  `shard`
+    (mesh, global KV heads, axis): q and K/V are the rank's KV-head shard,
+    run as one unit of `decode_attention_sharded`."""
     b, t, nh, hd = q.shape
     nkv = k_cache.shape[2]
     qh = fold_query_window(q, nkv).contiguous()
-    out = decode_attention(qh, k_cache, v_cache,
-                           lens.to(torch.int32).contiguous(), q_rows=t)
+    lens = lens.to(torch.int32).contiguous()
+    if shard is None:
+        out = decode_attention(qh, k_cache, v_cache, lens, q_rows=t)
+    else:
+        mesh, heads, axis = shard
+        out = decode_attention_sharded(qh, k_cache, v_cache, lens,
+                                       mesh=mesh, heads=heads, axis=axis,
+                                       q_rows=t)
     return unfold_query_window(out, t, nh)
 
 
 def decode_attention_pim_paged(q: torch.Tensor, k_pages: torch.Tensor,
                                v_pages: torch.Tensor, tables: torch.Tensor,
-                               lens: torch.Tensor) -> torch.Tensor:
+                               lens: torch.Tensor,
+                               shard: tuple | None = None) -> torch.Tensor:
     """Paged decode attention through the block-table Attn-PIM kernel for
     any window t >= 1 (rows at absolute positions lens - t .. lens - 1); no
-    contiguous view of the pages is built."""
+    contiguous view of the pages is built.  `shard` as in
+    `decode_attention_pim`."""
     b, t, nh, hd = q.shape
     nkv = k_pages.shape[2]
     qh = fold_query_window(q, nkv).contiguous()
-    out = paged_decode_attention(qh, k_pages, v_pages,
-                                 lens.to(torch.int32).contiguous(),
-                                 tables.to(torch.int32).contiguous(),
-                                 q_rows=t)
+    lens = lens.to(torch.int32).contiguous()
+    tables = tables.to(torch.int32).contiguous()
+    if shard is None:
+        out = paged_decode_attention(qh, k_pages, v_pages, lens, tables,
+                                     q_rows=t)
+    else:
+        mesh, heads, axis = shard
+        out = paged_decode_attention_sharded(qh, k_pages, v_pages, lens,
+                                             tables, mesh=mesh, heads=heads,
+                                             axis=axis, q_rows=t)
     return unfold_query_window(out, t, nh)

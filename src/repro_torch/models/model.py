@@ -36,8 +36,20 @@ the reference's training lowers only XLA code: the FC projections take
 of each stacked leaf, so a layer's gradient lands in its slice of the
 stacked leaf (weight decay sees the stacked layout, as in the reference).
 
+Mesh serving (`distributed.sharding.axis_rules` installed): every leaf
+of the params and caches is this rank's block under the rules
+(`param_shardings`, `cache_shardings`, `paged_cache_shardings`; the
+caches allocate only that block), and the forward gives each layout
+itself: the FC banks (`models.linear`), attention over the rank's heads
+(`head_split`, `_mesh_decode_attention`: one Attn-PIM unit per KV-head
+shard, or the sequence-split slab's merged partials), the vocab-split
+embedding and the gathered logits (`vocab_split`).
+
 Entry points:
   init_params(cfg, generator)            -> params
+  param_logical_axes / param_shardings(cfg, rules, mesh)
+  cache_logical_axes / cache_shardings, paged_cache_logical_axes /
+  paged_cache_shardings                  -> trees of spec tuples
   forward_train(cfg, params, batch, remat=True) -> (loss, metrics)
   init_cache(cfg, batch, capacity, device)
   init_paged_cache(cfg, max_slots, num_pages, page_size, max_blocks, device)
@@ -59,6 +71,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (block_range, current_mesh,
+                                              current_rules, tensor_split,
+                                              tree_shardings)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -75,6 +90,8 @@ class PSpec:
     init: str = "normal"      # normal | zeros | ones | a_log | dt_bias
     std: float = 0.02
     dtype: str | None = None  # None: the model's dtype
+    # logical axis names of the dims (the reference's, for the rule tables)
+    logical: tuple = ()
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -93,6 +110,28 @@ def _check_decoder(cfg: ModelConfig) -> None:
                          "no decode step (train it with forward_train)")
 
 
+def collectives_per_forward(cfg: ModelConfig, cache: dict,
+                            attn_pim: bool) -> int:
+    """Collectives one forward of `cfg` runs on a rank under the installed
+    mesh (0 outside one): the vocab-split embedding's sum and the logits'
+    gather, and per layer the row banks' sums (out-projection, down), the
+    q-head gather and the partials' gather over a sequence-split slab
+    (`cache` holds ``kv_seq``), or the q-head gather that lets Attn-PIM
+    run unsharded where the KV heads are whole."""
+    if current_mesh() is None:
+        return 0
+    heads, _ = tensor_split("heads", cfg.num_heads)
+    kv_heads, _ = tensor_split("kv_heads", cfg.num_kv_heads)
+    ffn, _ = tensor_split("ffn", cfg.d_ff)
+    per_layer = int(heads > 1) + int(ffn > 1)
+    if "kv_seq" in cache:
+        per_layer += 1 + int(heads > 1)
+    elif heads > 1 and kv_heads == 1 and attn_pim:
+        per_layer += 1
+    vocab = 2 if vocab_split(cfg) is not None else 0
+    return vocab + cfg.num_layers * per_layer
+
+
 def host_copies_per_forward(cfg: ModelConfig) -> int:
     """Device->host copies one forward of the model makes: one per MoE
     layer (`moe.moe_mlp` reads its per-expert counts), none otherwise."""
@@ -104,15 +143,18 @@ def _attn_spec(cfg: ModelConfig, residual_std: float) -> dict:
                       cfg.resolved_head_dim)
     std = d ** -0.5
     p = {
-        "w_q": PSpec((d, nh, hd), std=std),
-        "w_k": PSpec((d, nkv, hd), std=std),
-        "w_v": PSpec((d, nkv, hd), std=std),
-        "w_o": PSpec((nh, hd, d), std=residual_std),
+        "w_q": PSpec((d, nh, hd), std=std, logical=("fsdp", "heads", None)),
+        "w_k": PSpec((d, nkv, hd), std=std,
+                     logical=("fsdp", "kv_heads", None)),
+        "w_v": PSpec((d, nkv, hd), std=std,
+                     logical=("fsdp", "kv_heads", None)),
+        "w_o": PSpec((nh, hd, d), std=residual_std,
+                     logical=("heads", None, "fsdp")),
     }
     if cfg.qkv_bias:
-        p["b_q"] = PSpec((nh, hd), "zeros")
-        p["b_k"] = PSpec((nkv, hd), "zeros")
-        p["b_v"] = PSpec((nkv, hd), "zeros")
+        p["b_q"] = PSpec((nh, hd), "zeros", logical=("heads", None))
+        p["b_k"] = PSpec((nkv, hd), "zeros", logical=("kv_heads", None))
+        p["b_v"] = PSpec((nkv, hd), "zeros", logical=("kv_heads", None))
     return p
 
 
@@ -121,15 +163,16 @@ def _mlp_spec(cfg: ModelConfig, residual_std: float) -> dict:
     std = d ** -0.5
     if cfg.mlp == "swiglu":
         return {
-            "w_gate": PSpec((d, f), std=std),
-            "w_up": PSpec((d, f), std=std),
-            "w_down": PSpec((f, d), std=residual_std),
+            "w_gate": PSpec((d, f), std=std, logical=("fsdp", "ffn")),
+            "w_up": PSpec((d, f), std=std, logical=("fsdp", "ffn")),
+            "w_down": PSpec((f, d), std=residual_std,
+                            logical=("ffn", "fsdp")),
         }
     return {
-        "w_in": PSpec((d, f), std=std),
-        "b_in": PSpec((f,), "zeros"),
-        "w_out": PSpec((f, d), std=residual_std),
-        "b_out": PSpec((d,), "zeros"),
+        "w_in": PSpec((d, f), std=std, logical=("fsdp", "ffn")),
+        "b_in": PSpec((f,), "zeros", logical=("ffn",)),
+        "w_out": PSpec((f, d), std=residual_std, logical=("ffn", "fsdp")),
+        "b_out": PSpec((d,), "zeros", logical=(None,)),
     }
 
 
@@ -137,10 +180,12 @@ def _moe_spec(cfg: ModelConfig, residual_std: float) -> dict:
     d, f, e = cfg.d_model, cfg.moe.d_ff, cfg.moe.num_experts
     std = d ** -0.5
     return {
-        "w_router": PSpec((d, e), std=std),
-        "w_gate": PSpec((e, d, f), std=std),
-        "w_up": PSpec((e, d, f), std=std),
-        "w_down": PSpec((e, f, d), std=residual_std),
+        "w_router": PSpec((d, e), std=std, logical=(None, None)),
+        "w_gate": PSpec((e, d, f), std=std,
+                        logical=("experts", "fsdp", None)),
+        "w_up": PSpec((e, d, f), std=std, logical=("experts", "fsdp", None)),
+        "w_down": PSpec((e, f, d), std=residual_std,
+                        logical=("experts", None, "fsdp")),
     }
 
 
@@ -148,34 +193,40 @@ def _ssm_spec(cfg: ModelConfig, residual_std: float) -> dict:
     s, d = cfg.ssm, cfg.d_model
     di, nh, n, k = s.d_inner(d), s.n_heads(d), s.d_state, s.conv_kernel
     std = d ** -0.5
+    heads = ("ssm_heads",)
     return {
-        "w_z": PSpec((d, di), std=std),
-        "w_x": PSpec((d, di), std=std),
-        "w_B": PSpec((d, n), std=std),
-        "w_C": PSpec((d, n), std=std),
-        "w_dt": PSpec((d, nh), std=std),
-        "conv_x": PSpec((k, di), std=1 / math.sqrt(k)),
-        "conv_B": PSpec((k, n), std=1 / math.sqrt(k)),
-        "conv_C": PSpec((k, n), std=1 / math.sqrt(k)),
+        "w_z": PSpec((d, di), std=std, logical=("fsdp", "ssm_heads")),
+        "w_x": PSpec((d, di), std=std, logical=("fsdp", "ssm_heads")),
+        "w_B": PSpec((d, n), std=std, logical=("fsdp", None)),
+        "w_C": PSpec((d, n), std=std, logical=("fsdp", None)),
+        "w_dt": PSpec((d, nh), std=std, logical=("fsdp", "ssm_heads")),
+        "conv_x": PSpec((k, di), std=1 / math.sqrt(k),
+                        logical=(None, "ssm_heads")),
+        "conv_B": PSpec((k, n), std=1 / math.sqrt(k), logical=(None, None)),
+        "conv_C": PSpec((k, n), std=1 / math.sqrt(k), logical=(None, None)),
         # f32 in any model dtype: recurrence-critical, as in the reference
-        "A_log": PSpec((nh,), "a_log", dtype="float32"),
-        "D": PSpec((nh,), "ones"),
-        "dt_bias": PSpec((nh,), "dt_bias", dtype="float32"),
-        "norm_w": PSpec((di,), "ones"),
-        "w_out": PSpec((di, d), std=residual_std),
+        "A_log": PSpec((nh,), "a_log", dtype="float32", logical=heads),
+        "D": PSpec((nh,), "ones", logical=heads),
+        "dt_bias": PSpec((nh,), "dt_bias", dtype="float32", logical=heads),
+        "norm_w": PSpec((di,), "ones", logical=heads),
+        "w_out": PSpec((di, d), std=residual_std,
+                       logical=("ssm_heads", "fsdp")),
     }
+
+
+def _norm_spec(d: int) -> PSpec:
+    return PSpec((d,), "ones", logical=(None,))
 
 
 def _layer_spec(cfg: ModelConfig, residual_std: float) -> dict:
     """Spec of ONE layer (unstacked)."""
     d = cfg.d_model
     if cfg.family in ("ssm", "hybrid"):
-        return {"norm": PSpec((d,), "ones"),
-                "ssm": _ssm_spec(cfg, residual_std)}
+        return {"norm": _norm_spec(d), "ssm": _ssm_spec(cfg, residual_std)}
     block = {
-        "norm1": PSpec((d,), "ones"),
+        "norm1": _norm_spec(d),
         "attn": _attn_spec(cfg, residual_std),
-        "norm2": PSpec((d,), "ones"),
+        "norm2": _norm_spec(d),
     }
     if cfg.family == "moe":
         block["moe"] = _moe_spec(cfg, residual_std)
@@ -190,28 +241,55 @@ def model_spec(cfg: ModelConfig) -> dict:
     residual_std = (d ** -0.5) / math.sqrt(max(2 * nl, 1))
 
     def stack(tree):
-        return {k: (dataclasses.replace(ps, shape=(nl,) + ps.shape)
+        return {k: (dataclasses.replace(ps, shape=(nl,) + ps.shape,
+                                        logical=("scan",) + ps.logical)
                     if isinstance(ps, PSpec) else stack(ps))
                 for k, ps in tree.items()}
 
     spec = {
-        "embed": {"w": PSpec((v, d), std=0.02)},
-        "final_norm": {"w": PSpec((d,), "ones")},
+        "embed": {"w": PSpec((v, d), std=0.02,
+                             logical=("embed_vocab", None))},
+        "final_norm": {"w": _norm_spec(d)},
         "layers": stack(_layer_spec(cfg, residual_std)),
     }
     if cfg.family == "hybrid":
         # one weight-tied attention+MLP block shared across applications
         spec["shared"] = {
-            "norm1": PSpec((d,), "ones"),
+            "norm1": _norm_spec(d),
             "attn": _attn_spec(cfg, residual_std),
-            "norm2": PSpec((d,), "ones"),
+            "norm2": _norm_spec(d),
             "mlp": _mlp_spec(cfg, residual_std),
         }
     if cfg.family == "audio":
-        spec["mask_embed"] = {"w": PSpec((d,), std=0.02)}
+        spec["mask_embed"] = {"w": PSpec((d,), std=0.02, logical=(None,))}
     if cfg.decoder and not cfg.tie_embeddings:
-        spec["lm_head"] = {"w": PSpec((d, v), std=d ** -0.5)}
+        spec["lm_head"] = {"w": PSpec((d, v), std=d ** -0.5,
+                                      logical=("fsdp", "embed_vocab"))}
     return spec
+
+
+def _spec_tree(cfg: ModelConfig, field: str) -> dict:
+    def walk(tree):
+        return {k: (getattr(v, field) if isinstance(v, PSpec) else walk(v))
+                for k, v in tree.items()}
+    return walk(model_spec(cfg))
+
+
+def param_logical_axes(cfg: ModelConfig) -> dict:
+    """The params tree of logical-axis tuples (the reference's)."""
+    return _spec_tree(cfg, "logical")
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The params tree of full (unsharded) shapes."""
+    return _spec_tree(cfg, "shape")
+
+
+def param_shardings(cfg: ModelConfig, rules, mesh) -> dict:
+    """The params tree of spec tuples under a rule table and mesh: dims
+    the mesh axes do not divide stay whole (`filter_spec_for_shape`)."""
+    return tree_shardings(param_logical_axes(cfg), param_shapes(cfg), rules,
+                          mesh)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -249,27 +327,138 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     return walk(model_spec(cfg))
 
 
+def _mesh_specs(axes, shapes, split_seq: bool = True):
+    """Spec tuples of a cache tree under the installed rules and mesh, or
+    None outside a mesh context; ``split_seq=False`` keeps the KV sequence
+    dim whole."""
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is None or rules is None:
+        return None
+    if not split_seq:
+        rules = dict(rules, act_kv_seq=None)
+    return tree_shardings(axes, shapes, rules, mesh)
+
+
+def _zeros_block(shape, spec, dtype, device) -> torch.Tensor:
+    """Zeros of this rank's block of `shape` under `spec` (whole: None)."""
+    if spec is not None:
+        mesh = current_mesh()
+        shape = tuple(hi - lo for lo, hi in (block_range(n, e, mesh)
+                                             for n, e in zip(shape, spec)))
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _cache_shapes(cfg: ModelConfig, batch: int, capacity: int) -> dict:
+    """The dense cache's full shapes (mirrors init_cache)."""
+    shapes: dict = {"pos": (batch,)}
+    if cfg.family in ("ssm", "hybrid"):
+        s = cfg.ssm
+        di, nh = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
+        k, nl = s.conv_kernel - 1, cfg.num_layers
+        shapes["ssm"] = S.SSMState(
+            conv_x=(nl, batch, k, di), conv_B=(nl, batch, k, s.d_state),
+            conv_C=(nl, batch, k, s.d_state),
+            ssm=(nl, batch, nh, s.head_dim, s.d_state))
+    if cfg.family in KV_FAMILIES + ("hybrid", "audio"):
+        kv = (cfg.num_attention_applications(), batch, capacity,
+              cfg.num_kv_heads, cfg.resolved_head_dim)
+        shapes["k"] = shapes["v"] = kv
+    return shapes
+
+
+def cache_logical_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of the dense cache (mirrors init_cache)."""
+    axes: dict = {"pos": (None,)}
+    if cfg.family in KV_FAMILIES + ("hybrid", "audio"):
+        axes["k"] = axes["v"] = ("scan", "batch", "act_kv_seq", "kv_heads",
+                                 None)
+    if cfg.family in ("ssm", "hybrid"):
+        axes["ssm"] = S.SSMState(
+            conv_x=("scan", "batch", None, "ssm_heads"),
+            conv_B=("scan", "batch", None, None),
+            conv_C=("scan", "batch", None, None),
+            ssm=("scan", "batch", "ssm_heads", None, None))
+    return axes
+
+
+def cache_shardings(cfg: ModelConfig, batch: int, capacity: int, rules,
+                    mesh) -> dict:
+    """Spec tuples of the dense cache under a rule table and mesh.  Under
+    `serve_rules()` the KV sequence dim lands on the tensor axis (each
+    rank owns a contiguous slice of positions); under
+    ``serve_rules(attn_pim=True)`` the KV head dim does."""
+    return tree_shardings(cache_logical_axes(cfg),
+                          _cache_shapes(cfg, batch, capacity), rules, mesh)
+
+
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
-               device: torch.device | str) -> dict:
+               device: torch.device | str, *, split_seq: bool = True) -> dict:
     """Decode cache: per-slot positions; dense, moe, vlm: [L, b, S, nkv,
     hd] K/V;
     ssm: ``ssm``, an `SSMState` of [L, b, ...] tensors (the SSM state f32);
     hybrid: both, with K/V [napps, b, S, nkv, hd] for the shared block's
-    applications."""
+    applications.
+
+    Under a mesh (`distributed.sharding.axis_rules` installed) only this
+    rank's block of each leaf is allocated (`cache_shardings`); when the
+    sequence dim is split, ``cache["kv_seq"]`` holds (this rank's first
+    position, the whole capacity).  ``split_seq=False`` keeps the sequence
+    whole (a prefill's temporary cache)."""
     _check_decoder(cfg)
     dtype = DTYPES[cfg.dtype]
-    cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
-    if cfg.family in ("ssm", "hybrid"):
-        one = S.init_state(batch, cfg.d_model, cfg.ssm, dtype, device)
+    shapes = _cache_shapes(cfg, batch, capacity)
+    specs = _mesh_specs(cache_logical_axes(cfg), shapes, split_seq)
+
+    def spec(key):
+        return None if specs is None else specs[key]
+
+    cache = {"pos": torch.zeros(shapes["pos"], dtype=torch.int32,
+                                device=device)}
+    if "ssm" in shapes:
         cache["ssm"] = S.SSMState(*(
-            torch.zeros((cfg.num_layers,) + x.shape, dtype=x.dtype,
-                        device=device) for x in one))
-    if cfg.family in KV_FAMILIES + ("hybrid",):
-        shape = (cfg.num_attention_applications(), batch, capacity,
-                 cfg.num_kv_heads, cfg.resolved_head_dim)
-        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
-        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+            _zeros_block(shp, None if specs is None else sp,
+                         torch.float32 if name == "ssm" else dtype, device)
+            for name, shp, sp in zip(S.SSMState._fields, shapes["ssm"],
+                                     specs["ssm"] if specs else shapes["ssm"])))
+    if "k" in shapes:
+        for key in ("k", "v"):
+            cache[key] = _zeros_block(shapes[key], spec(key), dtype, device)
+        seq = spec("k")[2] if specs is not None else None
+        lo, hi = (0, capacity) if seq is None else block_range(
+            capacity, seq, current_mesh())
+        if hi - lo < capacity:
+            cache["kv_seq"] = (lo, capacity)
     return cache
+
+
+def _paged_shapes(cfg: ModelConfig, max_slots: int, num_pages: int,
+                  page_size: int, max_blocks: int) -> dict:
+    kv = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+          cfg.resolved_head_dim)
+    return {"pos": (max_slots,), "k": kv, "v": kv,
+            "block_tables": (max_slots, max_blocks)}
+
+
+def paged_cache_logical_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of the paged cache (mirrors init_paged_cache): the
+    page-pool dim stays whole, the KV-head dim carries the Attn-PIM unit
+    split (`serve_rules(attn_pim=True)` maps kv_heads -> model)."""
+    return {"pos": (None,),
+            "k": ("scan", None, None, "kv_heads", None),
+            "v": ("scan", None, None, "kv_heads", None),
+            "block_tables": (None, None)}
+
+
+def paged_cache_shardings(cfg: ModelConfig, max_slots: int, num_pages: int,
+                          page_size: int, max_blocks: int | None, rules,
+                          mesh) -> dict:
+    """Spec tuples of the paged cache under a rule table and mesh."""
+    if max_blocks is None:
+        max_blocks = num_pages - 1
+    return tree_shardings(
+        paged_cache_logical_axes(cfg),
+        _paged_shapes(cfg, max_slots, num_pages, page_size, max_blocks),
+        rules, mesh)
 
 
 def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
@@ -278,7 +467,8 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
     """Paged decode cache: K/V in a pool of fixed-size pages (one page = one
     Attn-PIM bank row) and a per-slot block table mapping logical blocks to
     physical pages.  Page 0 is the garbage page: the tables start at 0, so
-    writes of slots not yet admitted land there harmlessly."""
+    writes of slots not yet admitted land there harmlessly.  Under a mesh
+    each rank allocates its KV heads' pools; tables stay whole."""
     _check_decoder(cfg)
     if cfg.family not in KV_FAMILIES:
         raise ValueError(
@@ -287,11 +477,13 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
     if max_blocks is None:
         max_blocks = num_pages - 1
     dtype = DTYPES[cfg.dtype]
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    shapes = _paged_shapes(cfg, max_slots, num_pages, page_size, max_blocks)
+    specs = _mesh_specs(paged_cache_logical_axes(cfg), shapes)
+    kv = {key: _zeros_block(shapes[key],
+                            None if specs is None else specs[key], dtype,
+                            device) for key in ("k", "v")}
     return {"pos": torch.zeros((max_slots,), dtype=torch.int32, device=device),
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
+            **kv,
             "block_tables": torch.zeros((max_slots, max_blocks),
                                         dtype=torch.int32, device=device)}
 
@@ -356,6 +548,48 @@ def _write_kv_masked(k_cache, v_cache, k_new, v_new, pos, valid_lens):
     return k_cache, v_cache
 
 
+def _write_kv_seq(k_cache, v_cache, k_new, v_new, idx, keep, kv_seq):
+    """The sequence-split slab's write: of the t new tokens at global
+    positions idx [b, t], those that `keep` marks AND this rank owns
+    (``kv_seq[0] <= idx < kv_seq[0] + S_local``) land in its slice; every
+    other row rewrites the value already there, at its local position
+    modulo S_local (distinct from the owned rows' for t <= S_local, as in
+    `_write_kv_masked`)."""
+    b, t = k_new.shape[0], k_new.shape[1]
+    span = k_cache.shape[1]
+    if t > span:
+        raise ValueError(f"a {t}-token write into a {span}-position slice "
+                         "of a sequence-split KV slab")
+    local = idx - kv_seq[0]
+    own = (keep & (local >= 0) & (local < span))[..., None, None]
+    local = local % span
+    bidx = torch.arange(b, device=idx.device)[:, None].expand(b, t)
+    k_cache[bidx, local] = torch.where(own, k_new, k_cache[bidx, local])
+    v_cache[bidx, local] = torch.where(own, v_new, v_cache[bidx, local])
+    return k_cache, v_cache
+
+
+def _write_kv_window(k_cache, v_cache, k_new, v_new, pos, write_lens,
+                     kv_seq):
+    """The decode path's KV write: masked to `write_lens` (chunked
+    prefill) or the plain clamped write, into a whole slab or this rank's
+    slice of a sequence-split one (`kv_seq`: (first position, capacity))."""
+    if kv_seq is None:
+        if write_lens is not None:
+            return _write_kv_masked(k_cache, v_cache, k_new, v_new, pos,
+                                    write_lens)
+        return _write_kv(k_cache, v_cache, k_new, v_new, pos)
+    t, cap = k_new.shape[1], kv_seq[1]
+    j = torch.arange(t, device=pos.device)[None, :]
+    if write_lens is not None:
+        idx = pos.long()[:, None] + j
+        keep = (j < write_lens.long()[:, None]) & (idx < cap)
+    else:
+        idx = torch.clamp(pos.long(), 0, cap - t)[:, None] + j
+        keep = torch.ones_like(idx, dtype=torch.bool)
+    return _write_kv_seq(k_cache, v_cache, k_new, v_new, idx, keep, kv_seq)
+
+
 def _paged_rows(pos, t, tables, page_size):
     """(physical page, row) of t new tokens per slot: logical position
     pos + j lands in block (pos + j) // page_size, clamped to the table
@@ -398,19 +632,22 @@ def _apply_positional(cfg: ModelConfig, q, k, positions):
             L.apply_rope(k, positions, cfg.rope_theta))
 
 
-def _decode_attention(q, k_cache, v_cache, pos, tables=None):
+def _decode_attention(q, k_cache, v_cache, pos, tables=None, shard=None):
     """THE decision point for decode-path attention: a [b, t, nh, hd]
     window at absolute positions pos .. pos + t - 1 (KV position j is
     visible to window row r iff j <= pos + r).  Under `attn_impl("pim")`
     every case runs an Attn-PIM kernel — the dense one over a slab, the
     paged one over pages (`tables` given); otherwise the plain path, which
-    first gathers a paged cache into a contiguous view."""
+    first gathers a paged cache into a contiguous view.  `shard` (mesh,
+    KV heads, axis) marks the rank's own KV-head shard: one Attn-PIM unit
+    of the `*_sharded` kernels."""
     t = q.shape[1]
     if L.current_attn_impl() == "pim":
         if tables is not None:
             return L.decode_attention_pim_paged(q, k_cache, v_cache, tables,
-                                                lens=pos + t)
-        return L.decode_attention_pim(q, k_cache, v_cache, lens=pos + t)
+                                                lens=pos + t, shard=shard)
+        return L.decode_attention_pim(q, k_cache, v_cache, lens=pos + t,
+                                      shard=shard)
     if tables is not None:
         k_cache = L.gather_kv_pages(k_cache, tables)
         v_cache = L.gather_kv_pages(v_cache, tables)
@@ -418,33 +655,178 @@ def _decode_attention(q, k_cache, v_cache, pos, tables=None):
                                   q_offset=pos)
 
 
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """How a layer's attention heads lie on this rank under a mesh: the
+    tensor axis (the one "heads" maps to; the serve rules put the KV
+    sequence split on it too), the q heads it holds (``q0`` .. ``q0 + nq``) of ``nh``,
+    whether its KV heads are its own shard (``kv_local``) or all of them,
+    and the GQA group ``g`` of the whole model."""
+    mesh: object
+    axis: str
+    nh: int
+    q0: int
+    nq: int
+    kv_local: bool
+    g: int
+
+    @property
+    def q_split(self) -> bool:
+        return self.nq < self.nh
+
+
+def head_split(cfg: ModelConfig, q: torch.Tensor,
+               k: torch.Tensor) -> HeadSplit | None:
+    """This rank's `HeadSplit` from the rules (None outside a mesh), with
+    the local q / new-K head counts checked against it."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    nh, nkv = cfg.num_heads, cfg.num_kv_heads
+    hs, hi = tensor_split("heads", nh)
+    ks, _ = tensor_split("kv_heads", nkv)
+    if q.shape[2] != nh // hs or k.shape[2] != nkv // ks:
+        raise ValueError(f"{cfg.name}: local q/K heads {q.shape[2]}/"
+                         f"{k.shape[2]} do not match the rules' split "
+                         f"{nh}/{hs}, {nkv}/{ks}")
+    if ks > 1 and ks != hs:
+        raise ValueError("KV heads split but q heads split otherwise")
+    axis = (current_rules() or {}).get("heads")
+    return HeadSplit(mesh, axis if isinstance(axis, str) else "model", nh,
+                     hi * (nh // hs), nh // hs, ks > 1, nh // nkv)
+
+
+def kv_for_heads(k: torch.Tensor, sp: HeadSplit) -> torch.Tensor:
+    """K/V [..., nkv, hd] with every KV head -> the KV heads the rank's q
+    heads read (q head h reads kv head h // g), laid out so that the
+    plain GQA fold pairs them: a head slice where the local q heads cover
+    whole groups or sit inside one, else one KV head per q head."""
+    lo = sp.q0 // sp.g
+    if sp.nq % sp.g == 0:
+        return k[..., lo:lo + sp.nq // sp.g, :]
+    if sp.g % sp.nq == 0:
+        return k[..., lo:lo + 1, :]
+    idx = torch.arange(sp.q0, sp.q0 + sp.nq, device=k.device) // sp.g
+    return k.index_select(k.dim() - 2, idx)
+
+
+def _seq_split_attention(q, k_cache, v_cache, pos, kv_seq, sp: HeadSplit):
+    """Decode attention over a sequence-split slab: each rank's plain
+    attention covers its slice of positions for every q head (the window
+    rows keep their global positions), the partial max, sum and
+    unnormalised output are all-gathered, and every rank merges them in
+    rank order — the split-S kernel's merge.  q holds all heads."""
+    b, t, nh, hd = q.shape
+    span, nkv = k_cache.shape[1], k_cache.shape[2]
+    g = nh // nkv
+    qg = q.reshape(b, t, nkv, g, hd)
+    s = torch.einsum("bthgk,bshk->bthgs", qg, k_cache).float()
+    s = s * (1.0 / math.sqrt(hd))
+    kv_pos = kv_seq[0] + torch.arange(span, device=q.device)
+    q_pos = pos[:, None] + torch.arange(t, device=q.device)[None, :]
+    valid = ((kv_pos[None, None, :] <= q_pos[..., None])
+             & (kv_pos[None, None, :] < (pos + t)[:, None, None]))
+    s = s.masked_fill(~valid[:, :, None, None, :], float("-inf"))
+    m = s.amax(dim=-1)                                       # [b,t,nkv,g]
+    m_safe = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+    p = torch.exp(s - m_safe[..., None])
+    part = torch.cat([
+        m[..., None], p.sum(dim=-1)[..., None],
+        torch.einsum("bthgs,bshk->bthgk", p.to(v_cache.dtype),
+                     v_cache).float()], dim=-1)               # [..., 2+hd]
+    parts = sp.mesh.all_gather(part[None], sp.axis, dim=0)
+    ms = parts[..., 0]
+    big = ms.amax(dim=0)
+    scale = torch.where(torch.isinf(ms), torch.zeros_like(ms),
+                        torch.exp(ms - big))
+    den = torch.zeros_like(big)
+    out = torch.zeros(big.shape + (hd,), dtype=torch.float32,
+                      device=q.device)
+    for r in range(parts.shape[0]):                          # rank order
+        den = den + scale[r] * parts[r, ..., 1]
+        out = out + scale[r][..., None] * parts[r, ..., 2:]
+    out = out / torch.clamp(den[..., None], min=1e-30)
+    return out.reshape(b, t, nh, hd).to(q.dtype)
+
+
+def _mesh_decode_attention(cfg, q, k_cache, v_cache, pos, tables, kv_seq,
+                           sp: HeadSplit):
+    """Decode attention on one rank of a mesh.  q holds the rank's q heads;
+    the result holds the same heads.
+      * KV heads split with the q heads: each rank attends over its own
+        heads (`decode_attention_sharded` under "pim"), no cross-rank term;
+      * sequence-split slab: the q heads are gathered and the partials of
+        every rank's slice merged (`_seq_split_attention`; plain only);
+      * KV heads whole, q heads split: under "pim" the q heads are
+        gathered and the unsharded kernel runs on every rank; the plain
+        path lets each local q head read its own KV head (`kv_for_heads`);
+      * neither split: the unsharded call."""
+    pim = L.current_attn_impl() == "pim"
+    if kv_seq is not None:
+        if pim:
+            raise ValueError(
+                "Attn-PIM needs the KV cache stored by KV head "
+                "(serve_rules(attn_pim=True)), not by sequence")
+        if tables is not None:
+            raise ValueError("a paged cache has no sequence dim to split")
+        full = (sp.mesh.all_gather(q, sp.axis, dim=2)
+                if sp.q_split else q)
+        out = _seq_split_attention(full, k_cache, v_cache, pos, kv_seq, sp)
+        return out[:, :, sp.q0:sp.q0 + sp.nq] if sp.q_split else out
+    if sp.kv_local or not sp.q_split:
+        shard = (sp.mesh, cfg.num_kv_heads, sp.axis) if sp.kv_local else None
+        return _decode_attention(q, k_cache, v_cache, pos, tables, shard)
+    if pim:
+        full = sp.mesh.all_gather(q, sp.axis, dim=2)
+        out = _decode_attention(full, k_cache, v_cache, pos, tables)
+        return out[:, :, sp.q0:sp.q0 + sp.nq]
+    if tables is not None:
+        k_cache = L.gather_kv_pages(k_cache, tables)
+        v_cache = L.gather_kv_pages(v_cache, tables)
+    return L.decode_attention_xla(q, kv_for_heads(k_cache, sp),
+                                  kv_for_heads(v_cache, sp),
+                                  cache_len=pos + q.shape[1], q_offset=pos)
+
+
 def attention_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
                     positions: torch.Tensor, kv, pos, mode: str,
                     tables: torch.Tensor | None = None,
-                    write_lens: torch.Tensor | None = None):
+                    write_lens: torch.Tensor | None = None,
+                    kv_seq: tuple[int, int] | None = None):
     """Pre-norm attention sub-block.  Returns h (the KV is written in
     place when `kv` is given).  `tables` [b, max_blocks] marks the paged
-    layout: `kv` are then page pools [num_pages, page, nkv, hd]."""
+    layout: `kv` are then page pools [num_pages, page, nkv, hd].
+    `kv_seq` marks this rank's slice of a sequence-split slab.  Under a
+    mesh q/k/v hold the rank's heads (`head_split`) and the out-projection
+    sums the heads' partial products over the tensor group."""
     a_in = L.norm(h, p["norm1"], cfg.norm, cfg.norm_eps)
-    q, k, v = L.qkv_project(a_in, p["attn"])
+    q, k, v = L.qkv_project(a_in, p["attn"], heads=cfg.num_heads,
+                            kv_heads=cfg.num_kv_heads)
     q, k = _apply_positional(cfg, q, k, positions)
-    if mode == "decode" and tables is not None:
-        _write_kv_paged(kv[0], kv[1], k, v, pos, tables,
-                        valid_lens=write_lens)
-        attn = _decode_attention(q, kv[0], kv[1], pos, tables)
-    elif mode == "decode":
-        if write_lens is not None:
-            # chunked prefill: ragged tails / non-chunking slots must not
-            # write; the hot decode path keeps the plain slice write
-            _write_kv_masked(kv[0], kv[1], k, v, pos, write_lens)
+    sp = head_split(cfg, q, k)
+    if mode == "decode":
+        if tables is not None:
+            _write_kv_paged(kv[0], kv[1], k, v, pos, tables,
+                            valid_lens=write_lens)
         else:
-            _write_kv(kv[0], kv[1], k, v, pos)
-        attn = _decode_attention(q, kv[0], kv[1], pos)
+            # chunked prefill masks ragged tails and non-chunking slots;
+            # the hot decode path keeps the plain slice write
+            _write_kv_window(kv[0], kv[1], k, v, pos, write_lens, kv_seq)
+        if sp is None:
+            attn = _decode_attention(q, kv[0], kv[1], pos, tables)
+        else:
+            attn = _mesh_decode_attention(cfg, q, kv[0], kv[1], pos, tables,
+                                          kv_seq, sp)
     else:
-        attn = L.flash_attention(q, k, v, causal=cfg.causal)
+        if sp is not None and sp.q_split and not sp.kv_local:
+            attn = L.flash_attention(q, kv_for_heads(k, sp),
+                                     kv_for_heads(v, sp), causal=cfg.causal)
+        else:
+            attn = L.flash_attention(q, k, v, causal=cfg.causal)
         if kv is not None:          # prefill: persist the new KV
-            _write_kv(kv[0], kv[1], k, v, torch.zeros_like(pos))
-    return h + L.out_project(attn, p["attn"])
+            _write_kv_window(kv[0], kv[1], k, v, torch.zeros_like(pos), None,
+                             kv_seq)
+    return h + L.out_project(attn, p["attn"], heads=cfg.num_heads)
 
 
 def mlp_block(cfg: ModelConfig, p: dict, h: torch.Tensor):
@@ -455,7 +837,7 @@ def mlp_block(cfg: ModelConfig, p: dict, h: torch.Tensor):
         y, aux = M.moe_mlp(m_in, p["moe"], cfg.moe)
         return h + y, aux
     mlp = L.swiglu_mlp if cfg.mlp == "swiglu" else L.gelu_mlp
-    return h + mlp(m_in, p["mlp"]), None
+    return h + mlp(m_in, p["mlp"], units=cfg.d_ff), None
 
 
 def ssm_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
@@ -487,10 +869,12 @@ def _transformer_backbone(cfg, layers, h, positions, cache, mode,
     of the MoE layers' aux losses, 0.0 without MoE)."""
     pos = cache["pos"] if cache is not None else None
     tables = cache.get("block_tables") if cache is not None else None
+    kv_seq = cache.get("kv_seq") if cache is not None else None
 
     def layer(h, lp, kv):
         h = attention_block(cfg, lp, h, positions, kv, pos, mode,
-                            tables=tables, write_lens=write_lens)
+                            tables=tables, write_lens=write_lens,
+                            kv_seq=kv_seq)
         return mlp_block(cfg, lp, h)
 
     run = _remat(layer, remat)
@@ -560,10 +944,34 @@ def backbone(cfg, params, h, positions, cache, mode, write_lens=None,
 # Heads / embedding
 # ---------------------------------------------------------------------------
 
+def vocab_split(cfg) -> tuple | None:
+    """(mesh, axis, first id) of this rank's slice of the vocabulary when
+    the rules split the embedding (and the untied head) over
+    "embed_vocab"; None when the vocabulary is whole."""
+    mesh = current_mesh()
+    size, idx = tensor_split("embed_vocab", cfg.vocab_size)
+    if size == 1:
+        return None
+    return mesh, current_rules()["embed_vocab"], idx * (cfg.vocab_size
+                                                       // size)
+
+
 def embed_tokens(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embedding; under a vocab-split mesh each rank looks up
+    the ids of its slice (zeros elsewhere) and the rows are summed over
+    the tensor group — exact, one term is non-zero."""
     # F.embedding's backward on the card sums by sorted index, without
     # the atomics of an indexing backward
-    return F.embedding(tokens.long(), params["embed"]["w"])
+    w = params["embed"]["w"]
+    split = vocab_split(cfg)
+    if split is None:
+        return F.embedding(tokens.long(), w)
+    mesh, axis, lo = split
+    idx = tokens.long() - lo
+    own = (idx >= 0) & (idx < w.shape[0])
+    rows = F.embedding(torch.clamp(idx, 0, w.shape[0] - 1), w)
+    rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
+    return mesh.all_reduce(rows, axis)
 
 
 def _window_positions(cfg, pos: torch.Tensor, t: int) -> torch.Tensor:
@@ -607,11 +1015,19 @@ def embed_inputs(cfg, params, batch: dict):
 
 
 def lm_logits(cfg, params, h: torch.Tensor) -> torch.Tensor:
-    """norm(h) @ lm_head, or @ embed^T for a tied head."""
+    """norm(h) @ lm_head, or @ embed^T for a tied head.  Under a
+    vocab-split mesh each rank computes its slice of the vocabulary and
+    the slices are all-gathered (the "vocab" dim), so every rank samples
+    from the same bytes."""
     h = L.norm(h, params["final_norm"]["w"], cfg.norm, cfg.norm_eps)
     if "lm_head" in params:
-        return torch.matmul(h, params["lm_head"]["w"])
-    return torch.matmul(h, params["embed"]["w"].t())
+        logits = torch.matmul(h, params["lm_head"]["w"])
+    else:
+        logits = torch.matmul(h, params["embed"]["w"].t())
+    split = vocab_split(cfg)
+    if split is not None:
+        logits = split[0].all_gather(logits, split[1], dim=-1)
+    return logits
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -681,9 +1097,10 @@ def prefill_to_slots(cfg, params, batch: dict, cache: dict,
     takes in the padding).
     Returns (first_tokens [slots] int32, cache); -1 for untouched slots."""
     n, p_len = batch["tokens"].shape
+    kv_seq = cache.get("kv_seq")
     if "k" in cache:
-        p_len = min(p_len, cache["k"].shape[2])
-    tmp = init_cache(cfg, n, p_len, cache["pos"].device)
+        p_len = min(p_len, kv_seq[1] if kv_seq else cache["k"].shape[2])
+    tmp = init_cache(cfg, n, p_len, cache["pos"].device, split_seq=False)
     logits, tmp = prefill(cfg, params, batch, tmp)
 
     take = torch.clamp(src.long(), min=0)             # [slots] row gather
@@ -694,9 +1111,12 @@ def prefill_to_slots(cfg, params, batch: dict, cache: dict,
         mask = keep.reshape((1, -1) + (1,) * (old.dim() - 2))
         old.copy_(torch.where(mask, old, new.index_select(1, take)))
 
+    # a sequence-split slab merges the prompt positions of its own slice
+    lo = kv_seq[0] if kv_seq else 0
+    hi = min(p_len, lo + cache["k"].shape[2]) if "k" in cache else lo
     for key in ("k", "v"):
-        if key in cache:
-            merge(cache[key][:, :, :p_len], tmp[key])
+        if key in cache and hi > lo:
+            merge(cache[key][:, :, :hi - lo], tmp[key][:, :, lo:hi])
     if "ssm" in cache:
         for old, new in zip(cache["ssm"], tmp["ssm"]):
             merge(old, new)
@@ -721,7 +1141,7 @@ def prefill_to_pages(cfg, params, batch: dict, cache: dict,
     slots, max_blocks = tables.shape
     page_size = cache["k"].shape[2]
     dev = cache["k"].device
-    tmp = init_cache(cfg, n, p_len, dev)
+    tmp = init_cache(cfg, n, p_len, dev, split_seq=False)
     logits, tmp = prefill(cfg, params, batch, tmp)
 
     take = torch.clamp(src.long(), min=0)             # [slots] row gather

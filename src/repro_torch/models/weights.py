@@ -8,6 +8,11 @@ arrays (e.g. ``jax.tree.map(np.asarray, params)``); bf16 leaves arrive as
 Each leaf takes its spec's dtype: the model's, except the SSM's A_log and
 dt_bias, which stay f32 in a bf16 model as in the reference.  This is how
 the tests hold the two packages to the same weights.
+
+`shard_params` keeps each rank's block of every leaf under a rule table
+and mesh (`model.param_shardings`): ``params_from_jax`` then
+``shard_params`` gives every rank of a mesh its part of the reference's
+weights.
 """
 from __future__ import annotations
 
@@ -15,7 +20,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import DTYPES, PSpec, model_spec
+from repro_torch.distributed.sharding import block_range, local_block
+from repro_torch.models.model import (DTYPES, PSpec, model_spec,
+                                      param_shapes, param_shardings)
 
 
 def params_from_jax(cfg: ModelConfig, tree: dict,
@@ -39,3 +46,30 @@ def params_from_jax(cfg: ModelConfig, tree: dict,
         return out
 
     return walk(model_spec(cfg), tree, "")
+
+
+def shard_params(cfg: ModelConfig, params: dict, rules, mesh) -> dict:
+    """This rank's block of every leaf of `params` under `rules` and
+    `mesh` (`model.param_shardings`); a leaf already cut to its block is
+    kept as it is, so the call is idempotent."""
+    def walk(specs: dict, shapes: dict, node: dict, path: str) -> dict:
+        out = {}
+        for key, spec in specs.items():
+            where, leaf = f"{path}/{key}", node[key]
+            if isinstance(spec, dict):
+                out[key] = walk(spec, shapes[key], leaf, where)
+                continue
+            block = tuple(hi - lo for lo, hi in (
+                block_range(n, e, mesh) for n, e in zip(shapes[key], spec)))
+            if tuple(leaf.shape) == block:
+                out[key] = leaf
+            elif tuple(leaf.shape) == shapes[key]:
+                out[key] = local_block(leaf, spec, mesh)
+            else:
+                raise ValueError(f"{where}: shape {tuple(leaf.shape)} is "
+                                 f"neither the full leaf {shapes[key]} nor "
+                                 f"this rank's block {block}")
+        return out
+
+    return walk(param_shardings(cfg, rules, mesh), param_shapes(cfg), params,
+                "")

@@ -143,7 +143,27 @@ resolved after the iteration's one fetch).  Under the default
 (`debug.sanitize`) runs each step under PyTorch's sync-debug mode on the
 card and holds steady iterations to `transfer_budget` host transfers.
 
-Not ported yet: mesh execution and ``run(abort_in_flight=False)``.
+Mesh serving (``mesh=``, `launch.mesh.make_serving_mesh`): the engine is
+SPMD over the ranks of the tensor axis, one process each.  ``rules``
+defaults to ``serve_rules(attn_pim=attn_pim or kv_layout == "paged")`` as
+in the reference: the paged pools always split by KV head, the dense slab
+by sequence unless ``attn_pim``.  Each rank keeps its block of the params
+(and the draft's; `models.weights.shard_params`) and of the caches, and
+runs the same host loop on the same requests: every model program runs
+under `distributed.sharding.axis_rules`, whose collectives (`models.linear`
+row banks, the sharded Attn-PIM units, the vocab-split embedding and
+logits) leave every rank the same logits, so every rank picks the same
+tokens, admits, schedules and finishes alike.  What could differ is
+agreed: deadline expiry (each rank's clock) is OR-ed over the ranks, and
+``debug_invariants`` gathers each fetch's tokens and raises unless every
+rank chose the same.  Rank 0 alone writes files (the journal, snapshots;
+the launcher writes the trace and the metrics).  Where the ranks share a
+card over gloo, each collective stages through a host copy: the engine
+counts those in `IterStats.transfers` and in `transfer_budget`.  The data
+axis (``dp > 1``) and the MoE, SSM and hybrid families under a mesh come
+with a later slice and raise.
+
+Not ported yet: ``run(abort_in_flight=False)``.
 """
 from __future__ import annotations
 
@@ -160,13 +180,16 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import PapiScheduler
 from repro_torch.debug.sanitize import EngineSanitizer
+from repro_torch.distributed.sharding import axis_rules, serve_rules
 from repro_torch.models import (attn_impl, current_fc_variant, decode_step,
                                 fc_variant, init_cache, init_paged_cache,
                                 mixed_step, prefill_chunk, prefill_to_pages,
                                 prefill_to_slots, rewind_ssm,
                                 ssm_step_buffers)
 from repro_torch.models import moe as M
-from repro_torch.models.model import KV_FAMILIES, host_copies_per_forward
+from repro_torch.models.model import (KV_FAMILIES, collectives_per_forward,
+                                      host_copies_per_forward)
+from repro_torch.models.weights import shard_params
 from repro_torch.serving.faults import (FAULT_NAN, FAULT_NONE,
                                         FaultInjector)
 from repro_torch.serving.journal import (SNAPSHOT_VERSION, Journal, recover,
@@ -179,6 +202,9 @@ from repro_torch.serving.telemetry import NULL_TRACER, Tracer
 # re-runs (WARNING), stalls (ERROR); silent until configured
 # (`launch.serve --log-level`)
 log = logging.getLogger("repro_torch.serving")
+
+# the families a tensor-split mesh serves so far (`check_mesh`)
+MESH_FAMILIES = ("dense", "vlm")
 
 
 @dataclasses.dataclass
@@ -342,8 +368,36 @@ def check_decoder(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name} is encoder-only")
 
 
+def check_mesh(shape: dict, cfgs: Sequence[ModelConfig]) -> None:
+    """Refuse what mesh serving does not cover yet: the data axis, and
+    any family but the attention-only dense and VLM decoders."""
+    if shape.get("data", 1) > 1:
+        raise ValueError(
+            f"mesh {dict(shape)}: the data axis (dp > 1) comes with a later "
+            "slice of the port; serve --mesh 1,tp")
+    for c in cfgs:
+        if c.family not in MESH_FAMILIES:
+            raise ValueError(
+                f"{c.name}: mesh serving covers the attention-only dense "
+                f"and VLM decoders; the {c.family} family under a mesh "
+                "comes with a later slice of the port")
+
+
+def _check_mesh(mesh, rules: dict, device: torch.device,
+                cfgs: Sequence[ModelConfig]) -> None:
+    check_mesh(mesh.shape, cfgs)
+    if mesh.device.type != device.type:
+        raise ValueError(f"the mesh's rank runs on {mesh.device}, the "
+                         f"engine on {device}")
+    if rules.get("act_kv_seq") is not None and rules.get("kv_heads") \
+            is not None:
+        raise ValueError("rules split both the KV sequence and the KV "
+                         "heads; a slab takes one of them")
+
+
 class PapiEngine:
-    """Serving engine on one device (``cuda`` unless ``device="cpu"``).
+    """Serving engine on one device (``cuda`` unless ``device="cpu"``), or
+    one rank of a mesh (``mesh=``, ``rules=``; module docstring).
 
     ``draft=(cfg, params)`` and ``spec_len > 1`` turn on speculative
     decoding; the draft needs the target's vocabulary and its params on
@@ -364,6 +418,7 @@ class PapiEngine:
                  tracer: Tracer | None = None,
                  sanitize: bool = False,
                  journal: Journal | str | None = None,
+                 mesh=None, rules: dict | None = None,
                  device: torch.device | str | None = None) -> None:
         check_decoder(cfg)
         if kv_layout not in ("dense", "paged"):
@@ -379,6 +434,17 @@ class PapiEngine:
             raise ValueError(f"draft {draft[0].name} has vocabulary "
                              f"{draft[0].vocab_size}, the target {cfg.name} "
                              f"{cfg.vocab_size}: their tokens must agree")
+        self.mesh = mesh
+        self.rules = None
+        if mesh is not None:
+            self.rules = (dict(rules) if rules is not None else serve_rules(
+                attn_pim=attn_pim or kv_layout == "paged"))
+            _check_mesh(mesh, self.rules, self.device,
+                        [cfg] + ([draft[0]] if draft else []))
+            params = shard_params(cfg, params, self.rules, mesh)
+            if draft is not None:
+                draft = (draft[0], shard_params(draft[0], draft[1],
+                                                self.rules, mesh))
         self.cfg, self.params = cfg, params
         self.draft_cfg, self.draft_params = draft if draft else (None, None)
         self.spec_len = spec_len
@@ -422,14 +488,18 @@ class PapiEngine:
                 self.kv.tracer = self.tracer
             # the draft's KV lives at the same logical positions: a second
             # pool of the same geometry, indexed by the same block tables
-            self.cache, self.draft_cache = (
-                init_paged_cache(c, max_slots, num_pages, page_size,
-                                 self.kv.max_blocks, self.device)
-                if c is not None else None for c in (cfg, self.draft_cfg))
+            with self._mesh_scope():
+                self.cache, self.draft_cache = (
+                    init_paged_cache(c, max_slots, num_pages, page_size,
+                                     self.kv.max_blocks, self.device)
+                    if c is not None else None
+                    for c in (cfg, self.draft_cfg))
         else:
-            self.cache, self.draft_cache = (
-                init_cache(c, max_slots, cache_capacity, self.device)
-                if c is not None else None for c in (cfg, self.draft_cfg))
+            with self._mesh_scope():
+                self.cache, self.draft_cache = (
+                    init_cache(c, max_slots, cache_capacity, self.device)
+                    if c is not None else None
+                    for c in (cfg, self.draft_cfg))
         # per-slot host state
         self.slot_req: list[ServeRequest | None] = [None] * max_slots
         self.slot_tokens: list[list[int]] = [[] for _ in range(max_slots)]
@@ -478,6 +548,8 @@ class PapiEngine:
         # the default flush policy; pass a Journal to choose the policy.
         # _journal_done counts the tokens already journaled per req_id, so
         # the end-of-step commits append deltas only.
+        if not self._writes_files:
+            journal = None      # rank 0 alone writes files
         self.journal: Journal | None = (
             Journal(journal) if journal is not None
             and not isinstance(journal, Journal) else journal)
@@ -721,7 +793,7 @@ class PapiEngine:
             "finished": [{"req_id": r.req_id, "reason": r.finished_reason,
                           "tokens": list(r.tokens)} for r in self.results],
         }
-        if path is not None:
+        if path is not None and self._writes_files:
             write_snapshot(path, state)
             if self.tracer.enabled:
                 self.tracer.emit("journal", self.iteration, op="snapshot",
@@ -774,13 +846,41 @@ class PapiEngine:
         return self.spec_len > 1 and self.draft_cfg is not None
 
     @property
+    def _writes_files(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _mesh_scope(self):
+        """The rules and mesh every model program of this engine runs
+        under (nothing on one device)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return axis_rules(self.rules, self.mesh)
+
+    def _model_copies(self) -> int:
+        """Host copies made inside model programs so far: the MoE layers'
+        count reads and a shared-card mesh's staged collectives."""
+        return M.host_copies() + (self.mesh.staged_copies
+                                  if self.mesh is not None else 0)
+
+    def _per_forward(self, cfg, cache) -> int:
+        """Host copies of one forward of `cfg`: one per MoE layer, and one
+        per collective where the mesh stages them through the host."""
+        n = host_copies_per_forward(cfg)
+        if self.mesh is not None and self.mesh.staged:
+            with self._mesh_scope():
+                n += collectives_per_forward(cfg, cache, self.attn_pim)
+        return n
+
+    @property
     def transfer_budget(self) -> int:
         """Device->host copies of a steady decode iteration: the one fetch,
-        and one per MoE layer of each forward (`models.moe`): the
-        target's, and the draft's spec_len when speculating."""
-        n = 1 + host_copies_per_forward(self.cfg)
+        and per forward (the target's, and the draft's spec_len when
+        speculating) one per MoE layer (`models.moe`) and one per
+        collective that a shared-card mesh stages through the host."""
+        n = 1 + self._per_forward(self.cfg, self.cache)
         if self._speculating:
-            n += self.spec_len * host_copies_per_forward(self.draft_cfg)
+            n += self.spec_len * self._per_forward(self.draft_cfg,
+                                                   self.draft_cache)
         return n
 
     def _clamp_spec_window_dense(self, tlp: int) -> int:
@@ -826,6 +926,12 @@ class PapiEngine:
         flat = torch.cat([t.reshape(-1).to(torch.int32) for t in tensors])
         with self._allowed():
             host = flat.cpu().numpy()
+        if self.debug_invariants and self.mesh is not None:
+            if any(not np.array_equal(host, other)
+                   for other in self.mesh.host_gather(host)):
+                raise RuntimeError(
+                    f"ranks of the mesh disagree on the fetched tokens at "
+                    f"iteration {self.iteration}")
         if self.tracer.enabled:
             self.tracer.resolve()
         out, at = [], 0
@@ -981,14 +1087,23 @@ class PapiEngine:
         return t0 is not None and self._now() - t0 > dl
 
     def _expire_deadlines(self) -> None:
-        still_queued = [r for r in self.queue if not self._deadline_expired(r)]
-        if len(still_queued) != len(self.queue):
-            for req in self.queue:
-                if self._deadline_expired(req):
+        """Finish expired requests, queued then live; under a mesh every
+        rank takes the OR of the ranks' verdicts (their clocks differ)."""
+        live = self.active_slots
+        reqs = self.queue + [self.slot_req[s] for s in live]
+        expired = np.array([self._deadline_expired(r) for r in reqs], bool)
+        if self.mesh is not None and any(r.deadline_s is not None
+                                         for r in reqs):
+            expired = self.mesh.host_any(expired)
+        queued = expired[:len(self.queue)]
+        if queued.any():
+            for req, gone in zip(self.queue, queued):
+                if gone:
                     self._emit(req, [], "timeout")
-            self.queue = still_queued
-        for s in self.active_slots:
-            if self._deadline_expired(self.slot_req[s]):
+            self.queue = [r for r, gone in zip(self.queue, queued)
+                          if not gone]
+        for s, gone in zip(live, expired[len(queued):]):
+            if gone:
                 self._finish_slot(s, "timeout")
 
     def _age_deferral(self) -> None:
@@ -1583,9 +1698,10 @@ class PapiEngine:
 
     def step(self) -> None:
         if self._sanitizer is None:
-            return self._step_impl()
+            with self._mesh_scope():
+                return self._step_impl()
         stats0 = len(self.stats)
-        with self._sanitizer.scope(self):
+        with self._sanitizer.scope(self), self._mesh_scope():
             self._step_impl()
         self._sanitizer.after_step(self, stepped=len(self.stats) > stats0)
 
@@ -1605,7 +1721,7 @@ class PapiEngine:
 
     def _step_impl(self) -> None:
         t0 = time.perf_counter()
-        transfers0, copies0 = self.host_transfers, M.host_copies()
+        transfers0, copies0 = self.host_transfers, self._model_copies()
         results0, preempted0 = len(self.results), self.preemptions
         self._degraded_this_step = False
         if self.tracer.enabled:
@@ -1639,7 +1755,7 @@ class PapiEngine:
         active = self.active_slots
         if not active:
             # still an iteration: counted, watched and checked
-            self.host_transfers += M.host_copies() - copies0
+            self.host_transfers += self._model_copies() - copies0
             self.scheduler.observe_counts(0, admitted)
             if self.tracer.enabled:
                 self._trace_scheduler()
@@ -1737,7 +1853,7 @@ class PapiEngine:
                        or len(self.results) > results0
                        or self.preemptions > preempted0)
         self._check_invariants()
-        self.host_transfers += M.host_copies() - copies0
+        self.host_transfers += self._model_copies() - copies0
         pool = {}
         if self.kv is not None:
             ps = self.kv.stats(sum(self._tokens_written(s)

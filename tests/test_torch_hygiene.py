@@ -35,6 +35,14 @@ def test_module_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_mesh_rank_bodies_import_neither_jax_nor_repro():
+    """The spawned ranks of the mesh tests import this helper only."""
+    bad = sorted(n for n in _imported_modules(ROOT / "tests" /
+                                              "_mesh_ranks.py")
+                 if _forbidden(n))
+    assert not bad
+
+
 def test_chip_smoke_imports_neither_jax_nor_repro():
     bad = sorted(n for n in _imported_modules(ROOT / "chip_smoke.py")
                  if _forbidden(n))
@@ -52,6 +60,7 @@ def test_importing_the_port_loads_no_jax():
         "import repro_torch.serving.faults\n"
         "import repro_torch.models, repro_torch.serving, repro_torch.launch.serve\n"
         "import repro_torch.data, repro_torch.training, repro_torch.launch.train\n"
+        "import repro_torch.distributed.sharding, repro_torch.launch.mesh\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
