@@ -230,6 +230,22 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      bf16 attn_pim; each rank's bytes of weights and KV and tokens/s
      beside the one-rank engine's (no claim); the shard shapes' kernel
      times, the card alone;
+  6j. mesh serving on the data axis (the slot batch split over "data", as
+     the reference's "batch" rule), every rank on this one card over
+     gloo, collectives staged through host copies: a (2, 2) world of four
+     ranks serves 6i's f32 full-width full-depth qwen2-0.5b cases (dense,
+     attn_pim sanitized, paged, speculative spec_len 4 with the perfect
+     draft) on 8 slots, and a (2, 1) world serves f32 full-width
+     mamba2-1.3b (depth cut to 16) dense and olmoe-1b-7b (cut to 8)
+     attn_pim (sanitized) and paged; on every rank the streams, finish
+     reasons and FC variants equal the one-rank engine's (6i's runs, and
+     the family runs here), steady iterations sit at the transfer budget
+     (the fetch's gather over "data" adds one staged copy), each rank
+     holds half the slots of the slab or SSM state and the whole paged
+     pools, and each run launches its kernels on every rank (`ssd_scan`
+     on mamba2, `fc_gemv` and the attention kernel of its layout
+     elsewhere); each rank's bytes of weights and KV / SSM state and
+     tokens/s beside the one-rank engine's (no claim);
   7. training, on the train path the reference lowers (no kernel: plain
      matmuls, the plain blocked attention, the differentiable plain SSD
      scan); bf16, random weights from seed 0, batch 8 x seq 512 as two
@@ -3893,14 +3909,21 @@ def _tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def _mesh_run(cfg, params, case: str, mesh=None) -> dict:
+def _state_bytes(cache: dict) -> int:
+    """Bytes of a cache's KV and SSM state (the slab or the pools)."""
+    return sum(t.numel() * t.element_size() for key, val in cache.items()
+               if key in ("k", "v", "ssm")
+               for t in (val if key == "ssm" else (val,)))
+
+
+def _mesh_run(cfg, params, case: str, mesh=None,
+              engine: dict = MESH_ENGINE) -> dict:
     """One engine run of phase 6i's requests (one rank of the mesh, or the
     one-rank engine), the launch counts set to 0 just before `run()`."""
     kw = dict(MESH_CASES[case])
     if kw.get("spec_len"):
         kw["draft"] = (cfg, params)          # the perfect draft
-    eng = PapiEngine(cfg, params, mesh=mesh, device=DEV, **MESH_ENGINE,
-                     **kw)
+    eng = PapiEngine(cfg, params, mesh=mesh, device=DEV, **engine, **kw)
     rng = np.random.default_rng(0)
     for i, n in enumerate(MESH_PROMPTS):
         eng.submit(ServeRequest(i, rng.integers(3, cfg.vocab_size,
@@ -3924,8 +3947,10 @@ def _mesh_run(cfg, params, case: str, mesh=None) -> dict:
         budget=eng.transfer_budget, degraded=eng.degraded_steps,
         sanitized=None if rep is None else rep.steady_iterations,
         weight_bytes=_tree_bytes(eng.params),
-        kv_bytes=_tree_bytes({k: eng.cache[k] for k in ("k", "v")}),
-        kv_shape=tuple(eng.cache["k"].shape),
+        kv_bytes=_state_bytes(eng.cache),
+        kv_shape=tuple(eng.cache["k"].shape) if "k" in eng.cache else None,
+        ssm_shape=(tuple(eng.cache["ssm"].ssm.shape) if "ssm" in eng.cache
+                   else None),
         staged=0 if mesh is None else mesh.staged_copies)
 
 
@@ -4156,10 +4181,11 @@ def _shard_times() -> None:
               f"{nkv // 2} (the unsharded split count)", flush=True)
 
 
-def phase_mesh() -> dict:
+def phase_mesh() -> tuple[dict, dict]:
     """Phase 6i (module docstring): the one-rank NCCL world, the one-rank
     engine's runs here, the tp = 2 world, and the checks between them.
-    Returns the mesh path's launches, summed over the ranks' engine runs."""
+    Returns the mesh path's launches, summed over the ranks' engine runs,
+    and the one-rank f32 qwen2 runs (phase 6j's baseline)."""
     print(f"      NCCL world of one: {_nccl_world_of_one()}", flush=True)
     _shard_times()
     cfg32 = family_cfg("qwen2-0.5b", dtype="float32")
@@ -4255,6 +4281,129 @@ def phase_mesh() -> dict:
     print(f"      mesh launches (both ranks, engine runs): "
           f"{json.dumps(launches)}; collectives on rank 0: "
           f"{r0['collectives']}", flush=True)
+    return launches, one
+
+
+# ---------------------------------------------------------------------------
+# Phase 6j: mesh serving on the data axis (--mesh dp,tp): the slot batch
+# split over the data groups, every rank on this card over gloo
+DATA_MESHES = ((2, 2), (2, 1))
+# (label, arch, depth, phase 6i case, engine): the families the data axis
+# serves at tp = 1, f32, depth cut; mamba2's window takes phase 6i's
+# longest prompt (the SSM families take no chunk waves)
+DATA_FAMILY_RUNS = (
+    ("mamba2-1.3b", 16, "dense", dict(MESH_ENGINE, prefill_len=256)),
+    ("olmoe-1b-7b", 8, "attn_pim", MESH_ENGINE),
+    ("olmoe-1b-7b", 8, "paged", MESH_ENGINE),
+)
+# the kernels each run must launch on every rank
+DATA_KERNELS = {"dense": ("fc_gemv",), "attn_pim": ("fc_gemv",
+                                                    "decode_attention"),
+                "paged": ("fc_gemv", "paged_decode_attention"),
+                "spec": ("fc_gemv", "decode_attention")}
+
+
+def _data_mesh_runs(mesh=None) -> dict:
+    """The (2, 1) world's runs (one rank's, or the one-rank engine's): each
+    family model from seed 0 in f32, one at a time on the card."""
+    out = {}
+    for arch, depth, case, engine in DATA_FAMILY_RUNS:
+        cfg = family_cfg(arch, depth=depth, dtype="float32")
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+        out[f"{arch}/{depth} f32 {case}"] = _mesh_run(cfg, params, case,
+                                                      mesh, engine)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def _data_mesh_rank(rank: int, device, dp: int, tp: int) -> dict:
+    """One rank of a phase 6j world: at (2, 2) phase 6i's f32 qwen2 cases
+    at full depth, at (2, 1) the family runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_serving_mesh(dp, tp, device=device)
+    if tp > 1:
+        cfg = family_cfg("qwen2-0.5b", dtype="float32")
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+        runs = {f"qwen2 f32 {c}": _mesh_run(cfg, params, c, mesh)
+                for c in MESH_CASES}
+    else:
+        runs = _data_mesh_runs(mesh)
+    return {"coords": dict(mesh.coords), "runs": runs,
+            "collectives": mesh.collectives}
+
+
+def _data_kernels(label: str) -> tuple:
+    return ("ssd_scan",) if label.startswith("mamba2") else \
+        DATA_KERNELS[label.rsplit(" ", 1)[1]]
+
+
+def phase_data_mesh(one: dict) -> dict:
+    """Phase 6j (module docstring): the (2, 2) and (2, 1) worlds against
+    the one-rank engine (phase 6i's f32 qwen2 runs, the family runs here).
+    Returns the launches summed over every rank's engine runs."""
+    want = {f"qwen2 f32 {c}": r for c, r in one.items()}
+    want.update(_data_mesh_runs())
+    launches = {name: 0 for name in MODS}
+    for dp, tp in DATA_MESHES:
+        t0 = time.perf_counter()
+        ranks = spawn_world(_data_mesh_rank, dp * tp, device="cuda",
+                            timeout_s=MESH_TIMEOUT_S, args=(dp, tp),
+                            store_dir=ROOT / "build", threads=2)
+        print(f"      mesh ({dp}, {tp}) world: {dp * tp} ranks on one "
+              f"{torch.cuda.get_device_name(0)} over gloo, collectives "
+              f"staged through host copies; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        slots = MESH_ENGINE["max_slots"]
+        for r, res in enumerate(ranks):
+            check(res["coords"] == {"data": r // tp, "model": r % tp},
+                  f"({dp}, {tp}) rank {r} at {res['coords']}")
+            for label, got in res["runs"].items():
+                w = want[label]
+                tag = f"({dp}, {tp}) rank {r} {label}"
+                check(got["streams"] == w["streams"]
+                      and got["reasons"] == w["reasons"],
+                      f"{tag}: streams equal the one-rank engine's "
+                      f"({_first_divergence(got['streams'], w['streams'])})")
+                check(got["fc"] == w["fc"], f"{tag}: FC variants "
+                      f"{got['fc']} (one rank {w['fc']})")
+                check(got["steady"] == [got["budget"]]
+                      and got["degraded"] == 0,
+                      f"{tag}: steady transfers {got['steady']}, budget "
+                      f"{got['budget']} (one rank {w['steady']})")
+                paged = label.endswith("paged")
+                shape = got["ssm_shape"] or got["kv_shape"]
+                whole = w["ssm_shape"] or w["kv_shape"]
+                if paged:
+                    held = "pools whole over the pages"
+                    batch_ok = shape[1] == whole[1]
+                else:
+                    held = f"{slots // dp} of {slots} slots a rank"
+                    batch_ok = shape[1] == slots // dp == whole[1] // dp
+                check(batch_ok, f"{tag}: {held}, state {shape} (one rank "
+                      f"{whole})")
+                ln = got["launches"]
+                check(all(ln[k] > 0 for k in _data_kernels(label)),
+                      f"{tag}: launches {ln}")
+                for name, n in ln.items():
+                    launches[name] += n
+                if got["sanitized"] is not None:
+                    check(got["sanitized"] > 0, f"{tag}: sanitized, "
+                          f"{got['sanitized']} steady iterations")
+        for label, got in ranks[0]["runs"].items():
+            w = want[label]
+            print(f"      ({dp}, {tp}) {label}: "
+                  f"{got['tokens'] / got['wall']:.1f} tok/s "
+                  f"({got['wall']:.2f} s) vs one rank "
+                  f"{w['tokens'] / w['wall']:.1f} tok/s [{CARD}]; a rank "
+                  f"holds {got['weight_bytes'] / 2**20:.1f} MiB of weights "
+                  f"and {got['kv_bytes'] / 2**20:.1f} MiB of KV / SSM state "
+                  f"(one rank {w['weight_bytes'] / 2**20:.1f} / "
+                  f"{w['kv_bytes'] / 2**20:.1f} MiB); transfers per steady "
+                  f"iteration {got['steady']} (one rank {w['steady']}); "
+                  f"launches per rank {got['launches']}", flush=True)
+    print(f"      data-mesh launches (every rank, engine runs): "
+          f"{json.dumps(launches)}", flush=True)
     return launches
 
 
@@ -4316,7 +4465,8 @@ def main() -> int:
     timed(phase_family_kernels)
     family_launches = timed(phase_family_paths)
     timed(phase_family_parity)
-    mesh_launches = timed(phase_mesh)
+    mesh_launches, mesh_one = timed(phase_mesh)
+    data_launches = timed(phase_data_mesh, mesh_one)
     train_launches = timed(phase_training)
     # the sum over every path's run, each with the counts set to 0 just
     # before it
@@ -4335,7 +4485,9 @@ def main() -> int:
           f"{json.dumps(ssm_spec_launches)}"
           + f"; the other families (phase 4n, 21 runs): "
           f"{json.dumps(family_launches)}; mesh (phase 6i, 2 ranks x 6 "
-          f"runs): {json.dumps(mesh_launches)}; training (phase 7): "
+          f"runs): {json.dumps(mesh_launches)}; data mesh (phase 6j, "
+          f"4 ranks x 4 runs and 2 ranks x 3): {json.dumps(data_launches)}; "
+          f"training (phase 7): "
           f"{json.dumps(train_launches)}", flush=True)
     launches = {name: n + spec_launches[name] + serve_launches[name]
                 + failure_launches.get(name, 0)
@@ -4344,7 +4496,7 @@ def main() -> int:
                 + sum(ln[name] for ln in ssm_launches.values())
                 + ssm_spec_launches[name]
                 + family_launches[name]
-                + mesh_launches[name]
+                + mesh_launches[name] + data_launches[name]
                 for name, n in launches.items()}
 
     rows = [

@@ -177,11 +177,21 @@ def tensor_split(logical: str, n: int) -> tuple[int, int]:
     if mesh is None:
         return 1, 0
     spec = resolve_spec((logical,), (n,), current_rules() or {}, mesh)
-    if spec[0] is None:
+    if spec[0] is None or n == 0:       # an absent dim (mamba2's heads)
         return 1, 0
     lo, _ = block_range(n, spec[0], mesh)
     size = _axis_prod(mesh, spec[0])
     return size, lo // (n // size)
+
+
+def batch_block(n: int) -> tuple[int, int]:
+    """[lo, hi) of this data group's rows of an `n`-slot batch under the
+    installed rules and mesh (the "batch" rule): slot s lives on data group
+    s // (n / dp), and a batch the axis does not divide stays whole on
+    every group, as does every batch outside a mesh."""
+    shards, idx = tensor_split("batch", n)
+    step = n // shards
+    return idx * step, (idx + 1) * step
 
 
 def train_rules(multi_pod: bool = False, fsdp: bool = True) -> dict:
@@ -244,7 +254,7 @@ def serve_rules(multi_pod: bool = False, long_context: bool = False,
     return rules
 
 
-__all__ = ["axis_rules", "block_range", "current_mesh", "current_rules",
-           "fc_tensor_axis", "filter_spec_for_shape", "local_block",
-           "logical_to_spec", "resolve_spec", "serve_rules", "tensor_split",
-           "train_rules", "tree_shardings"]
+__all__ = ["axis_rules", "batch_block", "block_range", "current_mesh",
+           "current_rules", "fc_tensor_axis", "filter_spec_for_shape",
+           "local_block", "logical_to_spec", "resolve_spec", "serve_rules",
+           "tensor_split", "train_rules", "tree_shardings"]

@@ -17,7 +17,9 @@ module-level function of this package or of a test helper module).
 
 `make_serving_mesh(dp, tp)` builds the (data, model) mesh over the world
 the calling rank joined: ``model`` is the tensor axis (one FC-PIM bank and
-one Attn-PIM unit per shard, PAPI §5.3), ``data`` replicates the engine.
+one Attn-PIM unit per shard, PAPI §5.3), ``data`` splits the engine's slot
+batch (each data group computes its own slots; the serving engine gathers
+what it fetches over it).
 Its collectives (`ServingMesh.all_gather`, `all_reduce`) give every rank
 of a group the same bytes: `all_reduce` gathers the partials and adds them
 in rank order, in f32, whatever the backend's own reduction order.

@@ -74,18 +74,24 @@ mamba2-1.3b|zamba2-1.2b``): a partial accept rewinds the SSM state to the
 accepted prefix, so the streams equal the TLP = 1 streams.
 
 Mesh serving (§5.3): ``--mesh DP,TP`` spawns DP x TP ranks
-(`launch.mesh.spawn_world`), one process each, and serves the same trace
-on every rank with the weights split over the tensor axis: FC-PIM banks,
-one Attn-PIM unit per KV-head shard (``--attn-pim``; ``--kv paged``
-always splits by KV head), the vocab-split embedding.  Every rank builds
-the full weights from ``--seed`` and keeps its block.  The backend is gloo
-on the CPU, NCCL with a card per rank, and gloo through host copies when
-the ranks share one card; rank 0 prints the usual lines and the mesh
-line, and alone writes the journal, the trace and the metrics.  Only
-``--mesh 1,TP`` on the dense and VLM decoders is served so far:
+(`launch.mesh.spawn_world`), one process each (rank r at data r // TP,
+model r % TP), and serves the same trace on every rank.  The tensor axis
+splits the weights: FC-PIM banks, one Attn-PIM unit per KV-head shard
+(``--attn-pim``; ``--kv paged`` always splits by KV head), the
+vocab-split embedding.  The data axis splits the slot batch (the
+reference's "batch" rule): each data group holds and computes its own
+``--max-slots / DP`` slots, and the tokens are gathered over it once an
+iteration, so the scheduler still sees the whole batch.  Every rank
+builds the full weights from ``--seed`` and keeps its block.  The
+backend is gloo on the CPU, NCCL with a card per rank, and gloo through
+host copies when the ranks share one card; rank 0 prints the usual lines
+and the mesh line, and alone writes the journal, the trace and the
+metrics.  Any DP and TP whose product is the world are served; the MoE,
+SSM and hybrid families only at TP = 1:
 
-    python -m repro_torch.launch.serve --arch qwen2-0.5b --mesh 1,2 \
+    python -m repro_torch.launch.serve --arch qwen2-0.5b --mesh 2,2 \
         [--attn-pim | --kv paged]
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --mesh 2,1
 
 Runs on the card (``--device cpu`` for the plain PyTorch path).  Prints
 the per-iteration scheduler decisions — RLP, TLP, the AI estimate and the
@@ -276,8 +282,10 @@ def _parser() -> argparse.ArgumentParser:
                          "iteration (one, plus one per MoE layer of each "
                          "forward)")
     ap.add_argument("--mesh", default=None, metavar="DP,TP",
-                    help="serve on DP x TP ranks, the weights split over "
-                         "the TP (tensor) axis, e.g. '1,2'; DP must be 1")
+                    help="serve on DP x TP ranks: the slot batch split "
+                         "over the DP (data) axis, the weights over the TP "
+                         "(tensor) axis, e.g. '2,2'; MoE, SSM and hybrid "
+                         "models take TP = 1")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     return ap

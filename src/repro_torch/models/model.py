@@ -43,7 +43,10 @@ caches allocate only that block), and the forward gives each layout
 itself: the FC banks (`models.linear`), attention over the rank's heads
 (`head_split`, `_mesh_decode_attention`: one Attn-PIM unit per KV-head
 shard, or the sequence-split slab's merged partials), the vocab-split
-embedding and the gathered logits (`vocab_split`).
+embedding and the gathered logits (`vocab_split`).  Where the data axis
+splits the slot batch (the "batch" rule, `batch_block`), the caches hold
+this data group's slots and every entry point takes their rows only: no
+forward gathers over "data".
 
 Entry points:
   init_params(cfg, generator)            -> params
@@ -71,9 +74,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import (block_range, current_mesh,
-                                              current_rules, tensor_split,
-                                              tree_shardings)
+from repro_torch.distributed.sharding import (batch_block, block_range,
+                                              current_mesh, current_rules,
+                                              tensor_split, tree_shardings)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -117,7 +120,10 @@ def collectives_per_forward(cfg: ModelConfig, cache: dict,
     gather, and per layer the row banks' sums (out-projection, down), the
     q-head gather and the partials' gather over a sequence-split slab
     (`cache` holds ``kv_seq``), or the q-head gather that lets Attn-PIM
-    run unsharded where the KV heads are whole."""
+    run unsharded where the KV heads are whole.  The data axis adds none:
+    a data group's forward takes only its own slots' rows, and the serving
+    engine gathers what it fetches once an iteration (`PapiEngine._fetch`,
+    counted in its `transfer_budget`)."""
     if current_mesh() is None:
         return 0
     heads, _ = tensor_split("heads", cfg.num_heads)
@@ -327,15 +333,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     return walk(model_spec(cfg))
 
 
-def _mesh_specs(axes, shapes, split_seq: bool = True):
+def _mesh_specs(axes, shapes, split: bool = True):
     """Spec tuples of a cache tree under the installed rules and mesh, or
-    None outside a mesh context; ``split_seq=False`` keeps the KV sequence
-    dim whole."""
+    None outside a mesh context; ``split=False`` keeps the KV sequence and
+    the batch dims whole."""
     mesh, rules = current_mesh(), current_rules()
     if mesh is None or rules is None:
         return None
-    if not split_seq:
-        rules = dict(rules, act_kv_seq=None)
+    if not split:
+        rules = dict(rules, act_kv_seq=None, batch=None)
     return tree_shardings(axes, shapes, rules, mesh)
 
 
@@ -392,7 +398,7 @@ def cache_shardings(cfg: ModelConfig, batch: int, capacity: int, rules,
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
-               device: torch.device | str, *, split_seq: bool = True) -> dict:
+               device: torch.device | str, *, split: bool = True) -> dict:
     """Decode cache: per-slot positions; dense, moe, vlm: [L, b, S, nkv,
     hd] K/V;
     ssm: ``ssm``, an `SSMState` of [L, b, ...] tensors (the SSM state f32);
@@ -402,17 +408,20 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     Under a mesh (`distributed.sharding.axis_rules` installed) only this
     rank's block of each leaf is allocated (`cache_shardings`); when the
     sequence dim is split, ``cache["kv_seq"]`` holds (this rank's first
-    position, the whole capacity).  ``split_seq=False`` keeps the sequence
-    whole (a prefill's temporary cache)."""
+    position, the whole capacity).  Where the data axis splits the batch,
+    ``pos`` holds this data group's slots too (`batch_block`), the rows
+    its forwards compute.  ``split=False`` keeps the sequence and the
+    batch whole (a prefill's temporary cache over the rows it is given)."""
     _check_decoder(cfg)
     dtype = DTYPES[cfg.dtype]
     shapes = _cache_shapes(cfg, batch, capacity)
-    specs = _mesh_specs(cache_logical_axes(cfg), shapes, split_seq)
+    specs = _mesh_specs(cache_logical_axes(cfg), shapes, split)
 
     def spec(key):
         return None if specs is None else specs[key]
 
-    cache = {"pos": torch.zeros(shapes["pos"], dtype=torch.int32,
+    lo, hi = batch_block(batch) if split else (0, batch)
+    cache = {"pos": torch.zeros((hi - lo,), dtype=torch.int32,
                                 device=device)}
     if "ssm" in shapes:
         cache["ssm"] = S.SSMState(*(
@@ -468,7 +477,10 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
     Attn-PIM bank row) and a per-slot block table mapping logical blocks to
     physical pages.  Page 0 is the garbage page: the tables start at 0, so
     writes of slots not yet admitted land there harmlessly.  Under a mesh
-    each rank allocates its KV heads' pools; tables stay whole."""
+    each rank allocates its KV heads' pools, whole over the pages (the
+    rules put no batch on them); ``pos`` and the block tables hold this
+    data group's slots (`batch_block`), whose pages alone it writes and
+    reads."""
     _check_decoder(cfg)
     if cfg.family not in KV_FAMILIES:
         raise ValueError(
@@ -482,9 +494,10 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
     kv = {key: _zeros_block(shapes[key],
                             None if specs is None else specs[key], dtype,
                             device) for key in ("k", "v")}
-    return {"pos": torch.zeros((max_slots,), dtype=torch.int32, device=device),
+    lo, hi = batch_block(max_slots)
+    return {"pos": torch.zeros((hi - lo,), dtype=torch.int32, device=device),
             **kv,
-            "block_tables": torch.zeros((max_slots, max_blocks),
+            "block_tables": torch.zeros((hi - lo, max_blocks),
                                         dtype=torch.int32, device=device)}
 
 
@@ -1100,7 +1113,7 @@ def prefill_to_slots(cfg, params, batch: dict, cache: dict,
     kv_seq = cache.get("kv_seq")
     if "k" in cache:
         p_len = min(p_len, kv_seq[1] if kv_seq else cache["k"].shape[2])
-    tmp = init_cache(cfg, n, p_len, cache["pos"].device, split_seq=False)
+    tmp = init_cache(cfg, n, p_len, cache["pos"].device, split=False)
     logits, tmp = prefill(cfg, params, batch, tmp)
 
     take = torch.clamp(src.long(), min=0)             # [slots] row gather
@@ -1141,7 +1154,7 @@ def prefill_to_pages(cfg, params, batch: dict, cache: dict,
     slots, max_blocks = tables.shape
     page_size = cache["k"].shape[2]
     dev = cache["k"].device
-    tmp = init_cache(cfg, n, p_len, dev, split_seq=False)
+    tmp = init_cache(cfg, n, p_len, dev, split=False)
     logits, tmp = prefill(cfg, params, batch, tmp)
 
     take = torch.clamp(src.long(), min=0)             # [slots] row gather

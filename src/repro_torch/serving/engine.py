@@ -144,24 +144,41 @@ resolved after the iteration's one fetch).  Under the default
 card and holds steady iterations to `transfer_budget` host transfers.
 
 Mesh serving (``mesh=``, `launch.mesh.make_serving_mesh`): the engine is
-SPMD over the ranks of the tensor axis, one process each.  ``rules``
-defaults to ``serve_rules(attn_pim=attn_pim or kv_layout == "paged")`` as
-in the reference: the paged pools always split by KV head, the dense slab
-by sequence unless ``attn_pim``.  Each rank keeps its block of the params
-(and the draft's; `models.weights.shard_params`) and of the caches, and
-runs the same host loop on the same requests: every model program runs
-under `distributed.sharding.axis_rules`, whose collectives (`models.linear`
-row banks, the sharded Attn-PIM units, the vocab-split embedding and
-logits) leave every rank the same logits, so every rank picks the same
-tokens, admits, schedules and finishes alike.  What could differ is
+SPMD over the ranks of a (data, model) mesh, one process each, and every
+rank runs the same host loop on the same requests: the queue, admission,
+the scheduler (which sees the whole batch's RLP), the page manager,
+preemption, deadlines and the journal are host state that is the same
+everywhere.  ``rules`` defaults to ``serve_rules(attn_pim=attn_pim or
+kv_layout == "paged")`` as in the reference.  The tensor axis (``model``)
+splits the weights: each rank keeps its block of the params (and the
+draft's; `models.weights.shard_params`), the paged pools split by KV
+head, the dense slab by sequence unless ``attn_pim``, and every model
+program runs under `distributed.sharding.axis_rules`, whose collectives
+(`models.linear` row banks, the sharded Attn-PIM units, the vocab-split
+embedding and logits) leave every rank of a tensor group the same
+logits.  The data axis splits the slot batch by the reference's "batch"
+rule: slot s lives on data group s // (max_slots / dp) (a batch dp does
+not divide stays whole on every group).  A group's slab and SSM state
+hold its slots only, and every forward (the plain step, the fused verify
+and the draft's steps, the mixed and chunk waves, the admission prefill,
+whose rows sit at their slots) takes its slots' rows only; what the
+iteration's one fetch reads (tokens, accepted counts, the eos and
+finite-logits flags) is gathered over ``data`` on the device, in rank
+order, and fetched once, so every rank reads the whole batch's values
+and picks, admits, schedules and finishes alike.  The paged pools stay
+whole on every data rank (the reference puts no "batch" on them); a
+group maps its slots' rows of the block tables and writes and reads only
+their pages, and nothing of the pools is gathered.  What could differ is
 agreed: deadline expiry (each rank's clock) is OR-ed over the ranks, and
 ``debug_invariants`` gathers each fetch's tokens and raises unless every
 rank chose the same.  Rank 0 alone writes files (the journal, snapshots;
 the launcher writes the trace and the metrics).  Where the ranks share a
 card over gloo, each collective stages through a host copy: the engine
-counts those in `IterStats.transfers` and in `transfer_budget`.  The data
-axis (``dp > 1``) and the MoE, SSM and hybrid families under a mesh come
-with a later slice and raise.
+counts those in `IterStats.transfers` and in `transfer_budget`.  Every
+decoder family is served at tp = 1; the MoE, SSM and hybrid families
+under a tensor split (tp > 1), and the long-context rules (the batch
+whole, the KV sequence over (data, model)) with dp > 1, come with a later
+slice and raise.
 
 Not ported yet: ``run(abort_in_flight=False)``.
 """
@@ -180,7 +197,8 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import PapiScheduler
 from repro_torch.debug.sanitize import EngineSanitizer
-from repro_torch.distributed.sharding import axis_rules, serve_rules
+from repro_torch.distributed.sharding import (axis_rules, batch_block,
+                                              serve_rules)
 from repro_torch.models import (attn_impl, current_fc_variant, decode_step,
                                 fc_variant, init_cache, init_paged_cache,
                                 mixed_step, prefill_chunk, prefill_to_pages,
@@ -203,7 +221,8 @@ from repro_torch.serving.telemetry import NULL_TRACER, Tracer
 # (`launch.serve --log-level`)
 log = logging.getLogger("repro_torch.serving")
 
-# the families a tensor-split mesh serves so far (`check_mesh`)
+# the families a tensor-split mesh (tp > 1) serves so far (`check_mesh`);
+# the data axis alone serves every decoder family
 MESH_FAMILIES = ("dense", "vlm")
 
 
@@ -368,24 +387,33 @@ def check_decoder(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name} is encoder-only")
 
 
-def check_mesh(shape: dict, cfgs: Sequence[ModelConfig]) -> None:
-    """Refuse what mesh serving does not cover yet: the data axis, and
-    any family but the attention-only dense and VLM decoders."""
-    if shape.get("data", 1) > 1:
-        raise ValueError(
-            f"mesh {dict(shape)}: the data axis (dp > 1) comes with a later "
-            "slice of the port; serve --mesh 1,tp")
-    for c in cfgs:
-        if c.family not in MESH_FAMILIES:
+def check_mesh(shape: dict, cfgs: Sequence[ModelConfig],
+               rules: dict | None = None) -> None:
+    """Refuse what mesh serving does not cover yet: any family but the
+    attention-only dense and VLM decoders under a tensor split (tp > 1),
+    and with dp > 1 rules that keep the batch whole (the long-context
+    table, whose KV sequence spans (data, model))."""
+    if shape.get("model", 1) > 1:
+        for c in cfgs:
+            if c.family not in MESH_FAMILIES:
+                raise ValueError(
+                    f"{c.name}: the tensor axis (tp > 1) covers the "
+                    f"attention-only dense and VLM decoders; the {c.family} "
+                    "family under a tensor split comes with a later slice "
+                    "of the port (serve it at --mesh dp,1)")
+    if shape.get("data", 1) > 1 and rules is not None:
+        seq = rules.get("act_kv_seq")
+        seq = seq if isinstance(seq, (tuple, list)) else (seq,)
+        if rules.get("batch") is None or "data" in seq:
             raise ValueError(
-                f"{c.name}: mesh serving covers the attention-only dense "
-                f"and VLM decoders; the {c.family} family under a mesh "
-                "comes with a later slice of the port")
+                f"mesh {dict(shape)}: the long-context rules (the batch "
+                "whole, the KV sequence over (data, model)) with dp > 1 "
+                "come with a later slice of the port")
 
 
 def _check_mesh(mesh, rules: dict, device: torch.device,
                 cfgs: Sequence[ModelConfig]) -> None:
-    check_mesh(mesh.shape, cfgs)
+    check_mesh(mesh.shape, cfgs, rules)
     if mesh.device.type != device.type:
         raise ValueError(f"the mesh's rank runs on {mesh.device}, the "
                          f"engine on {device}")
@@ -445,6 +473,13 @@ class PapiEngine:
             if draft is not None:
                 draft = (draft[0], shard_params(draft[0], draft[1],
                                                 self.rules, mesh))
+        # this data group's slots: the rows its forwards compute and its
+        # caches hold (all of them on one device, or where the data axis
+        # does not divide the batch)
+        with self._mesh_scope():
+            lo, hi = batch_block(max_slots)
+        self._rows = slice(lo, hi)
+        self._data_split = hi - lo < max_slots
         self.cfg, self.params = cfg, params
         self.draft_cfg, self.draft_params = draft if draft else (None, None)
         self.spec_len = spec_len
@@ -873,11 +908,14 @@ class PapiEngine:
 
     @property
     def transfer_budget(self) -> int:
-        """Device->host copies of a steady decode iteration: the one fetch,
-        and per forward (the target's, and the draft's spec_len when
-        speculating) one per MoE layer (`models.moe`) and one per
-        collective that a shared-card mesh stages through the host."""
-        n = 1 + self._per_forward(self.cfg, self.cache)
+        """Device->host copies of a steady decode iteration: the one fetch
+        (and, on a shared-card mesh whose data axis splits the batch, the
+        staged copy of its gather over "data"), and per forward (the
+        target's, and the draft's spec_len when speculating) one per MoE
+        layer (`models.moe`) and one per collective that a shared-card
+        mesh stages through the host."""
+        n = 1 + int(self._data_split and self.mesh.staged)
+        n += self._per_forward(self.cfg, self.cache)
         if self._speculating:
             n += self.spec_len * self._per_forward(self.draft_cfg,
                                                    self.draft_cache)
@@ -921,9 +959,19 @@ class PapiEngine:
         """The engine's one counted device->host copy: int tensors are
         flattened into one buffer, copied once, and split on the host.
         The copy drains the stream, so the tracer's card timings of the
-        programs before it resolve here without another sync."""
+        programs before it resolve here without another sync.
+
+        Under a split batch each tensor holds this data group's slots
+        (dim 0), or is a 0-d flag: the buffer is gathered over "data" on
+        the device first, in rank order (slot order), and the host joins
+        each tensor's rows and ORs each flag, so every rank reads the whole
+        batch's values."""
         self.host_transfers += 1
         flat = torch.cat([t.reshape(-1).to(torch.int32) for t in tensors])
+        groups = 1
+        if self._data_split:
+            groups = self.mesh.shape["data"]
+            flat = self.mesh.all_gather(flat, "data")
         with self._allowed():
             host = flat.cpu().numpy()
         if self.debug_invariants and self.mesh is not None:
@@ -934,10 +982,15 @@ class PapiEngine:
                     f"iteration {self.iteration}")
         if self.tracer.enabled:
             self.tracer.resolve()
-        out, at = [], 0
+        parts, out, at = host.reshape(groups, -1), [], 0
         for t in tensors:
-            out.append(host[at:at + t.numel()].reshape(t.shape))
+            got = parts[:, at:at + t.numel()]
             at += t.numel()
+            if t.dim() == 0:
+                out.append(got.max().reshape(()))
+            else:
+                out.append(got.reshape((groups * t.shape[0],)
+                                       + tuple(t.shape[1:])))
         return out[0] if len(out) == 1 else out
 
     def _slot_pos(self, s: int) -> int:
@@ -951,7 +1004,7 @@ class PapiEngine:
         changed, never a device->host one."""
         if self.kv is not None:
             with self._allowed():
-                tables = self.kv.tables.device(self.device)
+                tables = self.kv.tables.device(self.device, self._rows)
             for cache in (self.cache, self.draft_cache):
                 if cache is not None:
                     cache["block_tables"] = tables
@@ -963,6 +1016,10 @@ class PapiEngine:
         """An upload (host->device; never counted as a transfer)."""
         with self._allowed():
             return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _rows_to_device(self, arr: np.ndarray) -> torch.Tensor:
+        """Upload this data group's rows of a per-slot host array."""
+        return self._to_device(arr[self._rows])
 
     def _allowed(self):
         """The sanitizer's allow-scope for a sanctioned copy: the one
@@ -1278,16 +1335,23 @@ class PapiEngine:
         if not batch_rows:
             return 0, False
 
-        # chunk 0: the fixed-shape batched prefill (positions 0..P-1)
-        tokens = np.zeros((self.max_slots, self.prefill_len), np.int32)
-        lens = np.ones(self.max_slots, np.int32)
-        src = np.full(self.max_slots, -1, np.int32)
+        # chunk 0: the fixed-shape batched prefill (positions 0..P-1) over
+        # this data group's rows; a split batch puts each admitted prompt
+        # at its slot's row, so a group prefills its own slots only
+        lo, hi = self._rows.start, self._rows.stop
+        tokens = np.zeros((hi - lo, self.prefill_len), np.int32)
+        lens = np.ones(hi - lo, np.int32)
+        src = np.full(hi - lo, -1, np.int32)
         for row, (slot, req) in enumerate(batch_rows):
+            self.slot_prompt[slot] = len(req.prompt)
+            if self._data_split:
+                if not lo <= slot < hi:
+                    continue
+                row = slot - lo
             p0 = min(len(req.prompt), self.prefill_len)
             tokens[row, :p0] = req.prompt[:p0]
             lens[row] = p0
-            src[slot] = row
-            self.slot_prompt[slot] = len(req.prompt)
+            src[slot - lo] = row
         batch = {"tokens": self._to_device(tokens),
                  "prompt_lens": self._to_device(lens)}
         src_dev = self._to_device(src)
@@ -1351,7 +1415,7 @@ class PapiEngine:
                 if offs[slot] == len(req.prompt):
                     final.append(slot)
                     del pending[slot]
-            ct, cl = self._to_device(ctoks), self._to_device(clens)
+            ct, cl = self._rows_to_device(ctoks), self._rows_to_device(clens)
             nxt, self.cache = self._call(
                 self._wave_key("chunk_main"), prefill_chunk, self.cfg,
                 self.params, self.cache, ct, cl)
@@ -1437,7 +1501,8 @@ class PapiEngine:
         ctoks, clens, pin, pin_pos, finals = self._wave_rows(prefilling)
         self._ensure_wave_pages(prefilling, clens)
         self._sync_tables()
-        ct, cl, pm, pp = map(self._to_device, (ctoks, clens, pin, pin_pos))
+        ct, cl, pm, pp = map(self._rows_to_device,
+                             (ctoks, clens, pin, pin_pos))
         with self._attn_scope():
             nxt, _, self.cache = self._call(
                 self._wave_key("wave_main"), _guarded_wave, self.cfg,
@@ -1470,7 +1535,8 @@ class PapiEngine:
             for s in decoding:
                 self.kv.ensure(s, self._slot_pos(s) + 1)
         self._sync_tables()
-        ct, cl, pm, pp = map(self._to_device, (ctoks, clens, pin, pin_pos))
+        ct, cl, pm, pp = map(self._rows_to_device,
+                             (ctoks, clens, pin, pin_pos))
         pre = dict(self.cache)
         code = self._fault_code()
         with fc_variant(self.scheduler.fc_assignment), self._attn_scope():
@@ -1483,7 +1549,7 @@ class PapiEngine:
                 _, self.draft_cache = self._call(
                     self._wave_key("wave_draft"), mixed_step, self.draft_cfg,
                     self.draft_params, self.draft_cache, ct,
-                    self._to_device(chunk_lens), pm, pp)
+                    self._rows_to_device(chunk_lens), pm, pp)
         out_h, bad_h = self._fetch(nxt, bad)
         if bad_h:
             out_h = self._degraded_wave(pre, ct, cl, pm, pp)
@@ -1564,7 +1630,7 @@ class PapiEngine:
         caches stay in step."""
         self._note_degraded("step")
         self.cache, self.draft_cache = pre
-        last = self._to_device(self.slot_last)[:, None]
+        last = self._rows_to_device(self.slot_last)[:, None]
         with self._rerun_scope():
             logits, self.cache = self._call(
                 ("oracle", "main"), decode_step, self.cfg, self.params,
@@ -1585,7 +1651,7 @@ class PapiEngine:
                 # the fused plain step: decode_step + greedy on the device,
                 # then the iteration's single host fetch (with the guard's
                 # flag; ``fused=False`` takes no guard, as the reference)
-                last = self._to_device(self.slot_last)
+                last = self._rows_to_device(self.slot_last)
                 if not self.fused:
                     logits, self.cache = self._call(
                         self._decode_key("plain", 1), decode_step, self.cfg,
@@ -1622,7 +1688,7 @@ class PapiEngine:
         one (out, accepted, finished_eos, guard flag) bundle.  Poisoned
         verify logits put both caches back and degrade the iteration to
         one plain step."""
-        last = self._to_device(self.slot_last)
+        last = self._rows_to_device(self.slot_last)
         pre = self._pre_step()
         code = self._fault_code()
         out_h, acc_h, _, bad_h = self._fetch(*self._call(
@@ -1668,7 +1734,7 @@ class PapiEngine:
         host."""
         k = self.spec_len
         proposals = [self.slot_last.copy()]
-        last = self._to_device(self.slot_last)[:, None]
+        last = self._rows_to_device(self.slot_last)[:, None]
         draft_steps = ssm_step_buffers(self.draft_cache, k)
         for j in range(k):
             logits, self.draft_cache = self._call(
@@ -1682,7 +1748,7 @@ class PapiEngine:
         steps = ssm_step_buffers(self.cache, k)
         logits, self.cache = self._call(
             self._decode_key("verify", k), decode_step, self.cfg, self.params,
-            self.cache, self._to_device(window), steps)
+            self.cache, self._rows_to_device(window), steps)
         target = np.asarray(self._fetch(greedy(logits)))          # [slots, k]
         accepted = np.zeros(self.max_slots, np.int64)
         out = np.zeros((self.max_slots, k), np.int32)
@@ -1692,7 +1758,7 @@ class PapiEngine:
                 n += 1
             accepted[s] = n + 1                        # +1: the free token
             out[s, :n + 1] = target[s, :n + 1]
-        self._rewind(self._to_device(accepted.astype(np.int32)), steps,
+        self._rewind(self._rows_to_device(accepted.astype(np.int32)), steps,
                      draft_steps)
         return out, accepted.astype(np.float64)
 
@@ -1838,7 +1904,7 @@ class PapiEngine:
         # reference)
         inactive = np.array([r is None for r in self.slot_req])
         if inactive.any():
-            mask = self._to_device(inactive)
+            mask = self._rows_to_device(inactive)
             one = torch.ones((), dtype=torch.int32, device=self.device)
             for cache in (self.cache, self.draft_cache):
                 if cache is not None:

@@ -241,13 +241,15 @@ class BlockTables:
         self.host[slot, :] = GARBAGE_PAGE
         self._device = None
 
-    def device(self, device: torch.device | str) -> torch.Tensor:
-        """The int32 tensor the model steps consume, cached until a row
-        changes: a host->device copy only after a mutation, never a
-        device->host one."""
+    def device(self, device: torch.device | str,
+               rows: slice = slice(None)) -> torch.Tensor:
+        """The int32 tensor the model steps consume (the slots `rows`: a
+        data group's under a mesh), cached until a row changes: a
+        host->device copy only after a mutation, never a device->host
+        one."""
         dev = torch.device(device)
         if self._device is None or self._device.device.type != dev.type:
-            self._device = torch.from_numpy(self.host.copy()).to(dev)
+            self._device = torch.from_numpy(self.host[rows].copy()).to(dev)
         return self._device
 
 

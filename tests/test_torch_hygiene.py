@@ -43,6 +43,15 @@ def test_mesh_rank_bodies_import_neither_jax_nor_repro():
     assert not bad
 
 
+def test_data_mesh_rank_bodies_import_neither_jax_nor_repro():
+    """The spawned ranks of the data-axis mesh tests import this helper
+    (and `_mesh_ranks.py`) only."""
+    bad = sorted(n for n in _imported_modules(ROOT / "tests" /
+                                              "_mesh_data_ranks.py")
+                 if _forbidden(n))
+    assert not bad
+
+
 def test_chip_smoke_imports_neither_jax_nor_repro():
     bad = sorted(n for n in _imported_modules(ROOT / "chip_smoke.py")
                  if _forbidden(n))

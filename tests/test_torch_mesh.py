@@ -22,7 +22,9 @@ reference's `PRNGKey(0)` weights through `params_from_jax` and
     and qwen2-vl-7b's (M-RoPE) equal the port's one-device engine;
   * the launcher's ``--mesh 1,2 --device cpu`` prints the one-device
     launcher's lines;
-  * the refusals (dp > 1, mamba2, olmoe, zamba2) raise.
+  * the refusals (mamba2, olmoe, zamba2 under a tensor split, and the
+    long-context rules with dp > 1) raise; the data axis itself is
+    `tests/test_torch_mesh_data.py`'s.
 """
 import re
 import sys
@@ -223,15 +225,24 @@ def test_launcher_mesh_prints_the_one_device_lines(capfd, tmp_path):
 
 
 def test_refusals_raise():
+    """What the mesh still refuses: the MoE, SSM and hybrid families under
+    a tensor split, and the long-context rules with dp > 1.  The data
+    axis alone serves every decoder family."""
     for arch in ("mamba2-1.3b-smoke", "olmoe-1b-7b-smoke",
                  "zamba2-1.2b-smoke"):
-        with pytest.raises(ValueError, match="later slice"):
-            check_mesh({"data": 1, "model": 2}, [get_config(arch)])
-    with pytest.raises(ValueError, match="data axis"):
-        check_mesh({"data": 2, "model": 2}, [get_config(R.ARCH)])
-    with pytest.raises(ValueError, match="data axis"):
-        serve_cli.main(["--arch", "qwen2-0.5b-smoke", "--device", "cpu",
-                        "--mesh", "2,1"])
+        for shape in ({"data": 1, "model": 2}, {"data": 2, "model": 2}):
+            with pytest.raises(ValueError, match="later slice"):
+                check_mesh(shape, [get_config(arch)])
+        check_mesh({"data": 2, "model": 1}, [get_config(arch)])
+    for attn_pim in (False, True):
+        with pytest.raises(ValueError, match="long-context.*later slice"):
+            check_mesh({"data": 2, "model": 2}, [get_config(R.ARCH)],
+                       serve_rules(long_context=True, attn_pim=attn_pim))
+    check_mesh({"data": 1, "model": 2}, [get_config(R.ARCH)],
+               serve_rules(long_context=True))
+    with pytest.raises(ValueError, match="later slice"):
+        serve_cli.main(["--arch", "mamba2-1.3b-smoke", "--device", "cpu",
+                        "--mesh", "2,2"])
     with pytest.raises(ValueError, match="later slice"):
         serve_cli.main(["--arch", "mamba2-1.3b-smoke", "--device", "cpu",
                         "--mesh", "1,2"])
