@@ -49,8 +49,9 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      the L2) at m = 1..128, with the wall-clock columns it compared, the
      same work's device time and the crossover each gives;
      3f: the other families' shapes: fc_gemv at each FC group of one
-     layer of olmoe-1b-7b, granite-8b, qwen2-vl-7b, deepseek-67b and
-     command-r-plus-104b (f32 m = 8; bf16 m = 8, 32, 512), both attention
+     layer of olmoe-1b-7b, granite-8b, qwen2-vl-7b, deepseek-67b,
+     command-r-plus-104b and gpt3-175b (its gelu MLP: K up to 49152; f32
+     m = 8; bf16 m = 8, 32, 512), both attention
      kernels at hd 128 with each model's GQA geometry (t = 1, 4, 64), the
      paged kernel bit-equal to the dense one; each layer's FC groups and
      the attention at t = 1 and 64 timed beside torch.matmul / SDPA and
@@ -77,11 +78,11 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      variants run;
      4f: speculative decoding (spec_len 4, attn_pim) of phase 4's 8
      requests, dense and paged, at α 4 and 99, with the perfect draft (the
-     target) and a seed-1 draft: every request finishes, one transfer per
-     speculative iteration, fc_gemv launched 4 per layer for each draft
-     step and the verify (m = 32) of every iteration that ran "pim",
-     Attn-PIM called once per layer at t = 4 and 4 times at t = 1 per
-     iteration, paged streams equal dense streams, the pool drains; prints
+     target) and a seed-1 draft cut to 6 layers: every request finishes,
+     one transfer per speculative iteration, fc_gemv launched 4 per layer
+     for each draft step and the verify (m = 32) of every iteration that
+     ran "pim", Attn-PIM called once per target layer at t = 4 and 4 times
+     per draft layer at t = 1 per iteration, paged streams equal dense streams, the pool drains; prints
      accepted per window, tokens/s and the tokens equal to phase 4's;
      4g: the TLP register at α 12: spec_len 1 runs "pim" (m = 8),
      `set_spec_len(4)` flips to "pu" (m = 32) at once, and "pim" returns as
@@ -138,14 +139,16 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      the journal's cost: phase 4's dense run with no journal, ``flush``
      and ``fsync`` (tokens/s, bytes, records);
      4n: the other decoder families at full width, bf16, random weights
-     from seed 0, one model resident at a time: olmoe-1b-7b (MoE),
-     granite-8b and qwen2-vl-7b (M-RoPE) at full depth, deepseek-67b
-     (untied head) at 8 layers and command-r-plus-104b (layernorm) at 4.
+     from seed 0, one model resident at a time: olmoe-1b-7b (MoE) at 4 of
+     16 layers, granite-8b at 8 of 36, qwen2-vl-7b (M-RoPE) at 7 of 28,
+     deepseek-67b (untied head) at 8 layers, command-r-plus-104b
+     (layernorm) at 4 and gpt3-175b (gelu MLP, qkv biases, layernorm) at 2
+     of 96.
      Phase 4's requests dense and paged, under "pu" (alpha 0) and "pim"
      (alpha 99): every request finishes, fc_gemv launched (a multiple of
      the FC groups x layers) exactly when "pim" ran, the attention kernel
      of the layout launched, the engine's transfer budget per steady
-     iteration (one, plus one per MoE layer: olmoe's 16 count copies),
+     iteration (one, plus one per MoE layer: olmoe's 4 count copies),
      olmoe once more under the sanitizer, the pool drains, paged streams
      equal dense ones; prints tokens/s, the median
      steady iteration, the bf16 tokens under pim equal to pu's, the
@@ -170,13 +173,14 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      step's, the verify's and a mixed wave's logits shapes; 5b: one admission
      wave of each SSM model (busy share, ssd_scan's share over both of its
      CUDA kernels); 5c: three steady speculative iterations per layout and
-     FC variant (the same, with calls by m and by window t); 5d: three
+     FC variant, qwen2 and its perfect draft cut to 4 of 24 layers (the
+     same, with calls by m and by window t); 5d: three
      mixed waves (4 decode rows, 4 prompts mid-prefill) at α 99 per layout
      (the same, per wave); 5e: what keeping the pre-step SSM state costs on
      full-width mamba2: a decode step's device time (it writes its new
      state into fresh tensors) and the memory reserved around it, against
      the copy that keeping a copy would pay; 5f: five steady granite-8b
-     iterations at alpha 99 (busy share, FC-PIM's device time against the
+     (8 of 36 layers) iterations at alpha 99 (busy share, FC-PIM's device time against the
      byte bound of every layer's FC weights);
   6. parity at full width, 2 layers, f32: one decode step's logits with the
      kernels (pim FC + Attn-PIM) against the plain path (pu + plain
@@ -219,7 +223,7 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      Attn-PIM wrappers at qwen2's (1 KV head a rank) and granite's (4 a
      rank, g = 4) geometry, t = 1, 4 and 64, bit-equal to the unsharded
      kernel's rows for the rank's heads and within tolerance of the plain
-     version; full-width full-depth qwen2-0.5b in the engine: f32 dense
+     version; full-width qwen2-0.5b (12 of 24 layers) in the engine: f32 dense
      (default rules: the slab split by sequence, plain attention),
      attn_pim (sanitized), paged (Attn-PIM over pages) and speculative
      (attn_pim, spec_len 4, the perfect draft) streams equal
@@ -233,7 +237,7 @@ Phases (any failed check makes the script exit non-zero, after all ran):
   6j. mesh serving on the data axis (the slot batch split over "data", as
      the reference's "batch" rule), every rank on this one card over
      gloo, collectives staged through host copies: a (2, 2) world of four
-     ranks serves 6i's f32 full-width full-depth qwen2-0.5b cases (dense,
+     ranks serves 6i's f32 full-width qwen2-0.5b (12 layers) cases (dense,
      attn_pim sanitized, paged, speculative spec_len 4 with the perfect
      draft) on 8 slots, and a (2, 1) world serves f32 full-width
      mamba2-1.3b (depth cut to 16) dense and olmoe-1b-7b (cut to 8)
@@ -246,11 +250,28 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      on mamba2, `fc_gemv` and the attention kernel of its layout
      elsewhere); each rank's bytes of weights and KV / SSM state and
      tokens/s beside the one-rank engine's (no claim);
+  6k. the MoE, SSM and hybrid families under a tensor split, every rank on
+     this one card over gloo: first, the card alone, fc_gemv at a tp = 2
+     rank's FC groups of olmoe-1b-7b, granite-moe-1b-a400m and zamba2's
+     shared block (f32 and bf16, m = 8; timed beside torch.matmul),
+     decode_attention over a rank's KV heads (olmoe 8 of 16 at hd 128,
+     zamba2 16 of 32 at hd 64) and ssd_scan at a rank's heads (mamba2 nh
+     32 and 16, zamba2 32) against their plain versions, the scan timed;
+     then a (1, 2) world serves f32 full-width olmoe-1b-7b (depth cut to
+     8: dense, attn_pim sanitized, paged), mamba2-1.3b (cut to 16: plain,
+     and spec_len 4 with the perfect draft) and zamba2-1.2b (cut to 12,
+     two shared-block applications: attn_pim), and a (2, 2) world
+     mamba2's plain case: on every rank the streams, finish reasons and FC
+     variants equal the one-rank engine's, steady iterations sit at the
+     transfer budget (the experts' combine, the Mamba2 norm and w_out
+     sums), each rank holds half the weights (a little more: the router,
+     norms, B and C stay whole) and 1/tp of the KV / SSM state (1/4 at
+     (2, 2)), and each run launches its kernels on every rank;
   7. training, on the train path the reference lowers (no kernel: plain
      matmuls, the plain blocked attention, the differentiable plain SSD
      scan); bf16, random weights from seed 0, batch 8 x seq 512 as two
      microbatches of 4 (accum 2), remat, AdamW (lr 3e-4, warmup 5):
-     7a: full-width qwen2-0.5b (24 layers) through `run_training`, 30
+     7a: full-width qwen2-0.5b (12 of 24 layers) through `run_training`, 30
      steps: every loss finite, the mean of the last 5 below the mean of the
      first 5 minus 0.2; an async checkpoint at step 20, then `resume=True`
      from it to step 30: `resumed_from == 20` and the 10 losses within
@@ -259,8 +280,10 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      two steps traced with torch.profiler (device busy share, CUDA
      launches, the top kernels);
      7b: 5 steps each of full-width hubert-xlarge (frames and mask,
-     bidirectional, gelu; 48 layers), mamba2-1.3b (48) and zamba2-1.2b
-     (38) at chunk 256, and granite-moe-1b-a400m (24; its aux loss > 0):
+     bidirectional, gelu; 12 of 48 layers), mamba2-1.3b (12 of 48) and
+     zamba2-1.2b (9 of 38, one shared application) at chunk 256, and
+     granite-moe-1b-a400m (6 of 24; its aux loss > 0), depth cut to a
+     quarter to keep the script in its limit:
      finite losses and gradient norms, the step wall and the peak memory;
      the models that do not fit one card with AdamW named with their
      reckoned bytes;
@@ -292,6 +315,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -332,10 +356,13 @@ from repro_torch.serving import (EngineCrashError,  # noqa: E402
                                  write_trace)
 from repro_torch.serving.engine import _nonfinite  # noqa: E402
 from repro_torch.distributed.sharding import (axis_rules,  # noqa: E402
-                                              local_block, serve_rules)
+                                              block_range, local_block,
+                                              serve_rules)
 from repro_torch.launch.mesh import (make_serving_mesh,  # noqa: E402
                                      spawn_world)
 from repro_torch.models.linear import papi_linear_group  # noqa: E402
+from repro_torch.models.model import (param_shapes,  # noqa: E402
+                                      param_shardings)
 from repro_torch.models.weights import shard_params  # noqa: E402
 from repro_torch.training import (AdamWConfig, CheckpointManager,  # noqa: E402
                                   TrainConfig, init_adamw, make_train_step,
@@ -411,14 +438,21 @@ def time_ms(fn, argsets, reps: int = 5) -> float:
     """Device time per call of fn, median over `reps` batches.  Each batch
     runs fn once per argument set (enough sets to exceed L2, as the main
     path finds its weights cold) between two CUDA events, queued behind a
-    device-side sleep so that the host's launch overhead never shows as
-    device time."""
+    device-side sleep twice as long as a whole warm batch took, host and
+    device (at least 10 ms), so that the host's launch overhead never
+    shows as device time."""
     for a in argsets[:3]:
         fn(*a)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in argsets:
+        fn(*a)
+    torch.cuda.synchronize()
+    # ~2e9 sleep cycles a second at the card's 1.98 GHz boost clock
+    cycles = int(max(2 * (time.perf_counter() - t0), 0.01) * 2e9)
     times = []
     for _ in range(reps):
-        torch.cuda._sleep(300_000_000)       # ~150 ms: the host runs ahead
+        torch.cuda._sleep(cycles)            # the host runs ahead
         s, e = torch.cuda.Event(True), torch.cuda.Event(True)
         s.record()
         for a in argsets:
@@ -1973,22 +2007,23 @@ def _serve_spec(cfg, params, draft, label, plain, **kw) -> dict:
           "admission, one host transfer each")
     ran = _ran_variants(eng)
     n_pim = ran.count("pim")
-    L = cfg.num_layers
+    L, Ld = cfg.num_layers, draft[0].num_layers
     # each pim iteration: k draft steps at m = 8, one verify at m = 8 k,
     # 4 grouped launches per layer each
-    check(launches["fc_gemv"] == 4 * L * (SPEC_LEN + 1) * n_pim
+    check(launches["fc_gemv"] == 4 * (Ld * SPEC_LEN + L) * n_pim
           and by_m.get(8 * SPEC_LEN, 0) == 4 * L * n_pim,
           f"{label}: fc_gemv launched {launches['fc_gemv']} times ({by_m} "
-          f"by m) in {n_pim} pim iterations of {len(ran)}: 4 x {L} layers "
-          f"x ({SPEC_LEN} draft steps + the verify at m = {8 * SPEC_LEN})")
+          f"by m) in {n_pim} pim iterations of {len(ran)}: 4 x ({SPEC_LEN} "
+          f"draft steps x {Ld} layers + the verify at m = {8 * SPEC_LEN} x "
+          f"{L})")
     attn = "paged_decode_attention" if paged else "decode_attention"
     other = "decode_attention" if paged else "paged_decode_attention"
     check(attn_by_t.get(SPEC_LEN, 0) == L * len(ran)
-          and attn_by_t.get(1, 0) == L * SPEC_LEN * len(ran)
+          and attn_by_t.get(1, 0) == Ld * SPEC_LEN * len(ran)
           and launches[other] == 0 and launches["ssd_scan"] == 0,
           f"{label}: {attn} calls by window t {attn_by_t}: {L} at t = "
-          f"{SPEC_LEN} (the verify) and {L * SPEC_LEN} at t = 1 (the draft) "
-          f"per iteration, over {len(ran)} iterations")
+          f"{SPEC_LEN} (the verify) and {Ld * SPEC_LEN} at t = 1 (the "
+          f"draft) per iteration, over {len(ran)} iterations")
     if paged:
         alloc = eng.kv.alloc
         alloc.check()
@@ -2010,24 +2045,27 @@ def _serve_spec(cfg, params, draft, label, plain, **kw) -> dict:
 
 # phase 4f's dense alpha 4 perfect-draft streams: phase 4j's fault-free twin
 SPEC_STREAMS: dict = {}
+# the seed-1 draft's depth in phase 4f (the script's limit)
+SPEC_DRAFT_CUT = 6
 
 
 def phase_spec(params, plain: dict) -> dict:
     """Phase 4f: speculative serving (spec_len 4, attn_pim) of phase 4's
     8 requests at full width, bf16: dense and paged, at alpha 4 (pu at m =
     32) and 99 (pim: fc_gemv at m = 32), with the perfect draft (the target
-    itself) and a seed-1 draft of the same config.  Returns the launches
-    summed over the runs."""
+    itself) and a seed-1 draft of the same config cut to its first
+    `SPEC_DRAFT_CUT` layers.  Returns the launches summed over the runs."""
     cfg = get_config("qwen2-0.5b")
-    seed1 = init_params(cfg, torch.Generator(device=DEV).manual_seed(1))
+    seed1 = _cut(cfg, init_params(cfg, torch.Generator(device=DEV)
+                                  .manual_seed(1)), SPEC_DRAFT_CUT)
     runs = {}
     for layout in ("dense", "paged"):
         for alpha in (4, 99):
-            for name, d in (("perfect draft", params), ("seed-1 draft",
-                                                        seed1)):
+            for name, d in (("perfect draft", (cfg, params)),
+                            ("seed-1 draft", seed1)):
                 label = f"spec {layout} alpha={alpha} {name}"
                 runs[layout, alpha, name] = _serve_spec(
-                    cfg, params, (cfg, d), label, plain, alpha=alpha,
+                    cfg, params, d, label, plain, alpha=alpha,
                     kv_layout=layout, page_size=16)
     SPEC_STREAMS.update(runs["dense", 4, "perfect draft"]["streams"])
     for alpha in (4, 99):
@@ -2088,12 +2126,17 @@ def phase_tlp_register(params) -> None:
     check_healthy(eng, "TLP register")
 
 
+SPEC_TRACE_DEPTH = 4
+
+
 def phase_spec_trace(params) -> None:
     """Phase 5c: three steady speculative iterations (perfect draft,
     spec_len 4, 8 live requests) per KV layout and FC variant under
     torch.profiler: wall, device busy, FC-PIM and Attn-PIM device time and
-    launches (by m and by window t) per iteration."""
-    cfg = get_config("qwen2-0.5b")
+    launches (by m and by window t) per iteration.  The model and its
+    draft are cut to `SPEC_TRACE_DEPTH` of qwen2's 24 layers, to keep the
+    script inside its time limit."""
+    cfg, params = _cut(get_config("qwen2-0.5b"), params, SPEC_TRACE_DEPTH)
     rng = np.random.default_rng(5)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -3284,9 +3327,9 @@ def phase_journal_cost(params) -> None:
 # (dense) and qwen2-vl-7b (M-RoPE) at their published depth; deepseek-67b
 # (untied head) and command-r-plus-104b (layernorm) at published widths and
 # the depth (None: published) that fits one 80 GB card in bf16
-FAMILY_PATHS = [("olmoe-1b-7b", None), ("granite-8b", None),
-                ("qwen2-vl-7b", None), ("deepseek-67b", 8),
-                ("command-r-plus-104b", 4)]
+FAMILY_PATHS = [("olmoe-1b-7b", 4), ("granite-8b", 8),
+                ("qwen2-vl-7b", 7), ("deepseek-67b", 8),
+                ("command-r-plus-104b", 4), ("gpt3-175b", 2)]
 # f32, 2 layers: the streams held token for token against the plain path
 FAMILY_PARITY = ("olmoe-1b-7b", "qwen2-vl-7b", "command-r-plus-104b",
                  "deepseek-67b")
@@ -3300,13 +3343,15 @@ def family_cfg(arch: str, depth: int | None = None, dtype: str | None = None):
 
 def fc_groups(cfg) -> list:
     """(K, [N of each weight]) of one layer's FC-PIM launches under "pim":
-    q/k/v and the out projection; gate/up and down unless the MLP is MoE
-    (its experts are plain matmuls, as the reference's einsums)."""
+    q/k/v and the out projection; gate/up (a gelu MLP's w_in) and down
+    (w_out) unless the MLP is MoE (its experts are plain matmuls, as the
+    reference's einsums)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
     groups = [(d, [q, kv, kv]), (q, [d])]
     if cfg.moe is None:
-        groups += [(d, [cfg.d_ff, cfg.d_ff]), (cfg.d_ff, [d])]
+        up = [cfg.d_ff] * (2 if cfg.mlp == "swiglu" else 1)
+        groups += [(d, up), (cfg.d_ff, [d])]
     return groups
 
 
@@ -3611,6 +3656,7 @@ TRAIN_DATA = dict(batch=8, seq_len=512)
 TRAIN_ACCUM = 2
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=5)
 TRAIN_STEPS = 30
+TRAIN_MAIN_DEPTH = 12
 TRAIN_FITS = ("hubert-xlarge", "mamba2-1.3b", "zamba2-1.2b",
               "granite-moe-1b-a400m")
 TRAIN_TOO_BIG = ("olmoe-1b-7b", "qwen2-vl-7b", "granite-8b", "deepseek-67b",
@@ -3637,9 +3683,10 @@ def _finite(xs) -> bool:
 
 
 def phase_train_main() -> None:
-    """Phase 7a: full-width qwen2-0.5b through `run_training`, checkpoint
-    at step 20, resume to 30 against the uninterrupted run."""
-    cfg = get_config("qwen2-0.5b")
+    """Phase 7a: full-width qwen2-0.5b, cut to `TRAIN_MAIN_DEPTH` of its 24
+    layers (the script's limit), through `run_training`, checkpoint at
+    step 20, resume to 30 against the uninterrupted run."""
+    cfg = family_cfg("qwen2-0.5b", TRAIN_MAIN_DEPTH)
     dcfg = DataConfig(**TRAIN_DATA)
     ocfg = AdamWConfig(total_steps=TRAIN_STEPS, **TRAIN_OPT)
     tokens = dcfg.batch * dcfg.seq_len
@@ -3766,9 +3813,11 @@ def _train_steps(cfg, steps: int) -> dict:
 
 
 def phase_train_families() -> None:
-    """Phase 7b: 5 steps of each other family that fits one card."""
+    """Phase 7b: 5 steps of each other family that fits one card, at a
+    quarter of its published depth (to keep the script inside its time
+    limit)."""
     for arch in TRAIN_FITS:
-        cfg = get_config(arch)
+        cfg = family_cfg(arch, depth=get_config(arch).num_layers // 4)
         t0 = time.perf_counter()
         r = _train_steps(cfg, 5)
         wall = time.perf_counter() - t0
@@ -3781,7 +3830,8 @@ def phase_train_families() -> None:
             check(r["aux"] > 0, f"7b {arch}: the aux loss {r['aux']:.4f} > 0")
         tokens = TRAIN_DATA["batch"] * TRAIN_DATA["seq_len"]
         med = statistics.median(r["wall"][1:])
-        print(f"      7b {arch} [{CARD}] ({cfg.num_layers} layers, "
+        print(f"      7b {arch} [{CARD}] ({cfg.num_layers} of "
+              f"{get_config(arch).num_layers} layers, "
               f"{param_count(cfg) / 1e9:.3f} B parameters, weights "
               f"{r['weights']:.2f} GiB): step wall median {med * 1e3:.1f} ms "
               f"over steps 1-4 (step 0 {r['wall'][0] * 1e3:.1f} ms), "
@@ -3899,6 +3949,8 @@ MESH_CASES = {"dense": {}, "attn_pim": dict(attn_pim=True, sanitize=True),
               "paged": dict(kv_layout="paged", page_size=16, attn_pim=True),
               "spec": dict(attn_pim=True, spec_len=4)}
 MESH_GRANITE_DEPTH = 8
+# qwen2-0.5b's depth in 6i and 6j (12 of 24 layers: the script's limit)
+MESH_QWEN_DEPTH = 12
 MESH_ATTN = {"qwen2-0.5b": (2, 7, 64), "granite-8b": (8, 4, 128)}
 MESH_TIMEOUT_S = 600
 
@@ -4083,13 +4135,13 @@ def _mesh_rank(rank: int, device, granite_depth: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_serving_mesh(1, MESH_TP, device=device)
     out = {"banks": _mesh_banks(mesh), "attention": _mesh_attention(mesh)}
-    cfg32 = family_cfg("qwen2-0.5b", dtype="float32")
+    cfg32 = family_cfg("qwen2-0.5b", MESH_QWEN_DEPTH, "float32")
     params = init_params(cfg32, torch.Generator(device=DEV).manual_seed(0))
     out["f32"] = {c: _mesh_run(cfg32, params, c, mesh) for c in MESH_CASES}
     out["f32_logits"] = _mesh_first_logits(cfg32, params, mesh,
                                            serve_rules())
     del params
-    cfg16 = get_config("qwen2-0.5b")
+    cfg16 = family_cfg("qwen2-0.5b", MESH_QWEN_DEPTH)
     params = init_params(cfg16, torch.Generator(device=DEV).manual_seed(0))
     out["bf16"] = _mesh_run(cfg16, params, "attn_pim", mesh)
     out["bf16_logits"] = _mesh_first_logits(cfg16, params, mesh,
@@ -4188,12 +4240,12 @@ def phase_mesh() -> tuple[dict, dict]:
     and the one-rank f32 qwen2 runs (phase 6j's baseline)."""
     print(f"      NCCL world of one: {_nccl_world_of_one()}", flush=True)
     _shard_times()
-    cfg32 = family_cfg("qwen2-0.5b", dtype="float32")
+    cfg32 = family_cfg("qwen2-0.5b", MESH_QWEN_DEPTH, "float32")
     params = init_params(cfg32, torch.Generator(device=DEV).manual_seed(0))
     one = {c: _mesh_run(cfg32, params, c) for c in MESH_CASES}
     one_logits32 = _mesh_first_logits(cfg32, params)
     del params
-    cfg16 = get_config("qwen2-0.5b")
+    cfg16 = family_cfg("qwen2-0.5b", MESH_QWEN_DEPTH)
     params = init_params(cfg16, torch.Generator(device=DEV).manual_seed(0))
     one16 = _mesh_run(cfg16, params, "attn_pim")
     one_logits16 = _mesh_first_logits(cfg16, params)
@@ -4303,32 +4355,38 @@ DATA_KERNELS = {"dense": ("fc_gemv",), "attn_pim": ("fc_gemv",
                 "spec": ("fc_gemv", "decode_attention")}
 
 
-def _data_mesh_runs(mesh=None) -> dict:
-    """The (2, 1) world's runs (one rank's, or the one-rank engine's): each
-    family model from seed 0 in f32, one at a time on the card."""
-    out = {}
-    for arch, depth, case, engine in DATA_FAMILY_RUNS:
+def _family_mesh_runs(runs, mesh=None) -> dict:
+    """`runs`' engine runs (one rank's, or the one-rank engine's): each
+    family model from seed 0 in f32, one at a time on the card (its weights
+    made once for its consecutive runs)."""
+    out, params, made = {}, None, None
+    for arch, depth, case, engine in runs:
         cfg = family_cfg(arch, depth=depth, dtype="float32")
-        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+        if made != (arch, depth):
+            del params
+            torch.cuda.empty_cache()
+            params = init_params(cfg,
+                                 torch.Generator(device=DEV).manual_seed(0))
+            made = (arch, depth)
         out[f"{arch}/{depth} f32 {case}"] = _mesh_run(cfg, params, case,
                                                       mesh, engine)
-        del params
-        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
 def _data_mesh_rank(rank: int, device, dp: int, tp: int) -> dict:
     """One rank of a phase 6j world: at (2, 2) phase 6i's f32 qwen2 cases
-    at full depth, at (2, 1) the family runs."""
+    (12 layers), at (2, 1) the family runs."""
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_serving_mesh(dp, tp, device=device)
     if tp > 1:
-        cfg = family_cfg("qwen2-0.5b", dtype="float32")
+        cfg = family_cfg("qwen2-0.5b", MESH_QWEN_DEPTH, "float32")
         params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
         runs = {f"qwen2 f32 {c}": _mesh_run(cfg, params, c, mesh)
                 for c in MESH_CASES}
     else:
-        runs = _data_mesh_runs(mesh)
+        runs = _family_mesh_runs(DATA_FAMILY_RUNS, mesh)
     return {"coords": dict(mesh.coords), "runs": runs,
             "collectives": mesh.collectives}
 
@@ -4343,7 +4401,7 @@ def phase_data_mesh(one: dict) -> dict:
     the one-rank engine (phase 6i's f32 qwen2 runs, the family runs here).
     Returns the launches summed over every rank's engine runs."""
     want = {f"qwen2 f32 {c}": r for c, r in one.items()}
-    want.update(_data_mesh_runs())
+    want.update(_family_mesh_runs(DATA_FAMILY_RUNS))
     launches = {name: 0 for name in MODS}
     for dp, tp in DATA_MESHES:
         t0 = time.perf_counter()
@@ -4403,6 +4461,200 @@ def phase_data_mesh(one: dict) -> dict:
                   f"iteration {got['steady']} (one rank {w['steady']}); "
                   f"launches per rank {got['launches']}", flush=True)
     print(f"      data-mesh launches (every rank, engine runs): "
+          f"{json.dumps(launches)}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 6k: the MoE, SSM and hybrid families under a tensor split (--mesh
+# 1,2, and mamba2 at --mesh 2,2), every rank on this card over gloo
+SSM_MESH_ENGINE = dict(MESH_ENGINE, prefill_len=256)
+# (arch, depth, phase 6i case, engine), f32, depth cut to keep the phase
+# near 90 s: olmoe 8 of 16 layers, mamba2 16 of 48, zamba2 12 of 38 (two
+# shared-block applications)
+FAMILY_MESH_RUNS = (
+    ("olmoe-1b-7b", 8, "dense", MESH_ENGINE),
+    ("olmoe-1b-7b", 8, "attn_pim", MESH_ENGINE),
+    ("olmoe-1b-7b", 8, "paged", MESH_ENGINE),
+    ("mamba2-1.3b", 16, "dense", SSM_MESH_ENGINE),
+    ("mamba2-1.3b", 16, "spec", SSM_MESH_ENGINE),
+    ("zamba2-1.2b", 12, "attn_pim", SSM_MESH_ENGINE),
+)
+FAMILY_MESHES = {(1, 2): FAMILY_MESH_RUNS,
+                 (2, 2): (("mamba2-1.3b", 16, "dense", SSM_MESH_ENGINE),)}
+# the shard shapes at tp 2 (and mamba2's scan at tp 4): (K, [N]) of one
+# layer's FC-PIM groups, the scan's (b, nh, l, hp, n, cs), the Attn-PIM
+# geometry (nkv, g, hd) of a rank's KV heads
+FAMILY_SHARD_FC = {
+    "olmoe-1b-7b": [(2048, [1024, 1024, 1024]), (1024, [2048])],
+    "granite-moe-1b-a400m": [(1024, [512, 256, 256]), (512, [1024])],
+    "zamba2-1.2b": [(2048, [1024, 1024, 1024]), (1024, [2048]),
+                    (2048, [4096, 4096]), (4096, [2048])],
+}
+FAMILY_SHARD_SSD = {"mamba2-1.3b tp 2": (8, 32, 512, 64, 128, 256),
+                    "mamba2-1.3b tp 4": (8, 16, 512, 64, 128, 256),
+                    "zamba2-1.2b tp 2": (8, 32, 512, 64, 64, 256)}
+FAMILY_SHARD_ATTN = {"olmoe-1b-7b": (8, 1, 128), "zamba2-1.2b": (16, 1, 64)}
+
+
+def _family_shard_kernels() -> None:
+    """The kernels at a rank's shard shapes, this process alone on the
+    card: fc_gemv (f32 and bf16, m = 8) and decode_attention (bf16, t = 1)
+    against their plain versions, fc_gemv timed beside torch.matmul;
+    ssd_scan (dtx f32, B/C/y bf16) against `ssd_scan_ref` and timed."""
+    gen = torch.Generator(device=DEV).manual_seed(28)
+    for arch, groups in FAMILY_SHARD_FC.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            for K, ns in groups:
+                ws = [(torch.randn(K, n, generator=gen, device=DEV)
+                       / math.sqrt(K)).to(dtype) for n in ns]
+                x = torch.randn(8, K, generator=gen, device=DEV).to(dtype)
+                ys = fc_mod.fc_gemv_group(x, ws)
+                torch.cuda.synchronize()
+                errs = [max_err(y, fc_mod.fc_gemv_ref(x, w))
+                        for y, w in zip(ys, ws)]
+                check(all(ok for _, ok, _ in errs),
+                      f"6k fc_gemv_group {str(dtype)[6:]} {arch} shard m=8 "
+                      f"K={K} N={ns}: max_abs_err "
+                      f"{max(e for e, _, _ in errs):.3e} (tol {errs[0][2]})")
+        _fc_group_times(gen, groups, f"a tp = 2 rank's {arch} layer", reps=3)
+    for arch, (nkv, g, hd) in FAMILY_SHARD_ATTN.items():
+        lens = FAMILY_LENS[1]
+        q, k, v, ln = _attn_inputs(gen, torch.bfloat16, 1, lens, nkv=nkv,
+                                   g=g, hd=hd)
+        got = attn_mod.decode_attention(q, k, v, ln, q_rows=1)
+        torch.cuda.synchronize()
+        err, ok, tol = max_err(got, attn_mod.decode_attention_ref(q, k, v,
+                                                                  ln, 1))
+        k_ms = time_ms(lambda q, k, v, ln: attn_mod.decode_attention(
+            q, k, v, ln, q_rows=1), [(q, k, v, ln)], reps=3)
+        check(ok, f"6k decode_attention bf16 {arch} a rank's {nkv} KV heads "
+              f"(g {g}, hd {hd}, t 1): max_abs_err {err:.3e} (tol {tol}); "
+              f"{k_ms:.4f} ms")
+    f32, bf16 = torch.float32, torch.bfloat16
+    for label, (b, nh, l, hp, n, ch) in FAMILY_SHARD_SSD.items():
+        sets = [_ssd_inputs(gen, b, nh, l, hp, n, f32, bf16)[:4]
+                + (torch.zeros(b, nh, hp, n, device=DEV),) for _ in range(3)]
+
+        def kern(dtx, lt, B, C, s0):
+            return ssd_mod.ssd_scan(dtx, lt, B, C, chunk=ch, init_state=s0,
+                                    out_dtype=bf16)
+
+        def plain(dtx, lt, B, C, s0):
+            return ssd_mod.ssd_scan_ref(dtx, lt, B, C, chunk=ch,
+                                        init_state=s0, out_dtype=bf16)
+
+        y, st = kern(*sets[0])
+        torch.cuda.synchronize()
+        want_y, want_st = plain(*sets[0])
+        ey, oky, tol = max_err(y, want_y, SSD_TOL[bf16])
+        es, oks, _ = max_err(st, want_st, SSD_TOL[f32])
+        k_ms, p_ms = time_ms(kern, sets, reps=3), time_ms(plain, sets, reps=3)
+        b_ms, b_by = ssd_tc_bound(b, nh, l, hp, n, ch)
+        check(oky and oks, f"6k ssd_scan {label} b={b} nh={nh} l={l} "
+              f"hp={hp} n={n} cs={ch}: max_abs_err y {ey:.3e} (tol {tol}), "
+              f"state {es:.3e}; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}) [{CARD}]")
+        del sets, y, st, want_y, want_st
+
+
+def _block_bytes(cfg, rules, shape: dict, coords: dict) -> int:
+    """Bytes of one rank's block of every weight of an f32 `cfg` under
+    `rules` (`param_shardings` on a shape-only mesh at `coords`)."""
+    mesh = types.SimpleNamespace(shape=shape, coords=coords)
+
+    def walk(specs, shapes):
+        if isinstance(specs, dict):
+            return sum(walk(specs[k], shapes[k]) for k in specs)
+        return 4 * math.prod(hi - lo for lo, hi in (
+            block_range(n, e, mesh) for n, e in zip(shapes, specs)))
+    return walk(param_shardings(cfg, rules, mesh), param_shapes(cfg))
+
+
+def _family_mesh_rank(rank: int, device, dp: int, tp: int) -> dict:
+    """One rank of a phase 6k world: its runs of `FAMILY_MESHES`."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_serving_mesh(dp, tp, device=device)
+    runs = _family_mesh_runs(FAMILY_MESHES[dp, tp], mesh)
+    return {"coords": dict(mesh.coords), "runs": runs,
+            "collectives": mesh.collectives}
+
+
+def phase_family_mesh() -> dict:
+    """Phase 6k (module docstring): the shard kernels, the one-rank
+    engine's runs, then the (1, 2) and (2, 2) worlds against them.
+    Returns the launches summed over every rank's engine runs."""
+    _family_shard_kernels()
+    want = _family_mesh_runs(FAMILY_MESH_RUNS)
+    launches = {name: 0 for name in MODS}
+    for (dp, tp), runs in FAMILY_MESHES.items():
+        t0 = time.perf_counter()
+        ranks = spawn_world(_family_mesh_rank, dp * tp, device="cuda",
+                            timeout_s=MESH_TIMEOUT_S, args=(dp, tp),
+                            store_dir=ROOT / "build", threads=2)
+        print(f"      6k mesh ({dp}, {tp}) world: {dp * tp} ranks on one "
+              f"{torch.cuda.get_device_name(0)} over gloo, collectives "
+              f"staged through host copies; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        share = dp * tp if dp > 1 else tp        # of the one-rank state
+        for r, res in enumerate(ranks):
+            check(res["coords"] == {"data": r // tp, "model": r % tp},
+                  f"6k ({dp}, {tp}) rank {r} at {res['coords']}")
+            for label, got in res["runs"].items():
+                w = want[label]
+                tag = f"6k ({dp}, {tp}) rank {r} {label}"
+                check(got["streams"] == w["streams"]
+                      and got["reasons"] == w["reasons"],
+                      f"{tag}: streams equal the one-rank engine's "
+                      f"({_first_divergence(got['streams'], w['streams'])})")
+                check(got["fc"] == w["fc"], f"{tag}: FC variants "
+                      f"{got['fc']} (one rank {w['fc']})")
+                check(got["steady"] == [got["budget"]]
+                      and got["degraded"] == 0,
+                      f"{tag}: steady transfers {got['steady']}, budget "
+                      f"{got['budget']} (one rank {w['steady']})")
+                # the weights: the rules' block of every leaf (the router,
+                # norms, B and C whole: a little over half); the SSM state
+                # keeps conv_B / conv_C whole
+                arch, depth = label.split(" ")[0].split("/")
+                kw = MESH_CASES[label.rsplit(" ", 1)[1]]
+                rules = serve_rules(attn_pim=bool(kw.get("attn_pim")
+                                                  or kw.get("kv_layout")))
+                blk = _block_bytes(family_cfg(arch, int(depth), "float32"),
+                                   rules, {"data": dp, "model": tp},
+                                   res["coords"])
+                wt = got["weight_bytes"] / w["weight_bytes"]
+                st = got["kv_bytes"] / w["kv_bytes"]
+                check(got["weight_bytes"] == blk and wt >= 1 / tp
+                      and 1 / share <= st <= 1.1 / share,
+                      f"{tag}: a rank holds {wt:.4f} of the one-rank "
+                      f"weights (the rules' blocks: {blk} bytes) and "
+                      f"{st:.4f} of its KV / SSM state (1/{tp} and "
+                      f"1/{share} with what stays whole)")
+                ln = got["launches"]
+                need = _data_kernels(label) + (
+                    ("ssd_scan",) if label.startswith("zamba2") else ())
+                check(all(ln[k] > 0 for k in need), f"{tag}: launches {ln}")
+                for name, n in ln.items():
+                    launches[name] += n
+                if got["sanitized"] is not None:
+                    check(got["sanitized"] > 0, f"{tag}: sanitized, "
+                          f"{got['sanitized']} steady iterations")
+        for label, got in ranks[0]["runs"].items():
+            w = want[label]
+            print(f"      6k ({dp}, {tp}) {label}: "
+                  f"{got['tokens'] / got['wall']:.1f} tok/s "
+                  f"({got['wall']:.2f} s) vs one rank "
+                  f"{w['tokens'] / w['wall']:.1f} tok/s [{CARD}]; a rank "
+                  f"holds {got['weight_bytes'] / 2**20:.1f} MiB of weights "
+                  f"and {got['kv_bytes'] / 2**20:.1f} MiB of KV / SSM state "
+                  f"(one rank {w['weight_bytes'] / 2**20:.1f} / "
+                  f"{w['kv_bytes'] / 2**20:.1f} MiB); transfers per steady "
+                  f"iteration {got['steady']} (one rank {w['steady']}); "
+                  f"launches per rank {got['launches']}", flush=True)
+        print(f"      6k ({dp}, {tp}) collectives on rank 0: "
+              f"{ranks[0]['collectives']}", flush=True)
+    print(f"      family-mesh launches (every rank, engine runs): "
           f"{json.dumps(launches)}", flush=True)
     return launches
 
@@ -4467,6 +4719,7 @@ def main() -> int:
     timed(phase_family_parity)
     mesh_launches, mesh_one = timed(phase_mesh)
     data_launches = timed(phase_data_mesh, mesh_one)
+    family_mesh_launches = timed(phase_family_mesh)
     train_launches = timed(phase_training)
     # the sum over every path's run, each with the counts set to 0 just
     # before it
@@ -4483,11 +4736,12 @@ def main() -> int:
                       for arch, ln in ssm_launches.items())
           + f"; mamba2-1.3b and zamba2-1.2b speculative (phase 4o, 4 runs): "
           f"{json.dumps(ssm_spec_launches)}"
-          + f"; the other families (phase 4n, 21 runs): "
+          + f"; the other families (phase 4n, 25 runs): "
           f"{json.dumps(family_launches)}; mesh (phase 6i, 2 ranks x 6 "
           f"runs): {json.dumps(mesh_launches)}; data mesh (phase 6j, "
           f"4 ranks x 4 runs and 2 ranks x 3): {json.dumps(data_launches)}; "
-          f"training (phase 7): "
+          f"family mesh (phase 6k, 2 ranks x 6 runs and 4 ranks x 1): "
+          f"{json.dumps(family_mesh_launches)}; training (phase 7): "
           f"{json.dumps(train_launches)}", flush=True)
     launches = {name: n + spec_launches[name] + serve_launches[name]
                 + failure_launches.get(name, 0)
@@ -4497,6 +4751,7 @@ def main() -> int:
                 + ssm_spec_launches[name]
                 + family_launches[name]
                 + mesh_launches[name] + data_launches[name]
+                + family_mesh_launches[name]
                 for name, n in launches.items()}
 
     rows = [

@@ -17,9 +17,12 @@ no counterpart here: each rank stores only its block of every leaf
 with explicit collectives where the reference's partitioner would place
 them — the FC-PIM banks in `models.linear` (a row bank reduces its partial
 sums), the Attn-PIM units in `kernels.decode_attention` /
-`kernels.paged_decode_attention` (`*_sharded`: no cross-rank term), and in
-`models.model` the vocab-split embedding and logits and the
-sequence-split KV slab.
+`kernels.paged_decode_attention` (`*_sharded`: no cross-rank term), the
+expert-parallel MoE in `models.moe` (each rank's experts, the combine
+summed over "experts"' axis), the Mamba2 block on a rank's heads in
+`models.ssm` (the gated norm's sum of squares and the ``w_out`` rows
+summed over "ssm_heads"' axis), and in `models.model` the vocab-split
+embedding and logits and the sequence-split KV slab.
 
 A mesh here is anything with a ``shape`` mapping of axis name -> size (and,
 for `local_block`, ``coords``: this rank's index on each axis):
@@ -170,6 +173,19 @@ def local_block(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     return t.contiguous().clone() if any(e is not None for e in spec) else t
 
 
+def split_axis(logical: str, n: int) -> tuple[object, str] | None:
+    """(mesh, axis) of the tensor split of a dim of `n` units named
+    `logical` (an FC bank's "ffn" / "heads", the MoE's "experts", the
+    Mamba2 block's "ssm_heads"), or None where it is whole on every rank:
+    outside a mesh, where the rules replicate it, or where the axis does
+    not divide `n` (the leaf then stays whole, as `filter_spec_for_shape`
+    keeps it, and its forward needs no collective)."""
+    mesh, axis = fc_tensor_axis(logical)
+    if axis is None or n <= 0 or n % mesh.shape[axis]:
+        return None
+    return mesh, axis
+
+
 def tensor_split(logical: str, n: int) -> tuple[int, int]:
     """(shards, this rank's index) of a dim of size `n` named `logical`
     under the installed rules and mesh: (1, 0) when it is whole."""
@@ -257,4 +273,4 @@ def serve_rules(multi_pod: bool = False, long_context: bool = False,
 __all__ = ["axis_rules", "batch_block", "block_range", "current_mesh",
            "current_rules", "fc_tensor_axis", "filter_spec_for_shape",
            "local_block", "logical_to_spec", "resolve_spec", "serve_rules",
-           "tensor_split", "train_rules", "tree_shardings"]
+           "split_axis", "tensor_split", "train_rules", "tree_shardings"]

@@ -78,7 +78,8 @@ Mesh serving (§5.3): ``--mesh DP,TP`` spawns DP x TP ranks
 model r % TP), and serves the same trace on every rank.  The tensor axis
 splits the weights: FC-PIM banks, one Attn-PIM unit per KV-head shard
 (``--attn-pim``; ``--kv paged`` always splits by KV head), the
-vocab-split embedding.  The data axis splits the slot batch (the
+vocab-split embedding, an MoE layer's experts, the Mamba2 heads and their
+SSM state.  The data axis splits the slot batch (the
 reference's "batch" rule): each data group holds and computes its own
 ``--max-slots / DP`` slots, and the tokens are gathered over it once an
 iteration, so the scheduler still sees the whole batch.  Every rank
@@ -86,12 +87,14 @@ builds the full weights from ``--seed`` and keeps its block.  The
 backend is gloo on the CPU, NCCL with a card per rank, and gloo through
 host copies when the ranks share one card; rank 0 prints the usual lines
 and the mesh line, and alone writes the journal, the trace and the
-metrics.  Any DP and TP whose product is the world are served; the MoE,
-SSM and hybrid families only at TP = 1:
+metrics.  Any DP and TP whose product is the world are served, on
+every decoder family:
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --mesh 2,2 \
         [--attn-pim | --kv paged]
-    python -m repro_torch.launch.serve --arch mamba2-1.3b --mesh 2,1
+    python -m repro_torch.launch.serve --arch mamba2-1.3b --mesh 2,2
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b --mesh 1,2 \
+        --attn-pim
 
 Runs on the card (``--device cpu`` for the plain PyTorch path).  Prints
 the per-iteration scheduler decisions — RLP, TLP, the AI estimate and the
@@ -118,7 +121,7 @@ from repro_torch.serving import (EngineCrashError, PapiEngine, ServeRequest,
                                  parse_fault_specs, write_trace)
 from repro_torch.launch.mesh import (make_serving_mesh, parse_mesh,
                                      spawn_world)
-from repro_torch.serving.engine import check_decoder, check_mesh
+from repro_torch.serving.engine import check_decoder
 
 # a mesh run's wall-clock limit (the world is killed past it)
 MESH_TIMEOUT_S = 3600.0
@@ -298,9 +301,6 @@ def main(argv=None) -> None:
     check_decoder(cfg)     # before building weights the engine would refuse
     if args.mesh:
         dp, tp = parse_mesh(args.mesh)
-        check_mesh({"data": dp, "model": tp},
-                   [cfg] + ([get_config(args.draft_arch)]
-                            if args.draft_arch else []))
         codes = spawn_world(_serve_rank, dp * tp, device=device.type,
                             timeout_s=MESH_TIMEOUT_S,
                             args=(argv, dp, tp), threads=2)

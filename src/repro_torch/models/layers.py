@@ -154,7 +154,11 @@ def qkv_project(x: torch.Tensor, p: dict, heads: int | None = None,
     one FC group of column banks (over "heads" for the q weight of a GQA
     model, "kv_heads" otherwise, as the reference).  Under a mesh the
     weights are the rank's blocks, so the heads are the rank's; `heads` /
-    `kv_heads` are the global counts."""
+    `kv_heads` are the global counts.  A column bank needs no collective,
+    so the bank name decides nothing here: q is banked by its stored
+    "heads" block, also on an MHA model such as olmoe-1b-7b, where the
+    reference's "kv_heads" bank would run its FC-PIM q projection
+    unsharded on a sharded weight."""
     b, s, d = x.shape
     ws = [p["w_q"], p["w_k"], p["w_v"]]
     bank = "kv_heads" if heads == kv_heads else "heads"

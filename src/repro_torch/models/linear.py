@@ -45,7 +45,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.distributed.sharding import fc_tensor_axis
+from repro_torch.distributed.sharding import fc_tensor_axis, split_axis
 from repro_torch.kernels.fc_gemv import fc_gemv_group
 
 _state = threading.local()
@@ -70,13 +70,12 @@ def fc_variant(variant: str):
 def bank_split(bank: str, units: int | None):
     """(mesh, axis) of a split FC bank over `units` global units of the
     logical `bank` dim, or None where the weight is whole on every rank."""
-    mesh, axis = fc_tensor_axis(bank)
-    if axis is None:
+    if fc_tensor_axis(bank)[1] is None:
         return None
     if units is None:
         raise ValueError(f"an FC bank over {bank!r} under a mesh needs its "
                          "global unit count (units=)")
-    return (mesh, axis) if units % mesh.shape[axis] == 0 else None
+    return split_axis(bank, units)
 
 
 def papi_linear_group(x: torch.Tensor, ws: Sequence[torch.Tensor], *,

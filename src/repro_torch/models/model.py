@@ -43,7 +43,9 @@ caches allocate only that block), and the forward gives each layout
 itself: the FC banks (`models.linear`), attention over the rank's heads
 (`head_split`, `_mesh_decode_attention`: one Attn-PIM unit per KV-head
 shard, or the sequence-split slab's merged partials), the vocab-split
-embedding and the gathered logits (`vocab_split`).  Where the data axis
+embedding and the gathered logits (`vocab_split`), the MoE layer's
+experts (`moe.moe_mlp`) and the Mamba2 block's heads (`ssm.mamba2_block`),
+whose SSM state each rank holds for its heads.  Where the data axis
 splits the slot batch (the "batch" rule, `batch_block`), the caches hold
 this data group's slots and every entry point takes their rows only: no
 forward gathers over "data".
@@ -98,11 +100,10 @@ class PSpec:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES or (cfg.mlp != "swiglu"
-                                      and cfg.family != "audio"):
+    if cfg.family not in FAMILIES or cfg.mlp not in ("swiglu", "gelu"):
         raise NotImplementedError(
             f"{cfg.name}: the port runs {'/'.join(FAMILIES)} models with a "
-            "swiglu MLP (a gelu MLP in the audio encoder only)")
+            "swiglu or gelu MLP")
 
 
 def _check_decoder(cfg: ModelConfig) -> None:
@@ -113,29 +114,54 @@ def _check_decoder(cfg: ModelConfig) -> None:
                          "no decode step (train it with forward_train)")
 
 
+def _attention_collectives(cfg: ModelConfig, cache: dict,
+                           attn_pim: bool) -> int:
+    """Collectives of one attention sub-block on a rank: the
+    out-projection's row-bank sum, the q-head gather and the partials'
+    gather over a sequence-split slab (`cache` holds ``kv_seq``), or the
+    q-head gather that lets Attn-PIM run unsharded where the KV heads are
+    whole."""
+    heads, _ = tensor_split("heads", cfg.num_heads)
+    kv_heads, _ = tensor_split("kv_heads", cfg.num_kv_heads)
+    n = int(heads > 1)
+    if "kv_seq" in cache:
+        n += 1 + int(heads > 1)
+    elif heads > 1 and kv_heads == 1 and attn_pim:
+        n += 1
+    return n
+
+
 def collectives_per_forward(cfg: ModelConfig, cache: dict,
                             attn_pim: bool) -> int:
     """Collectives one forward of `cfg` runs on a rank under the installed
     mesh (0 outside one): the vocab-split embedding's sum and the logits'
-    gather, and per layer the row banks' sums (out-projection, down), the
-    q-head gather and the partials' gather over a sequence-split slab
-    (`cache` holds ``kv_seq``), or the q-head gather that lets Attn-PIM
-    run unsharded where the KV heads are whole.  The data axis adds none:
-    a data group's forward takes only its own slots' rows, and the serving
-    engine gathers what it fetches once an iteration (`PapiEngine._fetch`,
-    counted in its `transfer_budget`)."""
+    gather, and per family
+      * dense / VLM: per layer the attention's and the MLP's down-bank sum;
+      * MoE: per layer the attention's and the experts' combine;
+      * SSM: per Mamba2 layer the gated norm's and ``w_out``'s sums;
+      * hybrid: those per Mamba2 layer, and a dense layer's per
+        application of the shared block.
+    The data axis adds none: a data group's forward takes only its own
+    slots' rows, and the serving engine gathers what it fetches once an
+    iteration (`PapiEngine._fetch`, counted in its `transfer_budget`)."""
     if current_mesh() is None:
         return 0
-    heads, _ = tensor_split("heads", cfg.num_heads)
-    kv_heads, _ = tensor_split("kv_heads", cfg.num_kv_heads)
-    ffn, _ = tensor_split("ffn", cfg.d_ff)
-    per_layer = int(heads > 1) + int(ffn > 1)
-    if "kv_seq" in cache:
-        per_layer += 1 + int(heads > 1)
-    elif heads > 1 and kv_heads == 1 and attn_pim:
-        per_layer += 1
     vocab = 2 if vocab_split(cfg) is not None else 0
-    return vocab + cfg.num_layers * per_layer
+    if cfg.family in ("ssm", "hybrid"):
+        heads, _ = tensor_split("ssm_heads", cfg.ssm.n_heads(cfg.d_model))
+        n = cfg.num_layers * 2 * int(heads > 1)
+        if cfg.family == "hybrid":
+            ffn, _ = tensor_split("ffn", cfg.d_ff)
+            n += cfg.num_attention_applications() * (
+                _attention_collectives(cfg, cache, attn_pim) + int(ffn > 1))
+        return vocab + n
+    if cfg.family == "moe":
+        experts, _ = tensor_split("experts", cfg.moe.num_experts)
+        mlp = int(experts > 1)
+    else:
+        mlp = int(tensor_split("ffn", cfg.d_ff)[0] > 1)
+    return vocab + cfg.num_layers * (
+        _attention_collectives(cfg, cache, attn_pim) + mlp)
 
 
 def host_copies_per_forward(cfg: ModelConfig) -> int:
@@ -916,15 +942,19 @@ def _hybrid_backbone(cfg, layers, shared, h, positions, cache, mode,
     attention+MLP block after each — `num_layers // period` applications,
     application `app` on KV slab `app` — then the remainder segment.
     `remat` covers the Mamba2 blocks, not the shared block, as in the
-    reference."""
+    reference.  Under a mesh the shared block is banked as a dense layer
+    (`head_split`, the FC banks), each application on its own slab (split
+    by KV head under ``attn_pim``, else by sequence)."""
     period = cfg.hybrid.period
     pos = cache["pos"] if cache is not None else None
+    kv_seq = cache.get("kv_seq") if cache is not None else None
     lo = 0
     for app in range(cfg.num_attention_applications()):
         h = _ssm_layers(cfg, layers, h, cache, mode, lo, lo + period,
                         ssm_out, lens, remat)
         kv = (cache["k"][app], cache["v"][app]) if cache is not None else None
-        h = attention_block(cfg, shared, h, positions, kv, pos, mode)
+        h = attention_block(cfg, shared, h, positions, kv, pos, mode,
+                            kv_seq=kv_seq)
         h, _ = mlp_block(cfg, shared, h)
         lo += period
     return _ssm_layers(cfg, layers, h, cache, mode, lo, cfg.num_layers,

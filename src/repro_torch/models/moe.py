@@ -25,6 +25,18 @@ sanitizer's allow-scope (`debug.sanitize.transfer_allowed`).  Numerics keep
 the reference's dtype flow: router logits and softmax in f32, ``silu`` in
 f32 cast back to x's dtype before ``* up``, the combine weights cast to x's
 dtype.
+
+Expert parallelism (the reference's "experts" -> "model" rule,
+`serve_rules`): each rank holds ``E / tp`` experts (``w_gate`` / ``w_up``
+/ ``w_down`` cut on the expert dim; the router whole), routes every token
+over all E experts, and runs only the assignments that name its own.  It
+weights its results with the renormalised top-k weights in f32, leaves
+zeros for the other ranks' assignments, and the ``[tokens, d]`` f32
+partials are summed over the tensor group in rank order, then cast to x's
+dtype — where the reference's GSPMD sums the combine einsum over "model".
+The count copy is then of the rank's own experts, still one a layer.  A
+rank that owns none of a call's assignments computes nothing and adds
+zeros.
 """
 from __future__ import annotations
 
@@ -34,6 +46,7 @@ import torch
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.debug.sanitize import transfer_allowed
+from repro_torch.distributed.sharding import split_axis, tensor_split
 
 # tokens are routed in groups of this many (the reference's GShard "G")
 GROUP_SIZE = 1024
@@ -84,7 +97,8 @@ def load_balancing_loss(probs: torch.Tensor, top_e: torch.Tensor,
 
 def moe_mlp(x: torch.Tensor, p: dict, cfg: MoEConfig):
     """x [b, s, d] -> (y [b, s, d], aux loss).  p: w_router [d, E];
-    w_gate / w_up [E, d, f]; w_down [E, f, d].  The aux loss is the mean of
+    w_gate / w_up [E, d, f]; w_down [E, f, d] (under an expert split the
+    rank's E / tp of them: module docstring).  The aux loss is the mean of
     `load_balancing_loss` over groups of `GROUP_SIZE` tokens."""
     b, s, d = x.shape
     tokens = b * s
@@ -98,15 +112,23 @@ def moe_mlp(x: torch.Tensor, p: dict, cfg: MoEConfig):
     aux = load_balancing_loss(probs.view(g, gs, -1), top_e.view(g, gs, k),
                               cfg.num_experts).mean()
 
-    flat = top_e.reshape(-1)                                 # [tokens * k]
+    # this rank's experts e0 .. e0 + n (all of them outside a split); the
+    # other ranks' assignments sort last, into bucket n, and are not run
+    split = split_axis("experts", cfg.num_experts)
+    n = p["w_gate"].shape[0]
+    e0 = tensor_split("experts", cfg.num_experts)[1] * n
+    flat = top_e.reshape(-1) - e0                            # [tokens * k]
+    own = (flat >= 0) & (flat < n)
+    flat = torch.where(own, flat, torch.full_like(flat, n))
     order = torch.argsort(flat, stable=True)
-    counts = torch.zeros(cfg.num_experts, dtype=torch.int64,
-                         device=x.device)
+    counts = torch.zeros(n + 1, dtype=torch.int64, device=x.device)
     counts.scatter_add_(0, flat, torch.ones_like(flat))
     _COPIES[0] += 1
     with transfer_allowed():
-        counts = counts.tolist()
+        counts = counts[:n].tolist()
+    order = order[:sum(counts)]
     xs = xt.index_select(0, order // k)                      # sorted rows
+    y_assign = torch.zeros((tokens * k, d), dtype=x.dtype, device=x.device)
     ys = []
     for e, rows in enumerate(torch.split(xs, counts)):
         if rows.shape[0] == 0:
@@ -115,8 +137,10 @@ def moe_mlp(x: torch.Tensor, p: dict, cfg: MoEConfig):
         up = torch.matmul(rows, p["w_up"][e])
         act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
         ys.append(torch.matmul(act, p["w_down"][e]))
-    y_sorted = torch.cat(ys)
-    y_assign = torch.empty_like(y_sorted).index_copy_(0, order, y_sorted)
+    if ys:
+        y_assign.index_copy_(0, order, torch.cat(ys))
     w = top_w.to(x.dtype).float()[..., None]                 # [tokens, k, 1]
-    y = (y_assign.view(tokens, k, d).float() * w).sum(dim=1).to(x.dtype)
-    return y.view(b, s, d), aux
+    y = (y_assign.view(tokens, k, d).float() * w).sum(dim=1)
+    if split is not None:                    # the combine over the ranks
+        y = split[0].all_reduce(y, split[1])
+    return y.to(x.dtype).view(b, s, d), aux

@@ -29,6 +29,17 @@ rewound to any accepted prefix.
 
 `ssd_impl("plain")` sends `_ssd_chunked` to the plain version even for
 tensors on the card, so that the kernel path can be held against it.
+
+Under a mesh whose rules put "ssm_heads" on the tensor axis (the
+reference's `serve_rules`), each rank holds its heads: the head-major
+columns of ``w_z`` / ``w_x`` / ``conv_x`` / ``norm_w``, the rows of
+``w_out`` and its heads of ``w_dt``, ``A_log``, ``D``, ``dt_bias`` and the
+state.  B and C are group-shared (``n_groups = 1``): ``w_B`` / ``w_C`` /
+``conv_B`` / ``conv_C`` stay whole and every rank computes them.  The
+block then runs at the rank's width (the scan on its heads), and two sums
+cross the tensor group, both in rank order: the gated RMSNorm's sum of
+squares ([b, l, 1] in f32, divided by the whole ``d_inner``: its mean
+runs over every head) and ``w_out``'s partial product (a row split).
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.distributed.sharding import split_axis
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
 _ssd_state = threading.local()
@@ -158,9 +170,17 @@ def mamba2_block(u: torch.Tensor, p: dict, s: SSMConfig, d_model: int,
     `out`'s tensors have a leading [l] axis, the state after each token.
     `lens` [b] (prefill only): the valid rows of each window; the state
     stops at them, and the output rows past them are garbage.  `train`
-    (no state): the differentiable scan, no kernel."""
+    (no state): the differentiable scan, no kernel.  Under a mesh that
+    splits "ssm_heads" `p` and the states hold the rank's heads (module
+    docstring)."""
     b, l, _ = u.shape
-    di, nh, hp = s.d_inner(d_model), s.n_heads(d_model), s.head_dim
+    hp, heads = s.head_dim, s.n_heads(d_model)
+    split = split_axis("ssm_heads", heads)
+    nh = p["A_log"].shape[0]                 # the rank's heads
+    if nh != (heads if split is None else heads // split[0].shape[split[1]]):
+        raise ValueError(f"Mamba2 block holds {nh} of {heads} heads, not "
+                         "its block under the rules")
+    di = nh * hp
 
     z = torch.matmul(u, p["w_z"])
     x = torch.matmul(u, p["w_x"])
@@ -199,11 +219,19 @@ def mamba2_block(u: torch.Tensor, p: dict, s: SSMConfig, d_model: int,
     y = y + p["D"].to(u.dtype)[None, None, :, None] * xh
     y = y.reshape(b, l, di)
 
-    # gated RMSNorm: norm(y * silu(z)) * w  (mamba2's RMSNormGated)
+    # gated RMSNorm: norm(y * silu(z)) * w  (mamba2's RMSNormGated); its
+    # mean runs over the whole d_inner, every rank's heads
     gated = y.float() * F.silu(z.float())
-    var = gated.square().mean(dim=-1, keepdim=True)
+    if split is None:
+        var = gated.square().mean(dim=-1, keepdim=True)
+    else:
+        mesh, axis = split
+        var = mesh.all_reduce(gated.square().sum(dim=-1, keepdim=True),
+                              axis) / s.d_inner(d_model)
     gated = gated * torch.rsqrt(var + 1e-5) * p["norm_w"].float()
     y_out = torch.matmul(gated.to(u.dtype), p["w_out"])
+    if split is not None:                    # w_out: a row split
+        y_out = mesh.all_reduce(y_out, axis)
 
     if not has:
         return y_out, SSMState(new_cx, new_cB, new_cC, new_ssm)

@@ -175,10 +175,11 @@ rank chose the same.  Rank 0 alone writes files (the journal, snapshots;
 the launcher writes the trace and the metrics).  Where the ranks share a
 card over gloo, each collective stages through a host copy: the engine
 counts those in `IterStats.transfers` and in `transfer_budget`.  Every
-decoder family is served at tp = 1; the MoE, SSM and hybrid families
-under a tensor split (tp > 1), and the long-context rules (the batch
-whole, the KV sequence over (data, model)) with dp > 1, come with a later
-slice and raise.
+decoder family is served on both axes: the MoE layer splits its experts
+over the tensor axis, the Mamba2 block its heads (and the SSM state), and
+zamba2's shared block is banked as a dense layer.  The long-context rules
+(the batch whole, the KV sequence over (data, model)) with dp > 1 come
+with a later slice and raise.
 
 Not ported yet: ``run(abort_in_flight=False)``.
 """
@@ -220,11 +221,6 @@ from repro_torch.serving.telemetry import NULL_TRACER, Tracer
 # re-runs (WARNING), stalls (ERROR); silent until configured
 # (`launch.serve --log-level`)
 log = logging.getLogger("repro_torch.serving")
-
-# the families a tensor-split mesh (tp > 1) serves so far (`check_mesh`);
-# the data axis alone serves every decoder family
-MESH_FAMILIES = ("dense", "vlm")
-
 
 @dataclasses.dataclass
 class ServeRequest:
@@ -387,21 +383,11 @@ def check_decoder(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name} is encoder-only")
 
 
-def check_mesh(shape: dict, cfgs: Sequence[ModelConfig],
-               rules: dict | None = None) -> None:
-    """Refuse what mesh serving does not cover yet: any family but the
-    attention-only dense and VLM decoders under a tensor split (tp > 1),
-    and with dp > 1 rules that keep the batch whole (the long-context
-    table, whose KV sequence spans (data, model))."""
-    if shape.get("model", 1) > 1:
-        for c in cfgs:
-            if c.family not in MESH_FAMILIES:
-                raise ValueError(
-                    f"{c.name}: the tensor axis (tp > 1) covers the "
-                    f"attention-only dense and VLM decoders; the {c.family} "
-                    "family under a tensor split comes with a later slice "
-                    "of the port (serve it at --mesh dp,1)")
-    if shape.get("data", 1) > 1 and rules is not None:
+def check_mesh(shape: dict, rules: dict) -> None:
+    """Refuse what mesh serving does not cover yet: with dp > 1, rules
+    that keep the batch whole (the long-context table, whose KV sequence
+    spans (data, model)).  Every decoder family is served on both axes."""
+    if shape.get("data", 1) > 1:
         seq = rules.get("act_kv_seq")
         seq = seq if isinstance(seq, (tuple, list)) else (seq,)
         if rules.get("batch") is None or "data" in seq:
@@ -411,9 +397,8 @@ def check_mesh(shape: dict, cfgs: Sequence[ModelConfig],
                 "come with a later slice of the port")
 
 
-def _check_mesh(mesh, rules: dict, device: torch.device,
-                cfgs: Sequence[ModelConfig]) -> None:
-    check_mesh(mesh.shape, cfgs, rules)
+def _check_mesh(mesh, rules: dict, device: torch.device) -> None:
+    check_mesh(mesh.shape, rules)
     if mesh.device.type != device.type:
         raise ValueError(f"the mesh's rank runs on {mesh.device}, the "
                          f"engine on {device}")
@@ -467,8 +452,7 @@ class PapiEngine:
         if mesh is not None:
             self.rules = (dict(rules) if rules is not None else serve_rules(
                 attn_pim=attn_pim or kv_layout == "paged"))
-            _check_mesh(mesh, self.rules, self.device,
-                        [cfg] + ([draft[0]] if draft else []))
+            _check_mesh(mesh, self.rules, self.device)
             params = shard_params(cfg, params, self.rules, mesh)
             if draft is not None:
                 draft = (draft[0], shard_params(draft[0], draft[1],

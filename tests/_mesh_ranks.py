@@ -224,19 +224,3 @@ def mesh_world(rank: int, device, tp: int, tree: dict, draft_tree: dict,
                        for arch in FAMILIES}
     out["collectives"] = mesh.collectives
     return out
-
-
-def refusal_world(rank: int, device, tp: int) -> dict:
-    """The engine's refusals under a mesh: each raises ValueError."""
-    from repro_torch.models import init_params
-    mesh = make_serving_mesh(1, tp, device=device)
-    msgs = {}
-    for arch in ("mamba2-1.3b-smoke", "olmoe-1b-7b-smoke",
-                 "zamba2-1.2b-smoke"):
-        cfg = get_config(arch)
-        params = init_params(cfg, _gen(0))
-        try:
-            PapiEngine(cfg, params, mesh=mesh, device=device, **ENGINE)
-        except ValueError as err:
-            msgs[arch] = str(err)
-    return msgs

@@ -82,18 +82,21 @@ def test_moe_config_and_reduced_twin_match_reference(name):
 
 @pytest.mark.parametrize("name", ["olmoe-1b-7b", "LLAMA_65B", "GPT3_66B"])
 def test_model_refuses_moe_and_paper_models(name):
-    """The port's model refuses what it does not serve: a gelu MLP (GPT-3,
-    OPT).  MoE, layernorm and untied heads are served, so olmoe's and
-    LLaMA-65B's smoke twins build, the MoE leaves in place of the MLP's."""
+    """MoE, layernorm, untied heads and a gelu MLP (GPT-3, OPT) are all
+    served, so olmoe's, LLaMA-65B's and GPT-3 66B's smoke twins build: the
+    MoE leaves in place of the MLP's, a gelu MLP's biased two-layer
+    leaves in place of swiglu's three.  What the model refuses is an MLP
+    it does not know."""
     _, port = _cfgs(name)
     gen = torch.Generator().manual_seed(0)
-    if port.mlp == "gelu":
-        with pytest.raises(NotImplementedError, match="swiglu"):
-            init_params(port.reduced(), gen)
-        return
     params = init_params(port.reduced(), gen)
     assert ("moe" in params["layers"]) == (port.moe is not None)
     assert ("mlp" in params["layers"]) == (port.moe is None)
+    if port.mlp == "gelu":
+        assert set(params["layers"]["mlp"]) == {"w_in", "b_in", "w_out",
+                                                "b_out"}
+    with pytest.raises(NotImplementedError, match="swiglu or gelu"):
+        init_params(dataclasses.replace(port.reduced(), mlp="relu"), gen)
 
 
 # --------------------------------------------------------------------- AI

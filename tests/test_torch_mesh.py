@@ -22,9 +22,9 @@ reference's `PRNGKey(0)` weights through `params_from_jax` and
     and qwen2-vl-7b's (M-RoPE) equal the port's one-device engine;
   * the launcher's ``--mesh 1,2 --device cpu`` prints the one-device
     launcher's lines;
-  * the refusals (mamba2, olmoe, zamba2 under a tensor split, and the
-    long-context rules with dp > 1) raise; the data axis itself is
-    `tests/test_torch_mesh_data.py`'s.
+  * the refusal that stands (the long-context rules with dp > 1) raises;
+    the data axis itself is `tests/test_torch_mesh_data.py`'s, the MoE,
+    SSM, hybrid and gelu families `tests/test_torch_mesh_families.py`'s.
 """
 import re
 import sys
@@ -225,36 +225,38 @@ def test_launcher_mesh_prints_the_one_device_lines(capfd, tmp_path):
 
 
 def test_refusals_raise():
-    """What the mesh still refuses: the MoE, SSM and hybrid families under
-    a tensor split, and the long-context rules with dp > 1.  The data
-    axis alone serves every decoder family."""
+    """What the mesh still refuses: the long-context rules (the batch
+    whole, the KV sequence over (data, model)) with dp > 1.  Every decoder
+    family is served on both axes (`tests/test_torch_mesh_families.py`)."""
     for arch in ("mamba2-1.3b-smoke", "olmoe-1b-7b-smoke",
-                 "zamba2-1.2b-smoke"):
+                 "zamba2-1.2b-smoke", R.ARCH):
+        for attn_pim in (False, True):
+            rules = serve_rules(long_context=True, attn_pim=attn_pim)
+            for shape in ({"data": 2, "model": 2}, {"data": 2, "model": 1}):
+                with pytest.raises(ValueError,
+                                   match="long-context.*later slice"):
+                    check_mesh(shape, rules)
+            check_mesh({"data": 1, "model": 2}, rules)
         for shape in ({"data": 1, "model": 2}, {"data": 2, "model": 2}):
-            with pytest.raises(ValueError, match="later slice"):
-                check_mesh(shape, [get_config(arch)])
-        check_mesh({"data": 2, "model": 1}, [get_config(arch)])
-    for attn_pim in (False, True):
-        with pytest.raises(ValueError, match="long-context.*later slice"):
-            check_mesh({"data": 2, "model": 2}, [get_config(R.ARCH)],
-                       serve_rules(long_context=True, attn_pim=attn_pim))
-    check_mesh({"data": 1, "model": 2}, [get_config(R.ARCH)],
-               serve_rules(long_context=True))
-    with pytest.raises(ValueError, match="later slice"):
-        serve_cli.main(["--arch", "mamba2-1.3b-smoke", "--device", "cpu",
-                        "--mesh", "2,2"])
-    with pytest.raises(ValueError, match="later slice"):
-        serve_cli.main(["--arch", "mamba2-1.3b-smoke", "--device", "cpu",
-                        "--mesh", "1,2"])
+            check_mesh(shape, serve_rules())
+    cfg = get_config("olmoe-1b-7b-smoke")
+    from repro_torch.models import init_params
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    mesh = type("M", (), {"shape": {"data": 2, "model": 2},
+                          "device": torch.device("cpu"), "rank": 0})()
+    with pytest.raises(ValueError, match="long-context.*later slice"):
+        PapiEngine(cfg, params, mesh=mesh, device="cpu",
+                   rules=serve_rules(long_context=True))
 
 
 def test_engine_refuses_without_spawning():
     """The engine checks the mesh before any collective: a shape-only mesh
-    is enough to see it refuse."""
-    cfg = get_config("olmoe-1b-7b-smoke")
+    is enough to see it refuse the long-context rules with dp > 1."""
+    cfg = get_config(R.ARCH)
     from repro_torch.models import init_params
     params = init_params(cfg, torch.Generator().manual_seed(0))
-    mesh = type("M", (), {"shape": {"data": 1, "model": 2},
+    mesh = type("M", (), {"shape": {"data": 2, "model": 1},
                           "device": torch.device("cpu"), "rank": 0})()
     with pytest.raises(ValueError, match="later slice"):
-        PapiEngine(cfg, params, mesh=mesh, device="cpu")
+        PapiEngine(cfg, params, mesh=mesh, device="cpu",
+                   rules=serve_rules(long_context=True, attn_pim=True))
