@@ -154,15 +154,17 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      steady iteration, the bf16 tokens under pim equal to pu's, the
      weights and the peak memory while serving;
      4o: phase 4d's requests served speculatively (spec_len 4, the dense
-     slab) on full-width bf16 mamba2-1.3b and zamba2-1.2b (attn_pim), with
-     the perfect draft and a cut draft (the first 6 layers): every request
+     slab) on full-width bf16 mamba2-1.3b and zamba2-1.2b (attn_pim), the
+     targets cut to half their depth (24 and 18 layers) and first served
+     at TLP = 1 at that depth, with the perfect draft and a cut draft (the
+     first 6 layers): every request
      finishes, one transfer per speculative iteration, ssd_scan launched
      once per layer of the target and the draft per admission wave; on
      zamba2 fc_gemv 4 per application at m = 32 in each "pim" verify and
      4 per draft application and step at m = 8, decode_attention once per
      application at t = 4 and per draft application and step at t = 1;
      prints accepted per window (and the partial accepts), tokens/s
-     against 4d's / 4e's TLP = 1 run, the bf16 tokens equal to it and the
+     against the cut target's TLP = 1 run, the bf16 tokens equal to it and the
      peak memory; then one verify window (8 slots, t = 4) keeping the
      per-token SSM states plus the rewind, against one keeping the last
      state only: device busy and the memory allocated beyond the cache;
@@ -223,7 +225,7 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      Attn-PIM wrappers at qwen2's (1 KV head a rank) and granite's (4 a
      rank, g = 4) geometry, t = 1, 4 and 64, bit-equal to the unsharded
      kernel's rows for the rank's heads and within tolerance of the plain
-     version; full-width qwen2-0.5b (12 of 24 layers) in the engine: f32 dense
+     version; full-width qwen2-0.5b (8 of 24 layers) in the engine: f32 dense
      (default rules: the slab split by sequence, plain attention),
      attn_pim (sanitized), paged (Attn-PIM over pages) and speculative
      (attn_pim, spec_len 4, the perfect draft) streams equal
@@ -237,10 +239,10 @@ Phases (any failed check makes the script exit non-zero, after all ran):
   6j. mesh serving on the data axis (the slot batch split over "data", as
      the reference's "batch" rule), every rank on this one card over
      gloo, collectives staged through host copies: a (2, 2) world of four
-     ranks serves 6i's f32 full-width qwen2-0.5b (12 layers) cases (dense,
+     ranks serves 6i's f32 full-width qwen2-0.5b (8 layers) cases (dense,
      attn_pim sanitized, paged, speculative spec_len 4 with the perfect
      draft) on 8 slots, and a (2, 1) world serves f32 full-width
-     mamba2-1.3b (depth cut to 16) dense and olmoe-1b-7b (cut to 8)
+     mamba2-1.3b (depth cut to 8) dense and olmoe-1b-7b (cut to 4)
      attn_pim (sanitized) and paged; on every rank the streams, finish
      reasons and FC variants equal the one-rank engine's (6i's runs, and
      the family runs here), steady iterations sit at the transfer budget
@@ -258,7 +260,7 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      zamba2 16 of 32 at hd 64) and ssd_scan at a rank's heads (mamba2 nh
      32 and 16, zamba2 32) against their plain versions, the scan timed;
      then a (1, 2) world serves f32 full-width olmoe-1b-7b (depth cut to
-     8: dense, attn_pim sanitized, paged), mamba2-1.3b (cut to 16: plain,
+     4: dense, attn_pim sanitized, paged), mamba2-1.3b (cut to 8: plain,
      and spec_len 4 with the perfect draft) and zamba2-1.2b (cut to 12,
      two shared-block applications: attn_pim), and a (2, 2) world
      mamba2's plain case: on every rank the streams, finish reasons and FC
@@ -271,7 +273,7 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      matmuls, the plain blocked attention, the differentiable plain SSD
      scan); bf16, random weights from seed 0, batch 8 x seq 512 as two
      microbatches of 4 (accum 2), remat, AdamW (lr 3e-4, warmup 5):
-     7a: full-width qwen2-0.5b (12 of 24 layers) through `run_training`, 30
+     7a: full-width qwen2-0.5b (8 of 24 layers) through `run_training`, 30
      steps: every loss finite, the mean of the last 5 below the mean of the
      first 5 minus 0.2; an async checkpoint at step 20, then `resume=True`
      from it to step 30: `resumed_from == 20` and the 10 losses within
@@ -296,6 +298,23 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      7e: the launcher, `repro_torch.launch.train.main(["--arch",
      "qwen2-0.5b", "--steps", "4", ...])`, prints its ``done: 4 steps``
      line;
+     7f: the train cell over the data axis (`launch.steps.build_step`,
+     ZeRO-3: each rank holds its blocks of every "fsdp" weight and of both
+     AdamW moments and its rows of the batch, rank r drawing the
+     pipeline's shard r), f32 with TF32 off, one world of 4 ranks on this
+     card over gloo: a (2, 1) mesh trains full-width qwen2-0.5b (4 of 24
+     layers) 3 steps on batch 8 x seq 256, then 2 more: every rank's loss
+     equal, losses within 1e-5 relative and the gathered parameters after
+     3 steps within 1e-4 of the one-rank step on the card, each rank's
+     bytes of weights and moments beside one rank's, the collectives a
+     step measured beside `collectives_per_train_step`'s reckoning; the
+     other (2, 1) mesh the smoke twins of olmoe-1b-7b (the aux loss over
+     the global batch's groups), mamba2-1.3b, hubert-xlarge (unequal
+     masked counts per rank) and qwen2-vl-7b, 3 steps each against the
+     one-rank step; the qwen2 checkpoint saved over the mesh at step 3
+     restores onto the (4, 1) mesh and onto one rank, and 2 more steps
+     equal the uninterrupted run's; the four kernels' launch counts read
+     0 on every rank;
   8. print the `kernels` JSON line, the card line, and last the device JSON.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -367,7 +386,14 @@ from repro_torch.models.weights import shard_params  # noqa: E402
 from repro_torch.training import (AdamWConfig, CheckpointManager,  # noqa: E402
                                   TrainConfig, init_adamw, make_train_step,
                                   run_training)
-from repro_torch.training.tree import leaves  # noqa: E402
+from repro_torch.training.tree import leaves, unflatten  # noqa: E402
+from repro_torch.configs import ShapeCell  # noqa: E402
+from repro_torch.launch.mesh import local_mesh  # noqa: E402
+from repro_torch.launch.steps import (build_step,  # noqa: E402
+                                      draw_train_batch)
+from repro_torch.models.model import collectives_per_train_step  # noqa: E402
+from repro_torch.models.weights import unshard_params  # noqa: E402
+from repro_torch.training import AdamWState  # noqa: E402
 
 DEV = torch.device("cuda")
 
@@ -1421,13 +1447,15 @@ def _submit_ssm(eng, cfg) -> None:
         eng.submit(ServeRequest(i, prompt, max_new_tokens=8 + 7 * (i % 9)))
 
 
-def _serve_ssm(arch: str, params, attn_pim: bool) -> tuple[dict, dict]:
-    """Phases 4d / 4e: serve the SSM requests at full width, with every
-    kernel's launch count set to 0 just before `run()` and read just
-    after.  Returns (launches, {"waves": n, "tokens": n, "wall_s": s,
-    "streams": {req_id: tokens}})."""
-    cfg = get_config(arch)
-    label = f"{arch} path"
+def _serve_ssm(arch: str, params, attn_pim: bool,
+               cfg=None) -> tuple[dict, dict]:
+    """Phases 4d / 4e: serve the SSM requests at full width (and depth
+    unless `cfg` cuts it), with every kernel's launch count set to 0 just
+    before `run()` and read just after.  Returns (launches, {"waves": n,
+    "tokens": n, "wall_s": s, "streams": {req_id: tokens}})."""
+    cfg = cfg or get_config(arch)
+    label = (f"{arch} path" if cfg.num_layers == get_config(arch).num_layers
+             else f"{arch}/{cfg.num_layers} path")
     eng = PapiEngine(cfg, params, attn_pim=attn_pim, device=DEV,
                      **SSM_ENGINE)
     _submit_ssm(eng, cfg)
@@ -1658,20 +1686,32 @@ def _verify_cost(cfg, params) -> None:
     del cache
 
 
+# 4o's target depth (half of each model's; zamba2 three shared-block
+# applications), with its own TLP = 1 run at that depth: the script's limit
+SSM_SPEC_DEPTH = {"mamba2-1.3b": 24, "zamba2-1.2b": 18}
+
+
 def phase_ssm_spec(params_by_arch, info) -> dict:
     """Phase 4o: phase 4d's requests served speculatively (spec_len 4, the
-    dense slab) on full-width bf16 mamba2-1.3b and zamba2-1.2b (attn_pim),
+    dense slab) on full-width bf16 mamba2-1.3b and zamba2-1.2b (attn_pim)
+    cut to `SSM_SPEC_DEPTH` layers, against the cut target's TLP = 1 run,
     with the perfect draft (the target) and a cut draft (its first 6
     layers); then one verify window's cost.  Returns the launches summed
-    over the four runs."""
+    over the six runs."""
+    del info            # 4d / 4e ran at full depth
     total = {}
     for arch, attn_pim in SSM_ARCHES:
-        cfg, params = get_config(arch), params_by_arch[arch]
+        cfg, params = _cut(get_config(arch), params_by_arch[arch],
+                           SSM_SPEC_DEPTH[arch])
+        ln, plain = _serve_ssm(arch, params, attn_pim, cfg)
+        for k, v in ln.items():
+            total[k] = total.get(k, 0) + v
         for name, draft in (("perfect draft", (cfg, params)),
                             (f"cut draft ({SSM_CUT} layers)",
                              _cut(cfg, params, SSM_CUT))):
-            ln = _serve_ssm_spec(cfg, params, draft, f"spec {arch} {name}",
-                                 attn_pim, info[arch])
+            ln = _serve_ssm_spec(cfg, params, draft,
+                                 f"spec {arch}/{cfg.num_layers} {name}",
+                                 attn_pim, plain)
             for k, v in ln.items():
                 total[k] = total.get(k, 0) + v
         _verify_cost(cfg, params)
@@ -3656,7 +3696,7 @@ TRAIN_DATA = dict(batch=8, seq_len=512)
 TRAIN_ACCUM = 2
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=5)
 TRAIN_STEPS = 30
-TRAIN_MAIN_DEPTH = 12
+TRAIN_MAIN_DEPTH = 8
 TRAIN_FITS = ("hubert-xlarge", "mamba2-1.3b", "zamba2-1.2b",
               "granite-moe-1b-a400m")
 TRAIN_TOO_BIG = ("olmoe-1b-7b", "qwen2-vl-7b", "granite-8b", "deepseek-67b",
@@ -3939,6 +3979,266 @@ def phase_training() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7f: the train cell over the data axis, four ranks on this card
+TRAIN_MESH_ARCH = "qwen2-0.5b"
+TRAIN_MESH_DEPTH = 4
+TRAIN_MESH_CELL = ShapeCell("train_mesh", 256, 8, "train")
+TRAIN_MESH_FAMILIES = ("olmoe-1b-7b", "mamba2-1.3b", "hubert-xlarge",
+                       "qwen2-vl-7b")
+# eps 1e-6: Adam's first update of an element is lr * g / (|g| + eps),
+# which for |g| near 1e-8 turns on the gradient's last bits, and the card
+# sums a split batch's gradient in another order than one rank's GEMM
+# (1.01e-4 apart after 3 steps at eps 1e-8, measured on one H100)
+TRAIN_MESH_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-6)
+TRAIN_MESH_STEPS, TRAIN_MESH_MORE = 3, 2
+TRAIN_MESH_TIMEOUT_S = 300
+
+
+def _tm_rows(cfg, step: int, shards: int, mesh, device) -> dict:
+    """This rank's rows of step's global batch, which `shards` pipeline
+    shards draw (rank r of a (shards, 1) mesh: exactly shard r)."""
+    parts = [draw_train_batch(cfg, TRAIN_MESH_CELL, step, shards=shards,
+                              shard=r) for r in range(shards)]
+    return {k: local_block(torch.from_numpy(np.concatenate(
+        [p[k] for p in parts])), ("data",), mesh).to(device)
+        for k in parts[0]}
+
+
+def _tm_specs(cfg, rules, mesh) -> dict:
+    specs = param_shardings(cfg, rules, mesh)
+    return {"params": specs, "opt": AdamWState((), specs, specs)}
+
+
+def _tm_train(cfg, mesh, device, *, steps: int, start: int = 0,
+              state=None, shards: int = 2, save=None) -> dict:
+    """`steps` train steps of `cfg` on this rank of `mesh` (None: one
+    rank) from seed-0 weights or from `state`; `save` = (directory,
+    step): a checkpoint over the mesh after that step.  From seed-0
+    weights it first takes the first step's gradients, gathered whole."""
+    built = build_step(cfg, TRAIN_MESH_CELL, mesh, accum=1,
+                       ocfg=AdamWConfig(**TRAIN_MESH_OPT))
+    m = mesh or local_mesh(device)
+    out = {"losses": [], "walls": []}
+    if state is None:
+        full = init_params(cfg, torch.Generator(device=device).manual_seed(0))
+        params = shard_params(cfg, full, built.rules, m)
+        del full
+        ps = leaves(params)
+        for p in ps:
+            p.requires_grad_(True)
+        with axis_rules(built.rules, m):
+            loss, _ = forward_train(cfg, params, _tm_rows(cfg, start, shards,
+                                                          m, device))
+            grads = torch.autograd.grad(loss, ps)
+        out["grads"] = unshard_params(cfg, unflatten(params, list(grads)),
+                                      built.rules, m)
+        del grads, loss
+        state = (params, init_adamw(params))
+    params, opt = state
+    coll = 0
+    for step in range(start, start + steps):
+        batch = _tm_rows(cfg, step, shards, m, device)
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), m.collectives
+        params, opt, loss = built.fn(params, opt, batch)
+        out["losses"].append(float(loss))
+        out["walls"].append(time.perf_counter() - t0)
+        coll += m.collectives - c0
+        if save is not None and step + 1 == save[1]:
+            CheckpointManager(save[0]).save(
+                step + 1, {"params": params, "opt": opt},
+                shardings=_tm_specs(cfg, built.rules, m), mesh=m)
+    with axis_rules(built.rules, m):
+        out["reckoned"] = collectives_per_train_step(cfg)
+    out["collectives"] = coll / steps
+    out["weight_bytes"] = sum(4 * p.numel() for p in leaves(params))
+    out["moment_bytes"] = sum(4 * x.numel()
+                              for x in leaves(opt.m) + leaves(opt.v))
+    out["state"], out["rules"], out["mesh"] = (params, opt), built.rules, m
+    return out
+
+
+def _tm_gather(cfg, run) -> dict:
+    """The run's parameters gathered whole (a collective on its mesh)."""
+    return unshard_params(cfg, run["state"][0], run["rules"], run["mesh"])
+
+
+def _tm_diff(got: dict, want: dict) -> float:
+    return max(float((a.detach() - b.detach()).abs().max())
+               for a, b in zip(leaves(got), leaves(want)))
+
+
+def _tm_grad_err(got: dict, want: dict) -> float:
+    """The largest gradient difference over the largest gradient."""
+    top = max(float(g.abs().max()) for g in leaves(want))
+    return _tm_diff(got, want) / top
+
+
+def _tm_rel(got: list, want: list) -> float:
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def _tm_summary(run: dict) -> dict:
+    return {k: run[k] for k in ("losses", "walls", "collectives",
+                                "reckoned", "weight_bytes", "moment_bytes")}
+
+
+def _train_mesh_rank(rank: int, device, ckpt_dir: str) -> dict:
+    """One rank of phase 7f's world of 4: the (2, 1) runs (qwen2 on
+    ranks 0-1, the families on ranks 2-3), then the elastic restores."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh4 = make_serving_mesh(4, 1, device=device)
+    mesh2 = make_serving_mesh(2, 1, device=device)
+    res = {"coords4": dict(mesh4.coords), "coords2": dict(mesh2.coords)}
+    lead = mesh2.rank == 0
+    cfg = family_cfg(TRAIN_MESH_ARCH, TRAIN_MESH_DEPTH, "float32")
+    if rank < 2:
+        total = TRAIN_MESH_STEPS + TRAIN_MESH_MORE
+        run = _tm_train(cfg, mesh2, device, steps=total,
+                        save=(ckpt_dir, TRAIN_MESH_STEPS))
+        res["qwen2"] = _tm_summary(run)
+        whole = _tm_gather(cfg, run)
+        grads = run["grads"]
+        del run
+        if lead:
+            ck = CheckpointManager(ckpt_dir)
+            at3 = ck.restore(TRAIN_MESH_STEPS, {"params": whole},
+                             device)["params"]
+            one = _tm_train(cfg, None, device, steps=TRAIN_MESH_STEPS)
+            res["one"] = _tm_summary(one)
+            res["param_err"] = _tm_diff(at3, one["state"][0])
+            res["grad_err"] = _tm_grad_err(grads, one["grads"])
+            del one, at3
+        del grads
+        res["uninterrupted"] = whole if lead else None
+    else:
+        res["families"] = {}
+        for arch in TRAIN_MESH_FAMILIES:
+            fcfg = get_config(arch + "-smoke")
+            run = _tm_train(fcfg, mesh2, device, steps=TRAIN_MESH_STEPS)
+            whole = _tm_gather(fcfg, run)
+            got, run_grads = _tm_summary(run), run["grads"]
+            del run
+            if lead:
+                one = _tm_train(fcfg, None, device, steps=TRAIN_MESH_STEPS)
+                got["one_losses"] = one["losses"]
+                got["param_err"] = _tm_diff(whole, one["state"][0])
+                got["grad_err"] = _tm_grad_err(run_grads, one["grads"])
+                del one
+            res["families"][arch] = got
+    mesh4.barrier()
+    ck = CheckpointManager(ckpt_dir)
+    built = build_step(cfg, TRAIN_MESH_CELL, mesh4)
+    p_meta, o_meta, _ = built.args
+    t0 = time.perf_counter()
+    got = ck.restore(TRAIN_MESH_STEPS, {"params": p_meta, "opt": o_meta},
+                     device, shardings=_tm_specs(cfg, built.rules, mesh4),
+                     mesh=mesh4)
+    res["restore_s"] = time.perf_counter() - t0
+    run = _tm_train(cfg, mesh4, device, steps=TRAIN_MESH_MORE,
+                    start=TRAIN_MESH_STEPS,
+                    state=(got["params"], got["opt"]))
+    res["resumed4"] = _tm_summary(run)
+    res["weights4"] = run["weight_bytes"]
+    whole4 = _tm_gather(cfg, run)
+    del run, got
+    if rank == 0:
+        res["resumed4_err"] = _tm_diff(whole4, res["uninterrupted"])
+        got = ck.restore(TRAIN_MESH_STEPS, {"params": p_meta,
+                                            "opt": o_meta}, device)
+        run = _tm_train(cfg, None, device, steps=TRAIN_MESH_MORE,
+                        start=TRAIN_MESH_STEPS,
+                        state=(got["params"], got["opt"]))
+        res["resumed1"] = _tm_summary(run)
+        res["resumed1_err"] = _tm_diff(run["state"][0],
+                                       res["uninterrupted"])
+        del run, got
+    res["uninterrupted"] = None
+    res["launches"] = read_counts()
+    return res
+
+
+def phase_train_mesh() -> dict:
+    """Phase 7f (module docstring).  Returns the kernels' launches over
+    it, summed over the ranks (all 0)."""
+    t_phase = time.perf_counter()
+    zero_counts()
+    with _work_dir() as d:
+        ranks = spawn_world(_train_mesh_rank, 4, device="cuda",
+                            timeout_s=TRAIN_MESH_TIMEOUT_S, args=(d,),
+                            store_dir=ROOT / "build", threads=2)
+    r0 = ranks[0]
+    q, one = r0["qwen2"], r0["one"]
+    ok = all(r["qwen2"]["losses"] == q["losses"] for r in ranks[:2])
+    rel = _tm_rel(q["losses"][:TRAIN_MESH_STEPS], one["losses"])
+    check(ok and rel <= 1e-5 and r0["grad_err"] <= 1e-5
+          and r0["param_err"] <= 1e-4,
+          f"7f qwen2-0.5b/{TRAIN_MESH_DEPTH} f32 (2, 1): both ranks' losses "
+          f"equal ({ok}), within {rel:.2e} relative of the one-rank step's "
+          f"(limit 1e-5); the first step's gathered gradients within "
+          f"{r0['grad_err']:.2e} of the largest (limit 1e-5), the gathered "
+          f"parameters after {TRAIN_MESH_STEPS} steps within "
+          f"{r0['param_err']:.2e} (limit 1e-4)")
+    share = q["weight_bytes"] / one["weight_bytes"]
+    check(abs(q["collectives"] - q["reckoned"]) < 1e-9,
+          f"7f qwen2 (2, 1): {q['collectives']:.1f} collectives a step "
+          f"(reckoned from the layers: {q['reckoned']})")
+    print(f"      7f qwen2-0.5b/{TRAIN_MESH_DEPTH} f32 (2, 1) [{CARD}]: "
+          f"losses {' '.join(f'{x:.5f}' for x in q['losses'])} (one rank "
+          f"{' '.join(f'{x:.5f}' for x in one['losses'])}); a rank holds "
+          f"{q['weight_bytes'] / 2**20:.1f} MiB of weights and "
+          f"{q['moment_bytes'] / 2**20:.1f} MiB of moments, one rank "
+          f"{one['weight_bytes'] / 2**20:.1f} / "
+          f"{one['moment_bytes'] / 2**20:.1f} MiB ({share:.4f}: the tied "
+          f"embedding stays whole); {q['collectives']:.0f} collectives a "
+          f"step ({q['reckoned']} reckoned), each staged through a host "
+          f"copy; step wall median {statistics.median(q['walls']):.3f} s "
+          f"(one rank {statistics.median(one['walls']):.3f} s)",
+          flush=True)
+    fams = ranks[2]["families"]
+    for arch, got in fams.items():
+        same = got["losses"] == ranks[3]["families"][arch]["losses"]
+        rel = _tm_rel(got["losses"], got["one_losses"])
+        check(same and rel <= 1e-5 and got["grad_err"] <= 1e-5
+              and got["param_err"] <= 1e-4
+              and got["collectives"] == got["reckoned"],
+              f"7f {arch}-smoke f32 (2, 1): both ranks' losses equal "
+              f"({same}), within {rel:.2e} relative of the one-rank step's, "
+              f"gradients within {got['grad_err']:.2e} of the largest, "
+              f"parameters after {TRAIN_MESH_STEPS} steps within "
+              f"{got['param_err']:.2e}; {got['collectives']:.0f} "
+              f"collectives a step ({got['reckoned']} reckoned)")
+    want = q["losses"][TRAIN_MESH_STEPS:]
+    for key, err in (("resumed4", r0["resumed4_err"]),
+                     ("resumed1", r0["resumed1_err"])):
+        rel = _tm_rel(r0[key]["losses"], want)
+        same = all(r["resumed4"]["losses"] == r0["resumed4"]["losses"]
+                   for r in ranks) if key == "resumed4" else True
+        check(same and rel <= 1e-5 and err <= 1e-4,
+              f"7f elastic restore of the (2, 1) checkpoint at step "
+              f"{TRAIN_MESH_STEPS} onto {'(4, 1)' if key == 'resumed4' else 'one rank'}: "
+              f"{TRAIN_MESH_MORE} more steps within {rel:.2e} relative "
+              f"of the uninterrupted run's losses, parameters within "
+              f"{err:.2e}")
+    print(f"      7f elastic restore [{CARD}]: (4, 1) losses "
+          f"{' '.join(f'{x:.5f}' for x in r0['resumed4']['losses'])}, one "
+          f"rank {' '.join(f'{x:.5f}' for x in r0['resumed1']['losses'])}, "
+          f"uninterrupted {' '.join(f'{x:.5f}' for x in want)}; a (4, 1) "
+          f"rank holds {r0['weights4'] / 2**20:.1f} MiB of weights; "
+          f"restore {max(r['restore_s'] for r in ranks):.1f} s",
+          flush=True)
+    launches = read_counts()
+    for r in ranks:
+        for name, n in r["launches"].items():
+            launches[name] += n
+    check(not any(launches.values()),
+          f"7f: no kernel launched on any rank ({launches})")
+    print(f"      7f: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # ---------------------------------------------------------------------------
 # Phase 6i: mesh serving on the tensor axis (--mesh 1,2), both ranks on
 # this card over gloo: every collective is staged through a host copy
@@ -3949,8 +4249,8 @@ MESH_CASES = {"dense": {}, "attn_pim": dict(attn_pim=True, sanitize=True),
               "paged": dict(kv_layout="paged", page_size=16, attn_pim=True),
               "spec": dict(attn_pim=True, spec_len=4)}
 MESH_GRANITE_DEPTH = 8
-# qwen2-0.5b's depth in 6i and 6j (12 of 24 layers: the script's limit)
-MESH_QWEN_DEPTH = 12
+# qwen2-0.5b's depth in 6i and 6j (8 of 24 layers: the script's limit)
+MESH_QWEN_DEPTH = 8
 MESH_ATTN = {"qwen2-0.5b": (2, 7, 64), "granite-8b": (8, 4, 128)}
 MESH_TIMEOUT_S = 600
 
@@ -4344,9 +4644,9 @@ DATA_MESHES = ((2, 2), (2, 1))
 # serves at tp = 1, f32, depth cut; mamba2's window takes phase 6i's
 # longest prompt (the SSM families take no chunk waves)
 DATA_FAMILY_RUNS = (
-    ("mamba2-1.3b", 16, "dense", dict(MESH_ENGINE, prefill_len=256)),
-    ("olmoe-1b-7b", 8, "attn_pim", MESH_ENGINE),
-    ("olmoe-1b-7b", 8, "paged", MESH_ENGINE),
+    ("mamba2-1.3b", 8, "dense", dict(MESH_ENGINE, prefill_len=256)),
+    ("olmoe-1b-7b", 4, "attn_pim", MESH_ENGINE),
+    ("olmoe-1b-7b", 4, "paged", MESH_ENGINE),
 )
 # the kernels each run must launch on every rank
 DATA_KERNELS = {"dense": ("fc_gemv",), "attn_pim": ("fc_gemv",
@@ -4377,7 +4677,7 @@ def _family_mesh_runs(runs, mesh=None) -> dict:
 
 def _data_mesh_rank(rank: int, device, dp: int, tp: int) -> dict:
     """One rank of a phase 6j world: at (2, 2) phase 6i's f32 qwen2 cases
-    (12 layers), at (2, 1) the family runs."""
+    (8 layers), at (2, 1) the family runs."""
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_serving_mesh(dp, tp, device=device)
     if tp > 1:
@@ -4470,18 +4770,18 @@ def phase_data_mesh(one: dict) -> dict:
 # 1,2, and mamba2 at --mesh 2,2), every rank on this card over gloo
 SSM_MESH_ENGINE = dict(MESH_ENGINE, prefill_len=256)
 # (arch, depth, phase 6i case, engine), f32, depth cut to keep the phase
-# near 90 s: olmoe 8 of 16 layers, mamba2 16 of 48, zamba2 12 of 38 (two
-# shared-block applications)
+# near 90 s with 7f beside it: olmoe 4 of 16 layers, mamba2 8 of 48,
+# zamba2 12 of 38 (two shared-block applications)
 FAMILY_MESH_RUNS = (
-    ("olmoe-1b-7b", 8, "dense", MESH_ENGINE),
-    ("olmoe-1b-7b", 8, "attn_pim", MESH_ENGINE),
-    ("olmoe-1b-7b", 8, "paged", MESH_ENGINE),
-    ("mamba2-1.3b", 16, "dense", SSM_MESH_ENGINE),
-    ("mamba2-1.3b", 16, "spec", SSM_MESH_ENGINE),
+    ("olmoe-1b-7b", 4, "dense", MESH_ENGINE),
+    ("olmoe-1b-7b", 4, "attn_pim", MESH_ENGINE),
+    ("olmoe-1b-7b", 4, "paged", MESH_ENGINE),
+    ("mamba2-1.3b", 8, "dense", SSM_MESH_ENGINE),
+    ("mamba2-1.3b", 8, "spec", SSM_MESH_ENGINE),
     ("zamba2-1.2b", 12, "attn_pim", SSM_MESH_ENGINE),
 )
 FAMILY_MESHES = {(1, 2): FAMILY_MESH_RUNS,
-                 (2, 2): (("mamba2-1.3b", 16, "dense", SSM_MESH_ENGINE),)}
+                 (2, 2): (("mamba2-1.3b", 8, "dense", SSM_MESH_ENGINE),)}
 # the shard shapes at tp 2 (and mamba2's scan at tp 4): (K, [N]) of one
 # layer's FC-PIM groups, the scan's (b, nh, l, hp, n, cs), the Attn-PIM
 # geometry (nkv, g, hd) of a rank's KV heads
@@ -4721,6 +5021,7 @@ def main() -> int:
     data_launches = timed(phase_data_mesh, mesh_one)
     family_mesh_launches = timed(phase_family_mesh)
     train_launches = timed(phase_training)
+    train_mesh_launches = timed(phase_train_mesh)
     # the sum over every path's run, each with the counts set to 0 just
     # before it
     print(f"      launches by path: qwen2-0.5b dense and paged (phases 4, "
@@ -4734,7 +5035,8 @@ def main() -> int:
           f"2 runs): {json.dumps(traced_launches)}; "
           + "; ".join(f"{arch}: {json.dumps(ln)}"
                       for arch, ln in ssm_launches.items())
-          + f"; mamba2-1.3b and zamba2-1.2b speculative (phase 4o, 4 runs): "
+          + f"; mamba2-1.3b/24 and zamba2-1.2b/18 speculative (phase 4o, "
+          f"4 runs and their 2 TLP = 1 runs): "
           f"{json.dumps(ssm_spec_launches)}"
           + f"; the other families (phase 4n, 25 runs): "
           f"{json.dumps(family_launches)}; mesh (phase 6i, 2 ranks x 6 "
@@ -4742,7 +5044,9 @@ def main() -> int:
           f"4 ranks x 4 runs and 2 ranks x 3): {json.dumps(data_launches)}; "
           f"family mesh (phase 6k, 2 ranks x 6 runs and 4 ranks x 1): "
           f"{json.dumps(family_mesh_launches)}; training (phase 7): "
-          f"{json.dumps(train_launches)}", flush=True)
+          f"{json.dumps(train_launches)}; training over the data axis "
+          f"(phase 7f, 4 ranks): {json.dumps(train_mesh_launches)}",
+          flush=True)
     launches = {name: n + spec_launches[name] + serve_launches[name]
                 + failure_launches.get(name, 0)
                 + durable_launches.get(name, 0)

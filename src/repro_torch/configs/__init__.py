@@ -2,11 +2,15 @@
 the reference's order (`ASSIGNED`), and the paper's evaluation models
 (`PAPER_MODELS`: configurations for the device models and simulators of
 `core`, which the engine does not serve).  `get_config(name)` resolves any
-of them, and ``<name>-smoke`` to its reduced twin."""
+of them, and ``<name>-smoke`` to its reduced twin; the shape cells of the
+launch path (`SHAPES`, `ShapeCell`, `applicable_shapes`, `skipped_shapes`,
+`microbatch_plan`) come with them, as the reference exports them."""
 from __future__ import annotations
 
-from repro_torch.configs.base import (HybridConfig, ModelConfig, MoEConfig,
-                                     SSMConfig)
+from repro_torch.configs.base import (SHAPES, HybridConfig, ModelConfig,
+                                     MoEConfig, ShapeCell, SSMConfig,
+                                     applicable_shapes, microbatch_plan,
+                                     skipped_shapes)
 from repro_torch.configs.command_r_plus_104b import \
     CONFIG as COMMAND_R_PLUS_104B
 from repro_torch.configs.deepseek_67b import CONFIG as DEEPSEEK_67B
@@ -42,6 +46,10 @@ _REGISTRY: dict[str, ModelConfig] = {c.name: c
                                      for c in ASSIGNED + PAPER_MODELS}
 
 
+def arch_names() -> list[str]:
+    return [c.name for c in ASSIGNED]
+
+
 def get_config(name: str) -> ModelConfig:
     """Resolve an architecture id (or `<id>-smoke` for its reduced twin)."""
     if name in _REGISTRY:
@@ -51,5 +59,7 @@ def get_config(name: str) -> ModelConfig:
     raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
 
 
-__all__ = ["ASSIGNED", "PAPER_MODELS", "HybridConfig", "ModelConfig",
-           "MoEConfig", "SSMConfig", "get_config"]
+__all__ = ["ASSIGNED", "PAPER_MODELS", "SHAPES", "HybridConfig",
+           "ModelConfig", "MoEConfig", "SSMConfig", "ShapeCell",
+           "applicable_shapes", "arch_names", "get_config",
+           "microbatch_plan", "skipped_shapes"]

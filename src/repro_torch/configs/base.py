@@ -2,8 +2,10 @@
 `repro.configs.base` that the serving path and the core read —
 `ModelConfig` with its dense, MoE (`MoEConfig`), SSM (`SSMConfig`,
 Mamba2), hybrid (`HybridConfig`, zamba2) and M-RoPE (qwen2-vl) fields,
-`resolved_head_dim`, `group_size`, `num_attention_applications` and the
-`reduced()` smoke twin."""
+`resolved_head_dim`, `group_size`, `num_attention_applications`, the
+reference's analytic `param_count` and the `reduced()` smoke twin — and
+the input-shape cells of the launch path (`ShapeCell`, `SHAPES`,
+`applicable_shapes`, `skipped_shapes`, `microbatch_plan`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -96,8 +98,47 @@ class ModelConfig:
         return self.family == "ssm"
 
     @property
+    def has_subquadratic_path(self) -> bool:
+        """True if the arch can serve 500k-token contexts without a
+        quadratic KV-cache attention (SSM / hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def has_decode_step(self) -> bool:
         return self.decoder
+
+    def param_count(self) -> int:
+        """The reference's analytic parameter count (its conv and
+        hybrid terms included as it counts them): what `microbatch_plan`
+        and the launch path's rule choice read."""
+        h, nl = self.d_model, self.num_layers
+        hd = self.resolved_head_dim
+        count = self.vocab_size * h                       # embed
+        if not self.tie_embeddings and self.decoder:
+            count += self.vocab_size * h                  # lm head
+        count += h                                        # final norm
+        attn = h * (self.num_heads * hd) + 2 * h * (self.num_kv_heads * hd)
+        attn += (self.num_heads * hd) * h
+        if self.qkv_bias:
+            attn += self.num_heads * hd + 2 * self.num_kv_heads * hd
+        if self.moe is not None and self.moe.num_experts:
+            m = self.moe
+            mlp = m.num_experts * 3 * h * m.d_ff + h * m.num_experts
+        elif self.mlp == "swiglu":
+            mlp = 3 * h * self.d_ff
+        else:
+            mlp = 2 * h * self.d_ff + self.d_ff + h
+        if self.family in ("ssm", "hybrid"):
+            s = self.ssm
+            di, nh = s.d_inner(h), s.n_heads(h)
+            ssm = (h * (2 * di + 2 * s.d_state + nh)
+                   + s.conv_kernel * (di + 2 * s.d_state) + 3 * nh
+                   + di * h + di)
+            count += nl * (ssm + h)
+            if self.family == "hybrid":
+                count += attn + 3 * h * self.d_ff + 2 * h
+            return count
+        return count + nl * (attn + mlp + 2 * h)
 
     def num_attention_applications(self) -> int:
         if self.family == "ssm":
@@ -146,3 +187,63 @@ class ModelConfig:
             hybrid=HybridConfig(period=2) if self.hybrid is not None else None,
             dtype="float32",
         )
+
+
+# ---------------------------------------------------------------------------
+# Input-shape cells
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """The cells that run for this arch: `long_500k` only on a
+    sub-quadratic (SSM / hybrid) arch, no decode cell for an encoder."""
+    return [name for name, cell in SHAPES.items()
+            if not (cell.is_decode and not cfg.has_decode_step)
+            and not (name == "long_500k" and not cfg.has_subquadratic_path)]
+
+
+def skipped_shapes(cfg: ModelConfig) -> list[tuple[str, str]]:
+    out = []
+    for name, cell in SHAPES.items():
+        if cell.is_decode and not cfg.has_decode_step:
+            out.append((name, "encoder-only: no decode step"))
+        elif name == "long_500k" and not cfg.has_subquadratic_path:
+            out.append((name, "full attention is quadratic at 500k; "
+                              "sub-quadratic path required"))
+    return out
+
+
+def microbatch_plan(cfg: ModelConfig, cell: ShapeCell,
+                    data_shards: int) -> tuple[int, int]:
+    """(microbatches, rows a microbatch) of a train cell: more
+    microbatches for bigger models and big vocabularies (the logits
+    dominate activation memory), halved until the data shards divide a
+    microbatch's rows."""
+    if cell.kind != "train":
+        return 1, cell.global_batch
+    n = cfg.param_count()
+    accum = 8 if n > 50e9 else 4 if n > 5e9 else 2 if n > 1e9 else 1
+    if cfg.vocab_size >= 100_000:
+        accum = max(accum, 4)
+    while (cell.global_batch // accum) % data_shards and accum > 1:
+        accum //= 2
+    return accum, cell.global_batch // accum

@@ -173,6 +173,17 @@ def local_block(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     return t.contiguous().clone() if any(e is not None for e in spec) else t
 
 
+def full_tensor(block: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
+    """The inverse of `local_block`: every rank's block of `spec`
+    gathered back into the full tensor (``mesh.all_gather``, innermost
+    mesh axis of an entry first)."""
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            for a in reversed(_atoms(entry)):
+                block = mesh.all_gather(block, a, dim)
+    return block
+
+
 def split_axis(logical: str, n: int) -> tuple[object, str] | None:
     """(mesh, axis) of the tensor split of a dim of `n` units named
     `logical` (an FC bank's "ffn" / "heads", the MoE's "experts", the
@@ -272,5 +283,6 @@ def serve_rules(multi_pod: bool = False, long_context: bool = False,
 
 __all__ = ["axis_rules", "batch_block", "block_range", "current_mesh",
            "current_rules", "fc_tensor_axis", "filter_spec_for_shape",
-           "local_block", "logical_to_spec", "resolve_spec", "serve_rules",
-           "split_axis", "tensor_split", "train_rules", "tree_shardings"]
+           "full_tensor", "local_block", "logical_to_spec", "resolve_spec",
+           "serve_rules", "split_axis", "tensor_split", "train_rules",
+           "tree_shardings"]

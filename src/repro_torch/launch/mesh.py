@@ -22,7 +22,23 @@ batch (each data group computes its own slots; the serving engine gathers
 what it fetches over it).
 Its collectives (`ServingMesh.all_gather`, `all_reduce`) give every rank
 of a group the same bytes: `all_reduce` gathers the partials and adds them
-in rank order, in f32, whatever the backend's own reduction order.
+in rank order, in f32, whatever the backend's own reduction order.  A
+world of k·dp·tp ranks holds k such meshes side by side (rank r in mesh
+r // (dp·tp)), each with groups of its own.  `local_mesh(device)` is the
+(1, 1) mesh of one process: no group, no collective.
+
+Training over "data" (ZeRO-3, `launch.steps.build_step`) differentiates
+through three collectives built on the same gather, so they too are
+staged and counted.  The first two take a list of tensors and run one
+collective for each dtype among them (a layer's weights in one gather):
+  * `all_gather_grad`: each tensor's blocks concatenated along its dim;
+    the backward sums the gradient over the axis in rank order and keeps
+    this rank's block (a reduce-scatter);
+  * `replicated_grad`: the identity; the backward sums the gradients over
+    the axis (leaves kept whole on every rank);
+  * `all_reduce_grad`: one tensor summed over the axis; the backward
+    passes the gradient through, since every rank computes the same loss
+    from the sum.
 
 The reference's `make_production_mesh`, `make_host_mesh` and
 `force_host_device_count` exist for XLA's host-device trick (one process,
@@ -97,7 +113,9 @@ class ServingMesh:
 
     @property
     def rank(self) -> int:
-        return dist.get_rank()
+        """This rank's index in the mesh (row-major over data, model)."""
+        return self.coords["data"] * self.shape["model"] + \
+            self.coords["model"]
 
     def all_gather(self, x: torch.Tensor, axis: str = "model",
                    dim: int = 0) -> torch.Tensor:
@@ -113,6 +131,28 @@ class ServingMesh:
         for p in parts[1:]:
             acc = acc + p.float()
         return acc.to(x.dtype)
+
+    def all_gather_grad(self, xs: Sequence[torch.Tensor], axis: str,
+                        dims: Sequence[int]) -> list[torch.Tensor]:
+        """Each x of `xs` gathered along its dim of `dims` (`all_gather`),
+        one collective per dtype; the backward reduce-scatters."""
+        if self.groups.get(axis) is None or not xs:
+            return list(xs)
+        return list(_GatherBlocks.apply(self, axis, tuple(dims), *xs))
+
+    def replicated_grad(self, xs: Sequence[torch.Tensor], axis: str
+                        ) -> list[torch.Tensor]:
+        """The identity, whose backward sums the gradients over `axis`
+        (one collective per dtype)."""
+        if self.groups.get(axis) is None or not xs:
+            return list(xs)
+        return list(_Replicated.apply(self, axis, *xs))
+
+    def all_reduce_grad(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """`all_reduce` whose backward passes the gradient through."""
+        if self.groups.get(axis) is None:
+            return x
+        return _SumOver.apply(x, self, axis)
 
     def _gather(self, x: torch.Tensor, axis: str) -> list[torch.Tensor]:
         group = self.groups.get(axis)
@@ -134,10 +174,18 @@ class ServingMesh:
     def host_gather(self, arr: np.ndarray) -> list[np.ndarray]:
         """Every rank's host array (same shape and dtype), in rank order,
         over the host group (no device work)."""
+        if self.host_group is None:
+            return [arr]
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        parts = [torch.empty_like(t)
+                 for _ in range(dist.get_world_size(self.host_group))]
         dist.all_gather(parts, t, group=self.host_group)
         return [p.numpy() for p in parts]
+
+    def barrier(self) -> None:
+        """Wait until every rank of the mesh gets here (host group)."""
+        if self.host_group is not None:
+            dist.barrier(group=self.host_group)
 
     def host_any(self, flags: np.ndarray) -> np.ndarray:
         """Element-wise OR of a bool array over every rank (host-side)."""
@@ -145,39 +193,130 @@ class ServingMesh:
                       axis=0)
 
 
+def _by_dtype(xs) -> list[list[int]]:
+    """Indices of `xs` grouped by dtype, in first-seen order."""
+    groups: dict = {}
+    for i, x in enumerate(xs):
+        groups.setdefault(x.dtype, []).append(i)
+    return list(groups.values())
+
+
+def _flat(xs, idx) -> torch.Tensor:
+    return torch.cat([xs[i].reshape(-1) for i in idx])
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, dims, *xs):
+        ctx.mesh, ctx.axis, ctx.dims = mesh, axis, dims
+        ctx.shapes = [x.shape for x in xs]
+        out = [None] * len(xs)
+        for idx in _by_dtype(xs):
+            parts = mesh._gather(_flat(xs, idx), axis)
+            at = 0
+            for i in idx:
+                n = xs[i].numel()
+                out[i] = torch.cat([p[at:at + n].view(xs[i].shape)
+                                    for p in parts], dim=dims[i])
+                at += n
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        me = ctx.mesh.coords[ctx.axis]
+        out = []
+        for g, shape, dim in zip(_summed(ctx.mesh, ctx.axis, gs),
+                                 ctx.shapes, ctx.dims):
+            out.append(g.narrow(dim, me * shape[dim], shape[dim])
+                       .contiguous())
+        return (None, None, None, *out)
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axis, *xs):
+        ctx.mesh, ctx.axis = mesh, axis
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *_summed(ctx.mesh, ctx.axis, gs))
+
+
+def _summed(mesh, axis, gs) -> list[torch.Tensor]:
+    """Each of `gs` summed over `axis` (`all_reduce`, one a dtype)."""
+    out = [None] * len(gs)
+    for idx in _by_dtype(gs):
+        whole = mesh.all_reduce(_flat(gs, idx), axis)
+        at = 0
+        for i in idx:
+            n = gs[i].numel()
+            out[i] = whole[at:at + n].view(gs[i].shape)
+            at += n
+    return out
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
 def make_serving_mesh(dp: int = 1, tp: int = 1, *,
                       device: torch.device | str | None = None
                       ) -> ServingMesh:
-    """The serving engine's (data, model) mesh over the process group the
-    caller joined (world size dp * tp; rank r sits at data r // tp, model
-    r % tp).  Every rank must call it: it creates the axis groups."""
+    """The (data, model) mesh over the process group the caller joined:
+    rank r sits in mesh r // (dp * tp), at data (r % (dp * tp)) // tp,
+    model r % tp (one mesh when the world has dp * tp ranks).  Every rank
+    must call it with the same (dp, tp): it creates every mesh's groups."""
     if not dist.is_initialized():
         raise RuntimeError("make_serving_mesh needs an initialised "
                            "torch.distributed world (spawn_world)")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world != dp * tp:
-        raise ValueError(f"mesh ({dp}, {tp}) needs {dp * tp} ranks, the "
-                         f"world has {world}")
+    size = dp * tp
+    if world % size:
+        raise ValueError(f"mesh ({dp}, {tp}) needs a multiple of {size} "
+                         f"ranks, the world has {world}")
     backend = dist.get_backend()
     dev = torch.device(device) if device is not None else (
         rank_device(rank, world, "cuda") if backend == "nccl"
         else torch.device("cpu"))
     groups: dict[str, Any] = {"data": None, "model": None}
-    for d in range(dp):                      # every rank creates every group
-        g = dist.new_group([d * tp + j for j in range(tp)])
-        if tp > 1 and rank // tp == d:
-            groups["model"] = g
-    for j in range(tp):
-        g = dist.new_group([d * tp + j for d in range(dp)])
-        if dp > 1 and rank % tp == j:
-            groups["data"] = g
-    host_group = (dist.new_group(backend="gloo") if backend != "gloo"
-                  else dist.group.WORLD)
+    host_group = None
+    base, local = rank - rank % size, rank % size
+    for b in range(0, world, size):          # every rank creates every group
+        for d in range(dp):
+            g = dist.new_group([b + d * tp + j for j in range(tp)])
+            if tp > 1 and b == base and local // tp == d:
+                groups["model"] = g
+        for j in range(tp):
+            g = dist.new_group([b + d * tp + j for d in range(dp)])
+            if dp > 1 and b == base and local % tp == j:
+                groups["data"] = g
+        if world > size or backend != "gloo":
+            g = dist.new_group(list(range(b, b + size)), backend="gloo")
+            if b == base:
+                host_group = g
+    if host_group is None:
+        host_group = dist.group.WORLD
     return ServingMesh(shape={"data": dp, "model": tp},
-                       coords={"data": rank // tp, "model": rank % tp},
+                       coords={"data": local // tp, "model": local % tp},
                        groups=groups, host_group=host_group, device=dev,
                        backend=backend,
                        staged=(backend == "gloo" and dev.type == "cuda"))
+
+
+def local_mesh(device: torch.device | str) -> ServingMesh:
+    """The (1, 1) mesh of one process: no group, so no collective."""
+    return ServingMesh(shape={"data": 1, "model": 1},
+                       coords={"data": 0, "model": 0},
+                       groups={"data": None, "model": None}, host_group=None,
+                       device=torch.device(device), backend="none",
+                       staged=False)
 
 
 def _rank_entry(rank: int, world: int, backend: str, store: str,
@@ -261,5 +400,5 @@ def spawn_world(fn: Callable, world: int, *,
     return [got[r] for r in range(world)]
 
 
-__all__ = ["ServingMesh", "make_serving_mesh", "parse_mesh", "rank_device",
-           "spawn_world", "world_backend"]
+__all__ = ["ServingMesh", "local_mesh", "make_serving_mesh", "parse_mesh",
+           "rank_device", "spawn_world", "world_backend"]

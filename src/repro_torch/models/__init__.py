@@ -12,11 +12,13 @@ from repro_torch.models.model import (chunk_logits, decode_step,
                                       prefill_to_slots, rewind_ssm,
                                       ssm_step_buffers)
 from repro_torch.models.ssm import current_ssd_impl, ssd_impl
-from repro_torch.models.weights import params_from_jax
+from repro_torch.models.weights import (params_from_jax, shard_params,
+                                        unshard_params)
 
 __all__ = ["attn_impl", "chunk_logits", "current_attn_impl",
            "current_fc_variant", "current_ssd_impl", "decode_step",
            "fc_variant", "forward_train", "init_cache", "init_paged_cache",
-           "init_params", "mixed_step", "model_spec", "params_from_jax", "prefill",
-           "prefill_chunk", "prefill_to_pages", "prefill_to_slots",
-           "rewind_ssm", "ssd_impl", "ssm_step_buffers"]
+           "init_params", "mixed_step", "model_spec", "params_from_jax",
+           "prefill", "prefill_chunk", "prefill_to_pages", "prefill_to_slots",
+           "rewind_ssm", "shard_params", "ssd_impl", "ssm_step_buffers",
+           "unshard_params"]

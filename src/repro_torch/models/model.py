@@ -50,19 +50,33 @@ splits the slot batch (the "batch" rule, `batch_block`), the caches hold
 this data group's slots and every entry point takes their rows only: no
 forward gathers over "data".
 
+Training over the data axis (`train_rules` installed, dp > 1, tp = 1;
+`DataSplit`): every leaf the rules label "fsdp" is this rank's block of
+that dim and the batch its rows.  `forward_train` gathers each layer's
+blocks at the layer's entry, inside the remat region, so the whole weight
+dies with the layer and the backward gathers it again (ZeRO-3); the
+embedding, the head and zamba2's shared block are gathered once a
+forward.  A gather's backward sums the gradient over "data" and keeps
+the rank's block; a leaf kept whole on every rank sums its gradient over
+"data".  The loss is the global masked mean (each rank's numerator and
+denominator summed over "data" before the division) and an MoE layer's
+aux loss the mean over the global batch's groups.
+
 Entry points:
   init_params(cfg, generator)            -> params
   param_logical_axes / param_shardings(cfg, rules, mesh)
   cache_logical_axes / cache_shardings, paged_cache_logical_axes /
   paged_cache_shardings                  -> trees of spec tuples
   forward_train(cfg, params, batch, remat=True) -> (loss, metrics)
+  data_split(cfg) -> DataSplit | None;  collectives_per_train_step(cfg, accum)
   init_cache(cfg, batch, capacity, device)
   init_paged_cache(cfg, max_slots, num_pages, page_size, max_blocks, device)
   prefill(cfg, params, batch, cache)     -> (last_logits, cache)
   prefill_to_slots(cfg, params, batch, cache, src) -> (first_tokens, cache)
   prefill_to_pages(cfg, params, batch, cache, src) -> (first_tokens, cache)
   chunk_logits / prefill_chunk(cfg, params, cache, tokens, chunk_lens)
-  decode_step(cfg, params, cache, tokens, ssm_steps=None) -> (logits, cache)
+  decode_step(cfg, params, cache, tokens, ssm_steps=None, positions=None)
+                                         -> (logits, cache)
   ssm_step_buffers(cache, t) / rewind_ssm(cache, steps, n) -> cache
 """
 from __future__ import annotations
@@ -162,6 +176,31 @@ def collectives_per_forward(cfg: ModelConfig, cache: dict,
         mlp = int(tensor_split("ffn", cfg.d_ff)[0] > 1)
     return vocab + cfg.num_layers * (
         _attention_collectives(cfg, cache, attn_pim) + mlp)
+
+
+def collectives_per_train_step(cfg: ModelConfig, accum: int = 1,
+                               remat: bool = True) -> int:
+    """Collectives one train step runs on a rank under the installed
+    data split (0 without one), one a dtype where a call takes several
+    leaves.  Per microbatch: a layer's blocks are gathered at its entry,
+    again when remat recomputes it, and reduce-scattered in the backward;
+    the other blocks are gathered once and reduce-scattered; the leaves
+    kept whole sum their gradients; the loss's numerator, denominator and
+    MoE aux loss are summed together.  Per step: the gradient norm's one
+    sum."""
+    split = data_split(cfg)
+    if split is None:
+        return 0
+    dtype = {k: v.dtype or cfg.dtype
+             for k, v in flatten_tree(model_spec(cfg))}
+    groups = {"layer": set(), "top": set(), "whole": set()}
+    for key, spec in flatten_tree(split.specs):
+        kind = ("whole" if split.block_dim(spec) is None else
+                "layer" if key.startswith("layers/") else "top")
+        groups[kind].add(dtype[key])
+    micro = ((3 if remat else 2) * cfg.num_layers * len(groups["layer"])
+             + 2 * len(groups["top"]) + len(groups["whole"]) + 1)
+    return accum * micro + 1
 
 
 def host_copies_per_forward(cfg: ModelConfig) -> int:
@@ -380,7 +419,7 @@ def _zeros_block(shape, spec, dtype, device) -> torch.Tensor:
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
-def _cache_shapes(cfg: ModelConfig, batch: int, capacity: int) -> dict:
+def cache_shapes(cfg: ModelConfig, batch: int, capacity: int) -> dict:
     """The dense cache's full shapes (mirrors init_cache)."""
     shapes: dict = {"pos": (batch,)}
     if cfg.family in ("ssm", "hybrid"):
@@ -420,7 +459,7 @@ def cache_shardings(cfg: ModelConfig, batch: int, capacity: int, rules,
     rank owns a contiguous slice of positions); under
     ``serve_rules(attn_pim=True)`` the KV head dim does."""
     return tree_shardings(cache_logical_axes(cfg),
-                          _cache_shapes(cfg, batch, capacity), rules, mesh)
+                          cache_shapes(cfg, batch, capacity), rules, mesh)
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
@@ -440,7 +479,7 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
     batch whole (a prefill's temporary cache over the rows it is given)."""
     _check_decoder(cfg)
     dtype = DTYPES[cfg.dtype]
-    shapes = _cache_shapes(cfg, batch, capacity)
+    shapes = cache_shapes(cfg, batch, capacity)
     specs = _mesh_specs(cache_logical_axes(cfg), shapes, split)
 
     def spec(key):
@@ -525,6 +564,97 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
             **kv,
             "block_tables": torch.zeros((hi - lo, max_blocks),
                                         dtype=torch.int32, device=device)}
+
+
+@dataclasses.dataclass
+class DataSplit:
+    """Training over the data axis ``axis`` of ``mesh`` (module
+    docstring): ``specs`` are the params' spec tuples under the installed
+    rules, a leaf whose spec holds ``axis`` being a block of that dim."""
+    mesh: object
+    axis: str
+    specs: dict
+
+    def block_dim(self, spec) -> int | None:
+        """The dim `spec` splits over the data axis, or None (whole)."""
+        for dim, entry in enumerate(spec):
+            if entry == self.axis or (isinstance(entry, tuple)
+                                      and self.axis in entry):
+                return dim
+        return None
+
+    def prepare(self, params: dict) -> dict:
+        """The forward's view of a rank's params: every whole leaf through
+        one `replicated_grad`, the blocks outside ``layers`` through one
+        gather (once a forward), the layers' blocks as they are (`gather`
+        takes them at each layer's entry)."""
+        leaf = dict(flatten_tree(params))
+        dims = {k: self.block_dim(sp)
+                for k, sp in flatten_tree(self.specs)}
+        whole = [k for k in leaf if dims[k] is None]
+        top = [k for k in leaf
+               if dims[k] is not None and not k.startswith("layers/")]
+        out = dict(zip(whole, self.mesh.replicated_grad(
+            [leaf[k] for k in whole], self.axis)))
+        out.update(self._gathered(leaf, top, dims))
+        return unflatten_tree({**leaf, **out})
+
+    def gather(self, lp: dict) -> dict:
+        """One layer's view (`layer_list`) with its blocks gathered whole
+        in one collective (their stacked specs less the layer dim)."""
+        leaf = dict(flatten_tree(lp))
+        dims = {k: self.block_dim(sp[1:])
+                for k, sp in flatten_tree(self.specs["layers"])}
+        keys = [k for k in leaf if dims[k] is not None]
+        return unflatten_tree({**leaf, **self._gathered(leaf, keys, dims)})
+
+    def _gathered(self, leaf: dict, keys: list, dims: dict) -> dict:
+        return dict(zip(keys, self.mesh.all_gather_grad(
+            [leaf[k] for k in keys], self.axis, [dims[k] for k in keys])))
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """x summed over the data axis (gradient passed through)."""
+        return self.mesh.all_reduce_grad(x, self.axis)
+
+
+def flatten_tree(tree: dict, prefix: str = "") -> list:
+    """(path, leaf) pairs of a nested dict, keys joined by '/'."""
+    out = []
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out += flatten_tree(v, key) if isinstance(v, dict) else [(key, v)]
+    return out
+
+
+def unflatten_tree(flat: dict) -> dict:
+    """The nested dict of `flatten_tree`'s {path: leaf}."""
+    out: dict = {}
+    for key, v in flat.items():
+        node = out
+        *head, last = key.split("/")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return out
+
+
+def data_split(cfg: ModelConfig) -> DataSplit | None:
+    """The installed rules' data split of training: the mesh axis the
+    "batch" rule maps to, when it has more than one rank; None otherwise
+    (one device, or dp = 1).  A tensor split (tp > 1) of training raises:
+    it comes with a later slice of the port."""
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is None or rules is None:
+        return None
+    if mesh.shape.get("model", 1) > 1:
+        raise ValueError(
+            f"mesh {dict(mesh.shape)}: training with tp > 1 (sequence "
+            "parallelism on the residual stream, the vocab-split cross-"
+            "entropy) comes with a later slice of the port")
+    axis = rules.get("batch")
+    if not isinstance(axis, str) or mesh.shape.get(axis, 1) <= 1:
+        return None
+    return DataSplit(mesh, axis, param_shardings(cfg, rules, mesh))
 
 
 def layer_list(params: dict, num_layers: int) -> list[dict]:
@@ -868,12 +998,15 @@ def attention_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
     return h + L.out_project(attn, p["attn"], heads=cfg.num_heads)
 
 
-def mlp_block(cfg: ModelConfig, p: dict, h: torch.Tensor):
+def mlp_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
+              split: DataSplit | None = None):
     """Pre-norm MLP or MoE sub-block.  Returns (h, aux): the MoE layer's
-    load-balancing loss (which only training reads), None for an MLP."""
+    load-balancing loss (which only training reads; over the global
+    batch's groups under a data `split`), None for an MLP."""
     m_in = L.norm(h, p["norm2"], cfg.norm, cfg.norm_eps)
     if cfg.family == "moe":
-        y, aux = M.moe_mlp(m_in, p["moe"], cfg.moe)
+        data = None if split is None else (split.mesh, split.axis)
+        y, aux = M.moe_mlp(m_in, p["moe"], cfg.moe, data=data)
         return h + y, aux
     mlp = L.swiglu_mlp if cfg.mlp == "swiglu" else L.gelu_mlp
     return h + mlp(m_in, p["mlp"], units=cfg.d_ff), None
@@ -902,7 +1035,7 @@ def _remat(fn, remat: bool):
 
 
 def _transformer_backbone(cfg, layers, h, positions, cache, mode,
-                          write_lens=None, remat=False):
+                          write_lens=None, remat=False, split=None):
     """Loop over the layers; each layer writes its own KV slab (or its own
     page pool, when the cache carries block tables).  Returns (h, the sum
     of the MoE layers' aux losses, 0.0 without MoE)."""
@@ -911,10 +1044,12 @@ def _transformer_backbone(cfg, layers, h, positions, cache, mode,
     kv_seq = cache.get("kv_seq") if cache is not None else None
 
     def layer(h, lp, kv):
+        if split is not None:
+            lp = split.gather(lp)
         h = attention_block(cfg, lp, h, positions, kv, pos, mode,
                             tables=tables, write_lens=write_lens,
                             kv_seq=kv_seq)
-        return mlp_block(cfg, lp, h)
+        return mlp_block(cfg, lp, h, split)
 
     run = _remat(layer, remat)
     aux = 0.0
@@ -927,17 +1062,22 @@ def _transformer_backbone(cfg, layers, h, positions, cache, mode,
 
 
 def _ssm_layers(cfg, layers, h, cache, mode, lo, hi, ssm_out=None,
-                lens=None, remat=False):
+                lens=None, remat=False, split=None):
     state = cache["ssm"] if cache is not None else None
-    block = _remat(functools.partial(ssm_block, cfg), remat)
+
+    def layer(p, h, st, out):
+        if split is not None:
+            p = split.gather(p)
+        return ssm_block(cfg, p, h, st, mode, out, lens)
+
+    run = _remat(layer, remat)
     for i in range(lo, hi):
-        h = block(layers[i], h, layer_state(state, i), mode,
-                  layer_state(ssm_out, i), lens)
+        h = run(layers[i], h, layer_state(state, i), layer_state(ssm_out, i))
     return h
 
 
 def _hybrid_backbone(cfg, layers, shared, h, positions, cache, mode,
-                     ssm_out=None, lens=None, remat=False):
+                     ssm_out=None, lens=None, remat=False, split=None):
     """zamba2: segments of `period` Mamba2 blocks, the shared (weight-tied)
     attention+MLP block after each — `num_layers // period` applications,
     application `app` on KV slab `app` — then the remainder segment.
@@ -951,36 +1091,39 @@ def _hybrid_backbone(cfg, layers, shared, h, positions, cache, mode,
     lo = 0
     for app in range(cfg.num_attention_applications()):
         h = _ssm_layers(cfg, layers, h, cache, mode, lo, lo + period,
-                        ssm_out, lens, remat)
+                        ssm_out, lens, remat, split)
         kv = (cache["k"][app], cache["v"][app]) if cache is not None else None
         h = attention_block(cfg, shared, h, positions, kv, pos, mode,
                             kv_seq=kv_seq)
         h, _ = mlp_block(cfg, shared, h)
         lo += period
     return _ssm_layers(cfg, layers, h, cache, mode, lo, cfg.num_layers,
-                       ssm_out, lens, remat)
+                       ssm_out, lens, remat, split)
 
 
 def backbone(cfg, params, h, positions, cache, mode, write_lens=None,
-             ssm_out=None, lens=None, remat=False):
+             ssm_out=None, lens=None, remat=False, split=None):
     """The family dispatch; `ssm_out` takes a decode step's new SSM state,
     and `lens` [b] stops a prefill's SSM state at each row's prompt end.
     The stateful families take no chunked-prefill writes, as in the
     reference (the `lens` mechanism could carry them later).  `remat`
-    (training only) checkpoints each layer.  Returns (h, aux): the MoE
-    layers' summed aux loss, 0.0 for the other families."""
+    (training only) checkpoints each layer; a data `split` (training
+    only) gathers each layer's blocks at its entry.  Returns (h, aux): the
+    MoE layers' summed aux loss, 0.0 for the other families."""
     if cfg.family in ("ssm", "hybrid") and write_lens is not None:
         raise ValueError(f"{cfg.family}: chunked prefill needs maskable KV "
                          "writes")
     layers = layer_list(params, cfg.num_layers)
     if cfg.family == "ssm":
         return _ssm_layers(cfg, layers, h, cache, mode, 0, cfg.num_layers,
-                           ssm_out, lens, remat), 0.0
+                           ssm_out, lens, remat, split), 0.0
     if cfg.family == "hybrid":
         return _hybrid_backbone(cfg, layers, params["shared"], h, positions,
-                                cache, mode, ssm_out, lens, remat), 0.0
+                                cache, mode, ssm_out, lens, remat,
+                                split), 0.0
     return _transformer_backbone(cfg, layers, h, positions, cache, mode,
-                                 write_lens=write_lens, remat=remat)
+                                 write_lens=write_lens, remat=remat,
+                                 split=split)
 
 
 # ---------------------------------------------------------------------------
@@ -1073,14 +1216,20 @@ def lm_logits(cfg, params, h: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                  mask: torch.Tensor) -> torch.Tensor:
-    """Masked mean token NLL, in f32."""
+def nll_sums(logits: torch.Tensor, targets: torch.Tensor,
+             mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the masked token NLL, sum of the mask), in f32."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
-    nll = (lse - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean token NLL, in f32."""
+    num, den = nll_sums(logits, targets, mask)
+    return num / torch.clamp(den, min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -1091,9 +1240,15 @@ def forward_train(cfg, params, batch: dict, *, remat: bool = True):
     """One training forward: (loss, {"ce", "aux"}).  loss = ce + the MoE
     aux weight x the layers' summed aux loss / num_layers; a VLM's targets
     cover the text tail only, so the vision prefix is padded out of the
-    loss; an audio batch's ``target_mask`` picks the masked frames."""
+    loss; an audio batch's ``target_mask`` picks the masked frames.  Under
+    a data split (`data_split`) `params` are the rank's blocks and `batch`
+    its rows (module docstring)."""
+    split = data_split(cfg)
+    if split is not None:
+        params = split.prepare(params)
     h, positions = embed_inputs(cfg, params, batch)
-    h, aux = backbone(cfg, params, h, positions, None, "train", remat=remat)
+    h, aux = backbone(cfg, params, h, positions, None, "train", remat=remat,
+                      split=split)
     logits = lm_logits(cfg, params, h)
     targets = batch["targets"]
     mask = batch.get("target_mask")
@@ -1103,8 +1258,16 @@ def forward_train(cfg, params, batch: dict, *, remat: bool = True):
         pad = logits.shape[1] - targets.shape[1]
         targets = F.pad(targets, (pad, 0))
         mask = F.pad(mask, (pad, 0))
-    ce = cross_entropy(logits, targets, mask)
-    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
+    if split is None:
+        ce = cross_entropy(logits, targets, mask)
+    else:
+        # the global mean: every rank's NLL and mask sums (and MoE aux
+        # shares) summed before the division, in one collective (a mean
+        # of the ranks' means would weight each rank's rows by its count)
+        num, den = nll_sums(logits, targets, mask)
+        num, den, aux = split.sum(torch.stack([num, den, aux]))
+        ce = num / torch.clamp(den, min=1.0)
     aux_w = cfg.moe.aux_loss_weight if cfg.moe is not None else 0.0
     loss = ce + aux_w * aux / max(cfg.num_layers, 1)
     return loss, {"ce": ce.detach(), "aux": aux.detach()}
@@ -1249,15 +1412,20 @@ def prefill_chunk(cfg, params, cache, tokens, chunk_lens):
 
 
 def decode_step(cfg, params, cache: dict, tokens: torch.Tensor,
-                ssm_steps: S.SSMState | None = None):
+                ssm_steps: S.SSMState | None = None,
+                positions: torch.Tensor | None = None):
     """tokens [b, t] -> (logits [b, t, V], cache).  `ssm_steps`
     (`ssm_step_buffers(cache, t)`) takes the SSM state after each of the t
-    tokens; ``cache["ssm"]`` is then its last token's."""
+    tokens; ``cache["ssm"]`` is then its last token's.  `positions`
+    (default: pos + j, each stream of an M-RoPE triple alike) rotate the
+    window's q and k."""
     _check_decoder(cfg)
     b, t = tokens.shape
     pos = cache["pos"]
-    h, positions = embed_inputs(cfg, params, {
-        "tokens": tokens, "positions": _window_positions(cfg, pos, t)})
+    if positions is None:
+        positions = _window_positions(cfg, pos, t)
+    h, positions = embed_inputs(cfg, params, {"tokens": tokens,
+                                              "positions": positions})
     # the new SSM state goes to fresh tensors, as `pos` is replaced: the
     # state this step read stays as it was
     new = ssm_steps

@@ -95,22 +95,40 @@ def load_balancing_loss(probs: torch.Tensor, top_e: torch.Tensor,
     return num_experts * torch.sum(f * probs.mean(dim=-2), dim=-1)
 
 
-def moe_mlp(x: torch.Tensor, p: dict, cfg: MoEConfig):
+def moe_mlp(x: torch.Tensor, p: dict, cfg: MoEConfig, data=None):
     """x [b, s, d] -> (y [b, s, d], aux loss).  p: w_router [d, E];
     w_gate / w_up [E, d, f]; w_down [E, f, d] (under an expert split the
     rank's E / tp of them: module docstring).  The aux loss is the mean of
-    `load_balancing_loss` over groups of `GROUP_SIZE` tokens."""
+    `load_balancing_loss` over groups of `GROUP_SIZE` tokens.
+
+    ``data=(mesh, axis)`` (training over the data axis): x is this rank's
+    rows of a global batch whose groups are the reference's, those of the
+    whole batch in rank order.  Each rank computes its whole groups and
+    returns its share of the mean over every rank's (its groups' sum over
+    the global group count), which the caller sums over `axis`
+    (`models.forward_train`, once for all layers).  A group that would
+    straddle two ranks' rows raises."""
     b, s, d = x.shape
     tokens = b * s
-    gs = min(GROUP_SIZE, tokens)
+    ranks = 1 if data is None else data[0].shape[data[1]]
+    gs = min(GROUP_SIZE, tokens * ranks)
     if tokens % gs:
+        if ranks > 1:
+            raise ValueError(
+                f"MoE groups of {gs} tokens straddle the data ranks: a "
+                f"rank holds {tokens} tokens of the global batch's "
+                f"{tokens * ranks}; give each rank a multiple of {gs}")
         raise ValueError(f"{tokens} tokens are not divisible into MoE groups "
                          f"of {gs}")
     g, k = tokens // gs, cfg.top_k
     xt = x.reshape(tokens, d)
     top_e, top_w, probs = router(xt, p["w_router"], cfg)
     aux = load_balancing_loss(probs.view(g, gs, -1), top_e.view(g, gs, k),
-                              cfg.num_experts).mean()
+                              cfg.num_experts)
+    if ranks > 1:
+        aux = aux.sum() / (g * ranks)
+    else:
+        aux = aux.mean()
 
     # this rank's experts e0 .. e0 + n (all of them outside a split); the
     # other ranks' assignments sort last, into bucket n, and are not run

@@ -12,7 +12,11 @@ the tests hold the two packages to the same weights.
 `shard_params` keeps each rank's block of every leaf under a rule table
 and mesh (`model.param_shardings`): ``params_from_jax`` then
 ``shard_params`` gives every rank of a mesh its part of the reference's
-weights.
+weights (under `train_rules` the "fsdp" dims over "data", ZeRO-3).
+`unshard_params` is its inverse: every leaf gathered back whole, on every
+rank (a collective: every rank of the mesh calls it), for checkpoints and
+for comparing a mesh's trees with one device's; any tree of the params'
+structure takes it (the AdamW moments).
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import block_range, local_block
+from repro_torch.distributed.sharding import (block_range, full_tensor,
+                                              local_block)
 from repro_torch.models.model import (DTYPES, PSpec, model_spec,
                                       param_shapes, param_shardings)
 
@@ -73,3 +78,16 @@ def shard_params(cfg: ModelConfig, params: dict, rules, mesh) -> dict:
 
     return walk(param_shardings(cfg, rules, mesh), param_shapes(cfg), params,
                 "")
+
+
+@torch.no_grad()
+def unshard_params(cfg: ModelConfig, params: dict, rules, mesh) -> dict:
+    """Every leaf of a rank's `params` (or of a tree of their structure)
+    gathered whole under `rules` and `mesh`: the inverse of
+    `shard_params`."""
+    def walk(specs: dict, node: dict) -> dict:
+        return {k: (walk(sp, node[k]) if isinstance(sp, dict)
+                    else full_tensor(node[k].detach(), sp, mesh))
+                for k, sp in specs.items()}
+
+    return walk(param_shardings(cfg, rules, mesh), params)

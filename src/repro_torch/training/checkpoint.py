@@ -10,8 +10,16 @@ step loop never waits on the disk); one save is in flight at a time.
 bf16 leaves are written as f32 (exact), and a reference checkpoint's bf16
 arrays (numpy reads them back as raw 2-byte records) are widened to f32
 bit for bit, so a checkpoint written by either package restores in the
-other.  A SIGTERM (preemption) runs a final blocking save.  Restoring
-under a new mesh's shardings waits for the mesh.
+other.  A SIGTERM (preemption) runs a final blocking save.
+
+Over a mesh (``shardings={name: tree of spec tuples}``, ``mesh=``) a save
+gathers every rank's blocks whole (`distributed.sharding.full_tensor`),
+rank 0 of the mesh alone writes and publishes, and every rank waits at
+a barrier until it has: no rank goes on while the step is half written.
+`restore` with ``shardings`` and ``mesh`` cuts each leaf to this rank's
+block under them, whatever mesh wrote it (elastic restore): a (2, 1)
+checkpoint restores onto one device or onto (4, 1).  The files are the
+same either way.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import full_tensor, local_block
 from repro_torch.training.tree import flatten, unflatten
 
 Tree = Any
@@ -41,14 +50,27 @@ def _to_host(leaf: torch.Tensor) -> np.ndarray:
 
 
 def _from_host(arr: np.ndarray, like: torch.Tensor,
-               device: torch.device | str | None) -> torch.Tensor:
+               device: torch.device | str | None, spec=None,
+               mesh=None) -> torch.Tensor:
+    """The array as a tensor of `like`'s dtype on `device` (default:
+    `like`'s), cut to this rank's block of `spec` first when given."""
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
         # a bf16 array saved by numpy without its dtype: widen the bits
         arr = (arr.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
     if not arr.flags.c_contiguous:
         arr = arr.copy()                 # (ascontiguousarray makes 0-d 1-d)
-    return torch.from_numpy(arr).to(
-        device=like.device if device is None else device, dtype=like.dtype)
+    t = torch.from_numpy(arr)
+    if spec is not None:
+        t = local_block(t, spec, mesh)
+    return t.to(device=like.device if device is None else device,
+                dtype=like.dtype)
+
+
+def _specs(shardings: dict | None, name: str) -> dict:
+    """{checkpoint key: spec} of tree `name` (empty: every leaf whole)."""
+    if not shardings or shardings.get(name) is None:
+        return {}
+    return dict(flatten(shardings[name]))
 
 
 class CheckpointManager:
@@ -61,32 +83,49 @@ class CheckpointManager:
 
     # ---------------------------------------------------------------- save
     def save(self, step: int, trees: dict[str, Tree],
-             blocking: bool = False) -> None:
-        """Snapshot to host memory NOW, write to disk asynchronously."""
+             blocking: bool = False, *, shardings: dict | None = None,
+             mesh=None) -> None:
+        """Snapshot to host memory NOW, write to disk asynchronously.  On
+        a mesh (module docstring) every rank must call it; it gathers,
+        rank 0 writes, and all return once the step is published."""
+        if mesh is not None:
+            host = {}
+            for name, t in trees.items():
+                specs = _specs(shardings, name)
+                host[name] = {k: _to_host(full_tensor(v.detach(), specs[k],
+                                                      mesh)
+                                          if specs.get(k) else v)
+                              for k, v in flatten(t)}
+            if mesh.rank == 0:
+                self.wait()
+                self._write(step, host)
+            mesh.barrier()
+            return
         host = {name: {k: _to_host(v) for k, v in flatten(t)}
                 for name, t in trees.items()}
         self.wait()                      # one in-flight save at a time
 
-        def write():
-            path = os.path.join(self.directory, f"step_{step:08d}")
-            tmp = path + ".tmp"
-            os.makedirs(tmp, exist_ok=True)
-            for name, flat in host.items():
-                np.savez(os.path.join(tmp, f"{name}.npz"), **flat)
-            with open(os.path.join(tmp, "manifest.json"), "w") as f:
-                json.dump({"step": step, "trees": sorted(host),
-                           "time": time.time()}, f)
-            # idempotent publish: re-saving a step replaces the snapshot
-            if os.path.exists(path):
-                shutil.rmtree(path)
-            os.replace(tmp, path)        # atomic publish
-            self._gc()
-
         if blocking:
-            write()
+            self._write(step, host)
         else:
-            self._thread = threading.Thread(target=write, daemon=True)
+            self._thread = threading.Thread(target=self._write,
+                                            args=(step, host), daemon=True)
             self._thread.start()
+
+    def _write(self, step: int, host: dict) -> None:
+        path = os.path.join(self.directory, f"step_{step:08d}")
+        tmp = path + ".tmp"
+        os.makedirs(tmp, exist_ok=True)
+        for name, flat in host.items():
+            np.savez(os.path.join(tmp, f"{name}.npz"), **flat)
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump({"step": step, "trees": sorted(host),
+                       "time": time.time()}, f)
+        # idempotent publish: re-saving a step replaces the snapshot
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)        # atomic publish
+        self._gc()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -107,21 +146,30 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, step: int, templates: dict[str, Tree],
-                device: torch.device | str | None = None) -> dict[str, Tree]:
-        """Restore into the structure, shapes and dtypes of `templates`, on
-        `device` (default: each template leaf's own)."""
+                device: torch.device | str | None = None, *,
+                shardings: dict | None = None,
+                mesh=None) -> dict[str, Tree]:
+        """Restore into the structure and dtypes of `templates`, on
+        `device` (default: each template leaf's own).  With `shardings`
+        (``{name: tree of spec tuples}``) and `mesh`, each leaf is this
+        rank's block of its spec (elastic restore); a template leaf then
+        has the block's shape or the whole leaf's."""
         path = os.path.join(self.directory, f"step_{step:08d}")
         out: dict[str, Tree] = {}
         for name, template in templates.items():
+            specs = _specs(shardings, name)
             with np.load(os.path.join(path, f"{name}.npz")) as data:
                 values = []
                 for key, leaf in flatten(template):
                     arr = data[key]
-                    if arr.shape != tuple(leaf.shape):
+                    t = _from_host(arr, leaf, device, specs.get(key) or None,
+                                   mesh)
+                    if tuple(leaf.shape) not in (tuple(t.shape), arr.shape):
                         raise ValueError(f"{name}:{key}: checkpoint shape "
-                                         f"{arr.shape}, template "
+                                         f"{arr.shape} (this rank's block "
+                                         f"{tuple(t.shape)}), template "
                                          f"{tuple(leaf.shape)}")
-                    values.append(_from_host(arr, leaf, device))
+                    values.append(t)
             out[name] = unflatten(template, values)
         return out
 

@@ -12,7 +12,14 @@ Each function is plain PyTorch under ``torch.no_grad()``.  `adamw_update`
 writes the new parameters and moments IN PLACE (the reference returns new
 arrays) and returns the same objects; the step counter is a 0-d int32
 tensor on the parameters' device, so no step reads back to the host.
-The ZeRO-1 state sharding (`zero1_logical_axes`) waits for the mesh.
+Over the data axis (`launch.steps.build_step`'s train cell) the
+parameters, gradients and both moments are a rank's blocks under the
+rules (ZeRO-3: the moments take the parameters' axes), so `adamw_update`
+runs on the blocks as it is; only the gradient norm sums its blocks' sums
+of squares over the axis (`global_norm`'s ``data``).
+`zero1_logical_axes` is the reference's ZeRO-1 rule for the states of a
+parameter the rules keep whole; no step of the port calls it yet, as the
+reference's `build_step` does not.
 """
 from __future__ import annotations
 
@@ -70,17 +77,30 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 @torch.no_grad()
-def global_norm(tree: Tree) -> torch.Tensor:
+def global_norm(tree: Tree, data=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares.  ``data=(mesh,
+    axis, blocks)``: ``blocks[i]`` marks leaf i as a rank's block, whose
+    sums are summed over `axis` (one collective for all of them); the
+    other leaves, whole on every rank, count once."""
     sq = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
+    if data is not None:
+        mesh, axis, blocks = data
+        idx = [i for i, b in enumerate(blocks) if b]
+        if idx:
+            whole = mesh.all_reduce(torch.stack([sq[i] for i in idx]), axis)
+            for j, i in enumerate(idx):
+                sq[i] = whole[j]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree,
-                 state: AdamWState) -> tuple[Tree, AdamWState, dict]:
+                 state: AdamWState, data=None
+                 ) -> tuple[Tree, AdamWState, dict]:
     """One AdamW step.  Writes params, m and v in place; returns (params,
-    the state with the new step, {"grad_norm", "lr"})."""
-    gnorm = global_norm(grads)
+    the state with the new step, {"grad_norm", "lr"}).  `data`: the
+    data split of the blocks (`global_norm`)."""
+    gnorm = global_norm(grads, data)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = lr_schedule(cfg, step)
@@ -97,3 +117,23 @@ def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree,
         p.copy_((p.float() - lr * delta).to(p.dtype))
     return params, AdamWState(step, state.m, state.v), {"grad_norm": gnorm,
                                                         "lr": lr}
+
+
+def zero1_logical_axes(param_axes: Tree, param_shapes: Tree) -> Tree:
+    """Logical axes of the optimizer states (ZeRO-1), the reference's
+    rule: a parameter with an "fsdp" dim passes its axes on; otherwise
+    the first unnamed dim of at least 64 becomes "fsdp".  `param_shapes`
+    holds shape tuples (or anything with ``.shape``)."""
+    if isinstance(param_axes, dict):
+        return {k: zero1_logical_axes(v, param_shapes[k])
+                for k, v in param_axes.items()}
+    axes = tuple(param_axes)
+    if "fsdp" in axes:
+        return axes
+    shape = tuple(getattr(param_shapes, "shape", param_shapes))
+    out = list(axes)
+    for i, (a, d) in enumerate(zip(axes, shape)):
+        if a is None and d >= 64:
+            out[i] = "fsdp"
+            break
+    return tuple(out)

@@ -9,7 +9,12 @@ where `batch` tensors carry a leading [accum] microbatch axis when
 ``accum > 1``: the gradients of the microbatches are summed in f32 and
 divided by `accum`, one optimizer application per global step, as the
 reference's scan does.  Parameters and moments are updated in place.  The
-step runs `models.forward_train`, which reaches no kernel wrapper.
+step runs `models.forward_train`, which reaches no kernel wrapper.  Under
+`axis_rules(train_rules(), mesh)` with dp > 1 the same step runs on a
+rank's blocks of the parameters and moments and its rows of each
+microbatch (global microbatch i is every rank's microbatch i, in rank
+order): `forward_train` gathers and reduce-scatters (`models.DataSplit`)
+and the gradient norm sums its blocks over "data".
 
 `run_training` labels its preemption checkpoint with the number of steps
 done (the reference labels it with the step the run started from: ROADMAP
@@ -29,7 +34,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, make_batch, to_device
-from repro_torch.models.model import forward_train, init_params
+from repro_torch.models.model import data_split, forward_train, init_params
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.compression import compress_with_feedback, init_error
 from repro_torch.training.optim import AdamWConfig, adamw_update, init_adamw
@@ -67,6 +72,15 @@ def make_train_step(mcfg: ModelConfig, ocfg: AdamWConfig, *, accum: int = 1,
                     remat: bool = True,
                     compress_grads: bool = False) -> Callable:
     def train_step(params, opt_state, err, batch):
+        split = data_split(mcfg)
+        data = None
+        if split is not None:
+            if compress_grads:
+                raise ValueError("int8 gradient compression over the data "
+                                 "axis is not ported")
+            data = (split.mesh, split.axis,
+                    [split.block_dim(sp) is not None
+                     for sp in leaves(split.specs)])
         if accum > 1:
             gsum, lsum = None, 0.0
             for i in range(accum):
@@ -86,7 +100,8 @@ def make_train_step(mcfg: ModelConfig, ocfg: AdamWConfig, *, accum: int = 1,
         if compress_grads:
             # int8 + error feedback, where it would bracket the DP all-reduce
             grads, err = compress_with_feedback(grads, err)
-        params, opt_state, om = adamw_update(ocfg, params, grads, opt_state)
+        params, opt_state, om = adamw_update(ocfg, params, grads, opt_state,
+                                             data)
         return params, opt_state, err, {"loss": loss, **om}
 
     return train_step
