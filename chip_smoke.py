@@ -269,6 +269,33 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      sums), each rank holds half the weights (a little more: the router,
      norms, B and C stay whole) and 1/tp of the KV / SSM state (1/4 at
      (2, 2)), and each run launches its kernels on every rank;
+  6l. the weights and the KV sequence over "data" (`launch.steps`'
+     `choose_rules` tables of the FULL-depth configs, applied to the
+     depth-cut models), one world of 4 ranks at (2, 2) on this card over
+     gloo, f32 with TF32 off: first, the card alone, fc_gemv at a rank's
+     2D blocks of a deepseek-67b layer (K 4096; f32 against the plain
+     version, bf16 timed beside torch.matmul, the bound and the whole
+     layer); then deepseek-67b (depth cut to 2 of 95) under the 2D
+     weight-stationary decode table (the weights' "fsdp" dim and the KV
+     sequence over "data", the batch whole): `PapiEngine(mesh=, rules=)`
+     serves 6i's 6 requests on 8 slots of 512 at alpha 4 (both FC
+     variants), every rank's streams and FC variants equal the one-rank
+     engine's, fc_gemv launched on every rank, each weight the rank's 2D
+     block by shape, steady transfers at the budget; `build_step`'s
+     decode cell fn, one step over 8 drawn rows, logits within 1e-4 of
+     one rank's and the collectives a step = `collectives_per_forward`;
+     a bf16 pass for the report only (the logits' distance, the equal
+     tokens); the FSDP prefill (`build_step`'s prefill cell fn: 4 prompts
+     of a 512-token window, each layer's weights gathered at its entry):
+     the last logits and each data group's cache block within 1e-4;
+     long_500k on zamba2-1.2b (cut to 12 of 38) at the full 524288
+     positions (16 GiB of f32 KV, 4 GiB a rank), the KV and SSM state
+     drawn from seeds, 4 decode steps from 524280: logits and SSM state
+     within 1e-4 of one rank's, the written positions on the rank that
+     holds them, the step walls; then mamba2-1.3b/8 and zamba2-1.2b/12
+     (Attn-PIM, the KV heads over "model") in the engine under the
+     long-context tables, streams equal 6k's one-rank runs, ssd_scan and
+     decode_attention launched on every rank;
   7. training, on the train path the reference lowers (no kernel: plain
      matmuls, the plain blocked attention, the differentiable plain SSD
      scan); bf16, random weights from seed 0, batch 8 x seq 512 as two
@@ -382,6 +409,13 @@ from repro_torch.launch.mesh import (make_serving_mesh,  # noqa: E402
 from repro_torch.models.linear import papi_linear_group  # noqa: E402
 from repro_torch.models.model import (param_shapes,  # noqa: E402
                                       param_shardings)
+from repro_torch.configs import SHAPES  # noqa: E402
+from repro_torch.distributed.sharding import batch_block  # noqa: E402
+from repro_torch.launch.steps import choose_rules  # noqa: E402
+from repro_torch.models.model import (cache_shapes,  # noqa: E402
+                                      cache_shardings,
+                                      collectives_per_forward, flatten_tree,
+                                      init_leaf, unflatten_tree)
 from repro_torch.models.weights import shard_params  # noqa: E402
 from repro_torch.training import (AdamWConfig, CheckpointManager,  # noqa: E402
                                   TrainConfig, init_adamw, make_train_step,
@@ -4883,7 +4917,8 @@ def _family_mesh_rank(rank: int, device, dp: int, tp: int) -> dict:
 def phase_family_mesh() -> dict:
     """Phase 6k (module docstring): the shard kernels, the one-rank
     engine's runs, then the (1, 2) and (2, 2) worlds against them.
-    Returns the launches summed over every rank's engine runs."""
+    Returns the launches summed over every rank's engine runs, and the
+    one-rank runs (phase 6l holds its long-context runs to them)."""
     _family_shard_kernels()
     want = _family_mesh_runs(FAMILY_MESH_RUNS)
     launches = {name: 0 for name in MODS}
@@ -4956,6 +4991,549 @@ def phase_family_mesh() -> dict:
               f"{ranks[0]['collectives']}", flush=True)
     print(f"      family-mesh launches (every rank, engine runs): "
           f"{json.dumps(launches)}", flush=True)
+    return launches, want
+
+
+# ---------------------------------------------------------------------------
+# Phase 6l: serving with the weights or the KV sequence over the data axis,
+# one world of 4 ranks at (2, 2) on this card over gloo, f32 with TF32 off.
+# The tables are `choose_rules`' for the FULL-depth configs (the threshold
+# reads `param_count`, which falls with a depth cut), applied to the
+# depth-cut models.
+FSDP_ARCH, FSDP_DEPTH = "deepseek-67b", 2          # 2 of 95 layers
+FSDP_MESH = (2, 2)
+# phase 6i's 6 requests on 8 slots of 512; alpha 4 gives both FC variants
+FSDP_ENGINE = dict(max_slots=8, cache_capacity=512, prefill_len=64, alpha=4)
+# the decode cell's 8 rows (positions in every quarter of a 512-position
+# slab) and the FSDP prefill's 4 prompts of a 512-token window
+FSDP_DECODE_POS = [500, 100, 300, 7, 250, 450, 130, 383]
+FSDP_PREFILL_LENS = [512, 300, 480, 64]
+# long_500k: zamba2-1.2b cut to 12 of 38 layers (two shared-block
+# applications) at the full capacity; the KV drawn in chunks of LONG_CHUNK
+# positions, each from its own seed, so a rank draws its slice alone and
+# the one-rank oracle the whole slab
+LONG_ARCH, LONG_DEPTH = "zamba2-1.2b", 12
+LONG_CAP, LONG_POS, LONG_STEPS, LONG_CHUNK = 524288, 524280, 4, 4096
+# the engines under the long-context tables: (arch, depth, phase 6i case,
+# attn_pim table), held to phase 6k's one-rank runs, and the kernel each
+# must launch on every rank
+LONG_ENGINE_RUNS = (("mamba2-1.3b", 8, "dense", False, "ssd_scan"),
+                    ("zamba2-1.2b", 12, "attn_pim", True, "decode_attention"))
+FSDP_TIMEOUT_S = 600
+# the card's bytes that put the depth-cut deepseek-67b over
+# `choose_rules`' threshold in `build_step`; every rank checks that the
+# table it gives equals the full config's (`_fsdp_tables`)
+CUT_HBM = 1.0
+
+
+def _seeded_params(cfg, seed: int, rules=None, mesh=None) -> dict:
+    """`cfg`'s weights leaf by leaf on the card, leaf i from its own
+    generator (seed * 1000 + i): a rank makes each whole leaf, keeps its
+    block under `rules` and frees the rest (deepseek-67b's embedding alone
+    is 3.4 GB in f32); whole leaves without `rules`."""
+    specs = (dict(flatten_tree(param_shardings(cfg, rules, mesh)))
+             if rules is not None else None)
+    out = {}
+    for i, (key, ps) in enumerate(flatten_tree(model_spec(cfg))):
+        leaf = init_leaf(cfg, ps, torch.Generator(device=DEV).manual_seed(
+            seed * 1000 + i))
+        out[key] = leaf if specs is None else local_block(leaf, specs[key],
+                                                          mesh)
+        del leaf
+    return unflatten_tree(out)
+
+
+def _block_shapes_ok(cfg, params, rules, mesh) -> tuple[bool, int, int]:
+    """(every leaf of the rank's params has its rules' block shape, the
+    bytes of its "fsdp" leaves (those over "data"), their bytes whole)."""
+    specs = dict(flatten_tree(param_shardings(cfg, rules, mesh)))
+    held = dict(flatten_tree(params))
+    ok, mine, whole = True, 0, 0
+    for key, shape in flatten_tree(param_shapes(cfg)):
+        block = tuple(hi - lo for lo, hi in (
+            block_range(n, e, mesh) for n, e in zip(shape, specs[key])))
+        ok = ok and tuple(held[key].shape) == block
+        if "data" in specs[key]:
+            es = held[key].element_size()
+            ok = ok and block != tuple(shape)
+            mine += math.prod(block) * es
+            whole += math.prod(shape) * es
+    return ok, mine, whole
+
+
+def _fsdp_block_groups(cfg, mesh) -> list:
+    """(K, [N of each weight]) of a 2D rank's FC-PIM launches of one
+    layer: K over "data" for the column groups, N over "data" for the
+    row banks, the heads and the FFN over "model" (the KV heads whole)."""
+    dp, tp = mesh
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    return [(d // dp, [q // tp, kv, kv]), (q // tp, [d // dp]),
+            (d // dp, [cfg.d_ff // tp] * 2), (cfg.d_ff // tp, [d // dp])]
+
+
+def _fsdp_kernels() -> None:
+    """fc_gemv on a (2, 2) rank's 2D blocks of a deepseek-67b layer (f32,
+    and bf16 with the f32 output a 2D rank sums, against the plain
+    version, m = 8), then timed in bf16 beside the whole layer, with
+    torch.matmul on the same blocks and the bound."""
+    gen = torch.Generator(device=DEV).manual_seed(63)
+    cfg = get_config(FSDP_ARCH)
+    groups = _fsdp_block_groups(cfg, FSDP_MESH)
+    for K, ns in groups:
+        ws = [torch.randn(K, n, generator=gen, device=DEV) / math.sqrt(K)
+              for n in ns]
+        x = torch.randn(8, K, generator=gen, device=DEV)
+        ys = fc_mod.fc_gemv_group(x, ws)
+        torch.cuda.synchronize()
+        errs = [max_err(y, fc_mod.fc_gemv_ref(x, w)) for y, w in zip(ys, ws)]
+        check(all(ok for _, ok, _ in errs),
+              f"6l fc_gemv_group f32 deepseek-67b (2, 2) 2D block m=8 K={K} "
+              f"N={ns} ({fc_plan_note(K, ns)}): max_abs_err "
+              f"{max(e for e, _, _ in errs):.3e} (tol {errs[0][2]})")
+        # bf16 in, the f32 sums out unrounded: the partial products a 2D
+        # rank sums over "data" before its one rounding
+        xb, wb = x.to(torch.bfloat16), [w.to(torch.bfloat16) for w in ws]
+        ys = fc_mod.fc_gemv_group(xb, wb, torch.float32)
+        torch.cuda.synchronize()
+        errs = [max_err(y, fc_mod.fc_gemv_ref(xb, w, torch.float32))
+                for y, w in zip(ys, wb)]
+        check(all(y.dtype == torch.float32 for y in ys)
+              and all(ok for _, ok, _ in errs),
+              f"6l fc_gemv_group bf16 -> f32 out deepseek-67b (2, 2) 2D "
+              f"block m=8 K={K} N={ns}: max_abs_err "
+              f"{max(e for e, _, _ in errs):.3e} (tol {errs[0][2]}, the "
+              f"f32 sums of exact bf16 products)")
+        del ws, x, ys, xb, wb
+    _fc_group_times(gen, groups, "a (2, 2) rank's 2D blocks of a "
+                    "deepseek-67b layer", reps=3)
+    _fc_group_times(gen, fc_groups(cfg), "deepseek-67b's whole layer",
+                    reps=3)
+    torch.cuda.empty_cache()
+
+
+def _fsdp_tables(mesh) -> dict:
+    """The FULL-depth configs' tables on `mesh`: deepseek-67b's 2D decode
+    (decode_32k) and FSDP prefill (prefill_32k), zamba2's long_500k."""
+    full = get_config(FSDP_ARCH)
+    return {"decode": choose_rules(full, SHAPES["decode_32k"], mesh),
+            "prefill": choose_rules(full, SHAPES["prefill_32k"], mesh),
+            "long": choose_rules(get_config(LONG_ARCH), SHAPES["long_500k"],
+                                 mesh)}
+
+
+def _fsdp_serve(cfg, params, mesh=None, rules=None) -> dict:
+    """Phase 6i's 6 requests on `FSDP_ENGINE`, the launch counts set to 0
+    just before `run()`."""
+    eng = PapiEngine(cfg, params, mesh=mesh, rules=rules, device=DEV,
+                     **FSDP_ENGINE)
+    rng = np.random.default_rng(0)
+    for i, n in enumerate(MESH_PROMPTS):
+        eng.submit(ServeRequest(i, rng.integers(3, cfg.vocab_size,
+                                                size=n).tolist(),
+                                max_new_tokens=8 + 4 * i))
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = eng.run(max_iterations=500)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steady = [s for s in eng.stats if s.admitted == 0
+              and s.decode_slots and not s.prefill_slots and not s.degraded]
+    return dict(streams={r.req_id: list(r.tokens) for r in results},
+                reasons=sorted(r.finished_reason for r in results),
+                fc=[s.fc_variant for s in eng.stats], wall=wall,
+                iterations=len(eng.stats),
+                steady_wall=statistics.median(s.wall_s for s in steady),
+                wave_wall=statistics.median(s.wall_s for s in eng.stats
+                                            if s not in steady),
+                tokens=sum(len(r.tokens) for r in results),
+                launches=read_counts(),
+                steady=sorted({s.transfers for s in steady}),
+                budget=eng.transfer_budget, data_split=eng._data_split,
+                weight_bytes=_tree_bytes(eng.params))
+
+
+def _rank_cache_block(cfg, whole: dict, cap: int, rules, mesh) -> dict:
+    """This rank's block of a whole dense cache under `rules`."""
+    b = whole["pos"].shape[0]
+    with axis_rules(rules, mesh):
+        cache = init_cache(cfg, b, cap, DEV)
+        lo, hi = batch_block(b)
+    specs = cache_shardings(cfg, b, cap, rules, mesh)
+    for key in ("k", "v"):
+        cache[key].copy_(local_block(whole[key], specs[key], mesh))
+    cache["pos"] = whole["pos"][lo:hi].clone()
+    return cache
+
+
+def _fsdp_decode_cell(cfg, params, mesh=None, rules=None) -> dict:
+    """One decode step over 8 rows of a drawn 512-position cache:
+    `build_step`'s decode cell fn (`CUT_HBM`: the 2D table) on the rank's
+    blocks under `rules` (the full model's table), or `decode_step` on one
+    rank; the logits, and on a rank the collectives the step ran, those
+    reckoned, and whether `build_step`'s table is `rules`."""
+    gen = torch.Generator(device=DEV).manual_seed(61)
+    whole = init_cache(cfg, len(FSDP_DECODE_POS), 512, DEV)
+    for key in ("k", "v"):
+        whole[key] = (torch.randn(whole[key].shape, generator=gen,
+                                  device=DEV) * 0.5).to(whole[key].dtype)
+    whole["pos"] = torch.tensor(FSDP_DECODE_POS, dtype=torch.int32,
+                                device=DEV)
+    tok = torch.randint(3, cfg.vocab_size, (len(FSDP_DECODE_POS), 1),
+                        generator=gen, device=DEV, dtype=torch.int32)
+    if mesh is None:
+        logits, _ = decode_step(cfg, params, whole, tok)
+        return {"logits": logits.float().cpu()}
+    cache = _rank_cache_block(cfg, whole, 512, rules, mesh)
+    del whole
+    built = build_step(cfg, SHAPES["decode_32k"], mesh, hbm_bytes=CUT_HBM)
+    n0 = mesh.collectives
+    logits, cache = built.fn(params, cache, tok)
+    ran = mesh.collectives - n0
+    with axis_rules(rules, mesh):
+        reckoned = collectives_per_forward(cfg, cache, False)
+    return {"logits": logits.float().cpu(), "ran": ran,
+            "reckoned": reckoned, "table": built.rules == rules}
+
+
+def _fsdp_prefill(cfg, params, mesh=None, rules=None) -> dict:
+    """`build_step`'s prefill cell fn (`CUT_HBM`: the FSDP prefill's
+    table, checked against `rules`, the full model's) on the rank's rows
+    of 4 prompts of a 512-token window, into its cache block; `prefill` on
+    one rank."""
+    gen = torch.Generator(device=DEV).manual_seed(62)
+    n = len(FSDP_PREFILL_LENS)
+    batch = {"tokens": torch.randint(3, cfg.vocab_size, (n, 512),
+                                     generator=gen, device=DEV,
+                                     dtype=torch.int32),
+             "prompt_lens": torch.tensor(FSDP_PREFILL_LENS,
+                                         dtype=torch.int32, device=DEV)}
+    if mesh is None:
+        logits, cache = prefill(cfg, params, batch,
+                                init_cache(cfg, n, 512, DEV))
+        lo, hi, ran, table = 0, n, 0, True
+    else:
+        with axis_rules(rules, mesh):
+            lo, hi = batch_block(n)
+            cache = init_cache(cfg, n, 512, DEV)
+        built = build_step(cfg, SHAPES["prefill_32k"], mesh,
+                           hbm_bytes=CUT_HBM)
+        n0 = mesh.collectives
+        logits, cache = built.fn(params, {k: v[lo:hi]
+                                          for k, v in batch.items()}, cache)
+        ran = mesh.collectives - n0
+        table = built.rules == rules
+    return {"rows": (lo, hi), "logits": logits.float().cpu(), "ran": ran,
+            "table": table,
+            "k": cache["k"].float().cpu(), "v": cache["v"].float().cpu(),
+            "pos": cache["pos"].cpu()}
+
+
+def _long_decode(mesh=None, rules=None) -> dict:
+    """long_500k: zamba2-1.2b/12 f32 at the full 524288 positions, the KV
+    and the SSM state drawn from seeds (a rank draws its slice and heads),
+    every row at `LONG_POS`, then `LONG_STEPS` decode steps through
+    `build_step`'s long_500k fn (a rank) or `decode_step` (one rank):
+    the logits, each step's wall, the KV at the written positions the
+    rank holds, its SSM state, its KV bytes and whether `build_step`'s
+    table is `rules`."""
+    cfg = family_cfg(LONG_ARCH, LONG_DEPTH, "float32")
+    params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+    scope = contextlib.nullcontext()
+    if mesh is not None:
+        params = shard_params(cfg, params, rules, mesh)
+        scope = axis_rules(rules, mesh)
+    with scope:
+        cache = init_cache(cfg, 1, LONG_CAP, DEV)
+    lo, span = cache.get("kv_seq", (0,))[0], cache["k"].shape[2]
+    for ki, key in enumerate(("k", "v")):
+        for app in range(cache[key].shape[0]):
+            for c in range(lo // LONG_CHUNK, (lo + span) // LONG_CHUNK):
+                gen = torch.Generator(device=DEV).manual_seed(
+                    (ki * 8 + app) * 1000 + c)
+                part = cache[key][app, :, c * LONG_CHUNK - lo:
+                                  (c + 1) * LONG_CHUNK - lo]
+                part.copy_(torch.randn(part.shape, generator=gen,
+                                       device=DEV) * 0.5)
+    gen = torch.Generator(device=DEV).manual_seed(71)
+    specs = (cache_shardings(cfg, 1, LONG_CAP, rules, mesh)["ssm"]
+             if mesh is not None else None)
+    for i, (dst, shape) in enumerate(zip(
+            cache["ssm"], cache_shapes(cfg, 1, LONG_CAP)["ssm"])):
+        full = torch.randn(shape, generator=gen, device=DEV) * 0.1
+        dst.copy_(full if specs is None else local_block(full, specs[i],
+                                                         mesh))
+    cache["pos"].fill_(LONG_POS)
+    toks = torch.randint(3, cfg.vocab_size, (LONG_STEPS, 1, 1),
+                         generator=gen, device=DEV, dtype=torch.int32)
+    table = True
+    if mesh is None:
+        def fn(p, c, t):
+            return decode_step(cfg, p, c, t)
+    else:
+        built = build_step(cfg, SHAPES["long_500k"], mesh)
+        fn, table = built.fn, built.rules == rules
+    kv_bytes = _state_bytes(cache)
+    logits, walls = [], []
+    for tok in toks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, cache = fn(params, cache, tok)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        logits.append(out.float().cpu())
+    own = [p for p in range(LONG_POS, LONG_POS + LONG_STEPS)
+           if lo <= p < lo + span]
+    kv = {key: cache[key][:, :, [p - lo for p in own]].float().cpu()
+          for key in ("k", "v")}
+    out = {"logits": torch.cat(logits), "walls": walls, "own": own,
+           "kv": kv, "ssm": cache["ssm"].ssm.cpu(), "kv_bytes": kv_bytes,
+           "table": table}
+    del cache, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fsdp_rank(rank: int, device) -> dict:
+    """One rank of phase 6l's (2, 2) world: deepseek-67b/2 under the 2D
+    table (the engine in f32 then bf16, the decode cell in both), the FSDP
+    prefill (f32), zamba2/12's long_500k decode, then mamba2/8 and
+    zamba2/12 in the engine under the long-context tables."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_serving_mesh(*FSDP_MESH, device=device)
+    tables = _fsdp_tables(mesh)
+    res = {"coords": dict(mesh.coords), "tables": tables,
+           "launches": {name: 0 for name in MODS}}
+
+    def count(run):
+        for name, n in run["launches"].items():
+            res["launches"][name] += n
+        return run
+
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        cfg = family_cfg(FSDP_ARCH, FSDP_DEPTH, dtype)
+        params = _seeded_params(cfg, 0, tables["decode"], mesh)
+        if dtype == "float32":
+            res["blocks"] = _block_shapes_ok(cfg, params, tables["decode"],
+                                             mesh)
+        res[f"serve {dtype}"] = count(_fsdp_serve(cfg, params, mesh,
+                                                  tables["decode"]))
+        res[f"cell {dtype}"] = _fsdp_decode_cell(cfg, params, mesh,
+                                                 tables["decode"])
+        del params
+        torch.cuda.empty_cache()
+    cfg = family_cfg(FSDP_ARCH, FSDP_DEPTH, "float32")
+    params = _seeded_params(cfg, 0, tables["prefill"], mesh)
+    res["prefill"] = _fsdp_prefill(cfg, params, mesh, tables["prefill"])
+    del params
+    torch.cuda.empty_cache()
+    res["fsdp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["long"] = _long_decode(mesh, tables["long"])
+    res["long_s"] = time.perf_counter() - t0
+    res["engines"] = {}
+    for arch, depth, case, pim, _ in LONG_ENGINE_RUNS:
+        cfg = family_cfg(arch, depth, "float32")
+        params = init_params(cfg, torch.Generator(device=DEV).manual_seed(0))
+        engine = dict(SSM_MESH_ENGINE,
+                      rules=serve_rules(long_context=True, attn_pim=pim))
+        res["engines"][f"{arch}/{depth} f32 {case}"] = count(
+            _mesh_run(cfg, params, case, mesh, engine))
+        del params
+        torch.cuda.empty_cache()
+    res["collectives"] = mesh.collectives
+    return res
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest difference relative to the largest magnitude."""
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def _equal_tokens(got: dict, want: dict) -> tuple[int, int]:
+    same = sum(a == b for r in want for a, b in zip(got.get(r, []), want[r]))
+    return same, sum(len(t) for t in want.values())
+
+
+def phase_fsdp_mesh(family_one: dict) -> dict:
+    """Phase 6l (module docstring): the 2D blocks' kernel, the one-rank
+    oracles, then the (2, 2) world against them; mamba2 and zamba2 in the
+    engine are held to phase 6k's one-rank runs (`family_one`).  Returns
+    the launches summed over every rank's engine runs."""
+    t_phase = time.perf_counter()
+    _fsdp_kernels()
+    one = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = family_cfg(FSDP_ARCH, FSDP_DEPTH, dtype)
+        params = _seeded_params(cfg, 0)
+        one[f"serve {dtype}"] = _fsdp_serve(cfg, params)
+        one[f"cell {dtype}"] = _fsdp_decode_cell(cfg, params)
+        if dtype == "float32":
+            one["prefill"] = _fsdp_prefill(cfg, params)
+        del params
+        torch.cuda.empty_cache()
+    one["long"] = _long_decode()
+    t0 = time.perf_counter()
+    ranks = spawn_world(_fsdp_rank, 4, device="cuda",
+                        timeout_s=FSDP_TIMEOUT_S, store_dir=ROOT / "build",
+                        threads=2)
+    print(f"      6l mesh {FSDP_MESH} world: 4 ranks on one "
+          f"{torch.cuda.get_device_name(0)} over gloo, collectives staged "
+          f"through host copies; {time.perf_counter() - t0:.1f} s "
+          f"(deepseek {max(r['fsdp_s'] for r in ranks):.1f} s, long_500k "
+          f"{max(r['long_s'] for r in ranks):.1f} s)", flush=True)
+    dp, tp = FSDP_MESH
+    t = ranks[0]["tables"]
+    check(t["decode"]["fsdp"] == "data" and t["decode"]["batch"] is None
+          and t["decode"]["act_kv_seq"] == ("data", "model")
+          and t["prefill"]["fsdp"] == "data"
+          and t["prefill"]["batch"] == "data"
+          and t["long"]["batch"] is None and t["long"]["fsdp"] is None
+          and t["long"]["act_kv_seq"] == ("data", "model"),
+          f"6l tables of the full configs at {FSDP_MESH}: decode_32k fsdp "
+          f"{t['decode']['fsdp']}, batch {t['decode']['batch']}, KV "
+          f"sequence {t['decode']['act_kv_seq']}; prefill_32k fsdp "
+          f"{t['prefill']['fsdp']}, batch {t['prefill']['batch']}; "
+          f"long_500k batch {t['long']['batch']}, KV sequence "
+          f"{t['long']['act_kv_seq']}")
+    f32, b16 = one["serve float32"], one["serve bfloat16"]
+    check({"pu", "pim"} <= set(f32["fc"]),
+          f"6l one-rank deepseek-67b/{FSDP_DEPTH} f32: FC variants "
+          f"{sorted(set(f32['fc']))}")
+    launches = {name: 0 for name in MODS}
+    for r, res in enumerate(ranks):
+        tag = f"6l rank {r} {res['coords']}"
+        check(res["coords"] == {"data": r // tp, "model": r % tp},
+              f"{tag}: coordinates")
+        got = res["serve float32"]
+        check(got["streams"] == f32["streams"]
+              and got["reasons"] == f32["reasons"] and got["fc"] == f32["fc"],
+              f"{tag} deepseek-67b/{FSDP_DEPTH} f32 2D decode engine: "
+              f"streams and FC variants equal the one-rank engine's "
+              f"({_first_divergence(got['streams'], f32['streams'])})")
+        check(not got["data_split"] and got["steady"] == [got["budget"]]
+              and got["launches"]["fc_gemv"] > 0,
+              f"{tag} 2D decode engine: batch whole on every data group "
+              f"({not got['data_split']}), steady transfers {got['steady']}"
+              f" = budget {got['budget']}, fc_gemv launched "
+              f"{got['launches']['fc_gemv']} times")
+        ok, mine, whole = res["blocks"]
+        check(ok, f"{tag}: every weight is its 2D table block (shapes: "
+              f"each leaf over 'data' cut); the leaves over 'data' "
+              f"{mine / 2**20:.1f} MiB of {whole / 2**20:.1f} MiB whole")
+        cell = res["cell float32"]
+        err = _rel(cell["logits"], one["cell float32"]["logits"])
+        check(err <= 1e-4 and cell["ran"] == cell["reckoned"]
+              and cell["table"],
+              f"{tag} decode_32k cell (2D table) f32: logits within "
+              f"{err:.2e} relative of one rank's (limit 1e-4); "
+              f"{cell['ran']} collectives a step, "
+              f"{cell['reckoned']} reckoned (collectives_per_forward); "
+              f"build_step's table is the full config's ({cell['table']})")
+        pf, want = res["prefill"], one["prefill"]
+        lo, hi = pf["rows"]
+        mesh = types.SimpleNamespace(shape={"data": dp, "model": tp},
+                                     coords=res["coords"])
+        specs = cache_shardings(family_cfg(FSDP_ARCH, FSDP_DEPTH,
+                                           "float32"),
+                                len(FSDP_PREFILL_LENS), 512,
+                                res["tables"]["prefill"], mesh)
+        errs = [_rel(pf["logits"], want["logits"][lo:hi])] + [
+            _rel(pf[k], local_block(want[k], specs[k], mesh))
+            for k in ("k", "v")]
+        check(max(errs) <= 1e-4 and hi - lo == len(FSDP_PREFILL_LENS) // dp
+              and torch.equal(pf["pos"], want["pos"][lo:hi]) and pf["table"],
+              f"{tag} prefill_32k cell (FSDP prefill) f32, rows {lo}-{hi}: "
+              f"last logits within {errs[0]:.2e}, the cache block's K/V "
+              f"within {max(errs[1:]):.2e} relative of one rank's (limit "
+              f"1e-4); {pf['ran']} collectives; build_step's table is the "
+              f"full config's ({pf['table']})")
+        lg, lw = res["long"], one["long"]
+        err = _rel(lg["logits"], lw["logits"])
+        at = [p - LONG_POS for p in lg["own"]]
+        kv_ok = not at or all(_rel(lg["kv"][k], lw["kv"][k][:, :, at])
+                              <= 1e-4 for k in ("k", "v"))
+        sspec = cache_shardings(family_cfg(LONG_ARCH, LONG_DEPTH,
+                                           "float32"), 1, LONG_CAP,
+                                res["tables"]["long"], mesh)["ssm"].ssm
+        s_err = _rel(lg["ssm"], local_block(lw["ssm"], sspec, mesh))
+        check(err <= 1e-4 and s_err <= 1e-4 and kv_ok and lg["table"],
+              f"{tag} long_500k {LONG_ARCH}/{LONG_DEPTH} f32 at "
+              f"{LONG_CAP} positions, {LONG_STEPS} steps from {LONG_POS}: "
+              f"logits within {err:.2e}, SSM state within {s_err:.2e} "
+              f"relative of one rank's (limit 1e-4); the K/V it holds of "
+              f"the written positions {lg['own']} within 1e-4 of one "
+              f"rank's ({kv_ok}); build_step's table is choose_rules' "
+              f"({lg['table']})")
+        for label, got in res["engines"].items():
+            w = family_one[label]
+            kern = next(k for a, d, c, p, k in LONG_ENGINE_RUNS
+                        if label.startswith(f"{a}/{d}"))
+            check(got["streams"] == w["streams"]
+                  and got["reasons"] == w["reasons"]
+                  and got["fc"] == w["fc"]
+                  and got["steady"] == [got["budget"]]
+                  and got["launches"][kern] > 0,
+                  f"{tag} {label} (long-context table): streams and FC "
+                  f"variants equal phase 6k's one-rank engine's "
+                  f"({_first_divergence(got['streams'], w['streams'])}); "
+                  f"steady transfers {got['steady']} (budget "
+                  f"{got['budget']}); {kern} launched {got['launches'][kern]}"
+                  " times")
+        for name, n in res["launches"].items():
+            launches[name] += n
+    r0 = ranks[0]
+    got = r0["serve float32"]
+    print(f"      6l deepseek-67b/{FSDP_DEPTH} f32 2D decode (2, 2) "
+          f"[{CARD}]: {got['tokens'] / got['wall']:.1f} tok/s "
+          f"({got['wall']:.2f} s, {got['iterations']} iterations) vs one "
+          f"rank {f32['tokens'] / f32['wall']:.1f} tok/s "
+          f"({f32['wall']:.2f} s); steady decode iteration wall median "
+          f"{got['steady_wall'] * 1e3:.1f} ms (one rank "
+          f"{f32['steady_wall'] * 1e3:.1f}), admission and chunk waves "
+          f"{got['wave_wall'] * 1e3:.1f} ms ({f32['wave_wall'] * 1e3:.1f}); "
+          f"a rank holds "
+          f"{got['weight_bytes'] / 2**20:.1f} MiB of weights (one rank "
+          f"{f32['weight_bytes'] / 2**20:.1f} MiB; the embedding stays "
+          f"whole over 'data'); {r0['cell float32']['reckoned']} "
+          f"collectives a decode step, each staged through a host copy; "
+          f"transfers per steady iteration {got['steady']}; launches per "
+          f"rank {got['launches']}", flush=True)
+    bf = r0["serve bfloat16"]
+    same, total = _equal_tokens(bf["streams"], b16["streams"])
+    same32, total32 = _equal_tokens(b16["streams"], f32["streams"])
+    got, want = r0["cell bfloat16"]["logits"], one["cell bfloat16"]["logits"]
+    exact = one["cell float32"]["logits"]
+    print(f"      6l deepseek-67b/{FSDP_DEPTH} bf16 2D decode (2, 2) "
+          f"[{CARD}], report only: decode cell logits within "
+          f"{_rel(got, want):.3e} relative of one rank's bf16 (max abs "
+          f"{(got - want).abs().max().item():.3e}); against one rank's "
+          f"f32: the 2D bf16 {_rel(got, exact):.3e}, one rank's bf16 "
+          f"{_rel(want, exact):.3e}; engine tokens equal to one rank's "
+          f"bf16 {same} of {total} (one rank's bf16 to its f32: {same32} "
+          f"of {total32}); "
+          f"{bf['tokens'] / bf['wall']:.1f} tok/s vs one rank "
+          f"{b16['tokens'] / b16['wall']:.1f} tok/s", flush=True)
+    lg, lw = r0["long"], one["long"]
+    print(f"      6l long_500k {LONG_ARCH}/{LONG_DEPTH} f32 (2, 2) [{CARD}]: "
+          f"decode step wall median "
+          f"{statistics.median(lg['walls'][1:]) * 1e3:.1f} ms (one rank "
+          f"{statistics.median(lw['walls'][1:]) * 1e3:.1f} ms); a rank "
+          f"holds {lg['kv_bytes'] / 2**30:.2f} GiB of KV and SSM state "
+          f"(one rank {lw['kv_bytes'] / 2**30:.2f} GiB)", flush=True)
+    for label, got in r0["engines"].items():
+        w = family_one[label]
+        print(f"      6l (2, 2) {label} long-context table: "
+              f"{got['tokens'] / got['wall']:.1f} tok/s vs one rank "
+              f"{w['tokens'] / w['wall']:.1f} tok/s [{CARD}]; launches per "
+              f"rank {got['launches']}", flush=True)
+    print(f"      6l collectives on rank 0: {r0['collectives']}; "
+          f"launches (every rank, engine runs): {json.dumps(launches)}; "
+          f"6l: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
 
 
@@ -5019,7 +5597,9 @@ def main() -> int:
     timed(phase_family_parity)
     mesh_launches, mesh_one = timed(phase_mesh)
     data_launches = timed(phase_data_mesh, mesh_one)
-    family_mesh_launches = timed(phase_family_mesh)
+    family_mesh_launches, family_one = timed(phase_family_mesh)
+    fsdp_launches = timed(phase_fsdp_mesh, family_one)
+    del family_one
     train_launches = timed(phase_training)
     train_mesh_launches = timed(phase_train_mesh)
     # the sum over every path's run, each with the counts set to 0 just
@@ -5043,7 +5623,9 @@ def main() -> int:
           f"runs): {json.dumps(mesh_launches)}; data mesh (phase 6j, "
           f"4 ranks x 4 runs and 2 ranks x 3): {json.dumps(data_launches)}; "
           f"family mesh (phase 6k, 2 ranks x 6 runs and 4 ranks x 1): "
-          f"{json.dumps(family_mesh_launches)}; training (phase 7): "
+          f"{json.dumps(family_mesh_launches)}; weights and KV sequence "
+          f"over 'data' (phase 6l, 4 ranks x 4 engine runs): "
+          f"{json.dumps(fsdp_launches)}; training (phase 7): "
           f"{json.dumps(train_launches)}; training over the data axis "
           f"(phase 7f, 4 ranks): {json.dumps(train_mesh_launches)}",
           flush=True)
@@ -5055,7 +5637,7 @@ def main() -> int:
                 + ssm_spec_launches[name]
                 + family_launches[name]
                 + mesh_launches[name] + data_launches[name]
-                + family_mesh_launches[name]
+                + family_mesh_launches[name] + fsdp_launches[name]
                 for name, n in launches.items()}
 
     rows = [

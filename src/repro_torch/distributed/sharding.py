@@ -22,7 +22,16 @@ expert-parallel MoE in `models.moe` (each rank's experts, the combine
 summed over "experts"' axis), the Mamba2 block on a rank's heads in
 `models.ssm` (the gated norm's sum of squares and the ``w_out`` rows
 summed over "ssm_heads"' axis), and in `models.model` the vocab-split
-embedding and logits and the sequence-split KV slab.
+embedding and logits and the sequence-split KV slab (its partials merged
+over every mesh axis of the "act_kv_seq" entry, row-major as
+`block_range` orders the blocks).
+
+A leaf whose spec puts its "fsdp" dim on a mesh axis of more than one rank
+(`fsdp_layout`) is one of two things.  Where the batch lies on that same
+axis (the FSDP prefill), it is a block to gather whole at its layer's
+entry (`models.model.serve_split`); where the batch is whole (the 2D
+weight-stationary decode), it is a block to contract in place
+(`fsdp_block`, `models.linear`).
 
 A mesh here is anything with a ``shape`` mapping of axis name -> size (and,
 for `local_block`, ``coords``: this rank's index on each axis):
@@ -211,6 +220,56 @@ def tensor_split(logical: str, n: int) -> tuple[int, int]:
     return size, lo // (n // size)
 
 
+def data_layout(rules: dict, axis: str = "data") -> str | None:
+    """What `rules` lay on mesh axis `axis` besides the batch: "gather"
+    where the weights' "fsdp" dim lies on it beside the batch (the FSDP
+    prefill: each layer's blocks gathered whole at its entry), "contract"
+    where it lies on it with the batch whole (the 2D weight-stationary
+    decode: each block contracted in place), "seq" where the batch is
+    whole or the KV sequence lies on it (the long-context table), None
+    where the batch alone is split over it."""
+    batch = axis in _atoms(rules.get("batch"))
+    if axis in _atoms(rules.get("fsdp")):
+        return "gather" if batch else "contract"
+    if not batch or axis in _atoms(rules.get("act_kv_seq")):
+        return "seq"
+    return None
+
+
+def fsdp_layout() -> tuple[object, str, bool] | None:
+    """(mesh, axis, gather) where the installed rules put the weights'
+    "fsdp" dim on a mesh axis of more than one rank, else None; `gather`
+    is `data_layout`'s "gather" (else "contract")."""
+    mesh, axis = fc_tensor_axis("fsdp")
+    if axis is None:
+        return None
+    return mesh, axis, data_layout(current_rules(), axis) == "gather"
+
+
+def fsdp_block(n: int) -> tuple[object, str, int, int] | None:
+    """(mesh, axis, lo, hi) of this rank's block of an "fsdp" dim of `n`
+    where the 2D weight-stationary layout contracts it in place; None
+    where that dim is whole (outside that layout, or where the axis does
+    not divide `n`) or gathered whole before the forward uses it."""
+    layout = fsdp_layout()
+    if layout is None or layout[2] or split_axis("fsdp", n) is None:
+        return None
+    mesh, axis, _ = layout
+    lo, hi = block_range(n, axis, mesh)
+    return mesh, axis, lo, hi
+
+
+def seq_axes() -> tuple[str, ...]:
+    """The mesh axes of more than one rank that the installed rules split
+    the KV sequence over ("act_kv_seq"), outermost first: the order in
+    which `block_range` lays the slices out."""
+    mesh, rules = current_mesh(), current_rules()
+    if mesh is None or rules is None:
+        return ()
+    return tuple(a for a in _atoms(rules.get("act_kv_seq"))
+                 if a is not None and mesh.shape.get(a, 1) > 1)
+
+
 def batch_block(n: int) -> tuple[int, int]:
     """[lo, hi) of this data group's rows of an `n`-slot batch under the
     installed rules and mesh (the "batch" rule): slot s lives on data group
@@ -282,7 +341,8 @@ def serve_rules(multi_pod: bool = False, long_context: bool = False,
 
 
 __all__ = ["axis_rules", "batch_block", "block_range", "current_mesh",
-           "current_rules", "fc_tensor_axis", "filter_spec_for_shape",
-           "full_tensor", "local_block", "logical_to_spec", "resolve_spec",
-           "serve_rules", "split_axis", "tensor_split", "train_rules",
-           "tree_shardings"]
+           "current_rules", "data_layout", "fc_tensor_axis",
+           "filter_spec_for_shape",
+           "fsdp_block", "fsdp_layout", "full_tensor", "local_block",
+           "logical_to_spec", "resolve_spec", "seq_axes", "serve_rules",
+           "split_axis", "tensor_split", "train_rules", "tree_shardings"]

@@ -1,6 +1,6 @@
 // FC-PIM weight-streaming skinny matmul for Hopper (sm_90a):
 //   y_i[m, N_i] = x[m, K] @ w_i[K, N_i]   for 1..FC_MAX_W weights sharing x
-// (q/k/v, gate/up), f32 sums, y in x's dtype, in ONE launch.
+// (q/k/v, gate/up), f32 sums, y in x's dtype or in f32, in ONE launch.
 //
 // Replaces: src/repro/kernels/fc_gemv.py:86 (`fc_gemv`, the Pallas TPU
 // kernel; its body `_kernel` carries an f32 accumulator over K blocks in
@@ -144,12 +144,15 @@ __device__ __forceinline__ float ld_cluster(unsigned addr) {
 }
 
 // The weights of one launch: tile_end[i] counts the column tiles of
-// weights 0..i (entries past the group repeat the total).
+// weights 0..i (entries past the group repeat the total); y_f32 stores
+// every y in f32 whatever x's dtype (a partial product that is summed
+// over ranks before its one rounding).
 struct FcGroup {
   const void* w[FC_MAX_W];
   void* y[FC_MAX_W];
   int n[FC_MAX_W];
   int tile_end[FC_MAX_W];
+  int y_f32;
 };
 
 // One block's shared memory, agreed by host and device: FC_STAGES stages
@@ -277,7 +280,7 @@ fc_gemv_kernel(const T* __restrict__ x, const FcGroup g, int m, int K,
   const int tile = blockIdx.x / cs;
   const int wi = tile < g.tile_end[0] ? 0 : tile < g.tile_end[1] ? 1 : 2;
   const T* w = static_cast<const T*>(wi == 0 ? g.w[0] : wi == 1 ? g.w[1] : g.w[2]);
-  T* y = static_cast<T*>(wi == 0 ? g.y[0] : wi == 1 ? g.y[1] : g.y[2]);
+  void* y = wi == 0 ? g.y[0] : wi == 1 ? g.y[1] : g.y[2];
   const int N = wi == 0 ? g.n[0] : wi == 1 ? g.n[1] : g.n[2];
   const int first = wi == 0 ? 0 : wi == 1 ? g.tile_end[0] : g.tile_end[1];
   const int n0 = (tile - first) * BN;
@@ -374,7 +377,11 @@ fc_gemv_kernel(const T* __restrict__ x, const FcGroup g, int m, int K,
 #pragma unroll
         for (int q = 1; q < 8; ++q)
           if (q < cs) s += v[q];
-        y[(size_t)(m0 + r) * N + n0 + cc] = from_f32<T>(s);
+        const size_t at = (size_t)(m0 + r) * N + n0 + cc;
+        if (g.y_f32)
+          static_cast<float*>(y)[at] = s;
+        else
+          static_cast<T*>(y)[at] = from_f32<T>(s);
       }
     }
     cluster_sync();                          // peers are done reading mine
@@ -437,7 +444,8 @@ static cudaError_t launch(const void* x, const FcGroup& g, int tiles, int m,
 
 // y_i = x @ w_i for the first `count` (1..3) of (w_i, y_i, n_i); x [m, K],
 // w_i [K, n_i], y_i [m, n_i], all row-major, dtype 0 = float32, 1 =
-// bfloat16.  The plan: `cluster` ranks of `k_slice` rows each (a multiple
+// bfloat16 (of x and w, and of y unless y_f32: then y is float32).  The
+// plan: `cluster` ranks of `k_slice` rows each (a multiple
 // of 16, no rank empty), `col_tile` in {32, 64, 128} columns per block,
 // `m_rows` (8..64, a multiple of 8) rows of x per pass.  Returns the
 // cudaError_t of the launch.
@@ -445,7 +453,8 @@ extern "C" int fc_gemv_launch(const void* x, int m, int K, int count,
                               const void* w0, const void* w1, const void* w2,
                               void* y0, void* y1, void* y2, int n0, int n1,
                               int n2, int cluster, int k_slice, int col_tile,
-                              int m_rows, int dtype, void* stream) {
+                              int m_rows, int dtype, int y_f32,
+                              void* stream) {
   const void* ws[FC_MAX_W] = {w0, w1, w2};
   void* ys[FC_MAX_W] = {y0, y1, y2};
   const int ns[FC_MAX_W] = {n0, n1, n2};
@@ -472,6 +481,7 @@ extern "C" int fc_gemv_launch(const void* x, int m, int K, int count,
     g.n[i] = i < count ? ns[i] : ns[0];
     g.tile_end[i] = (int)tiles;
   }
+  g.y_f32 = y_f32 != 0;
   if (tiles * cluster > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)

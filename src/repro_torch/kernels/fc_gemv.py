@@ -1,5 +1,5 @@
 """FC-PIM: the weight-streaming skinny matmul ``y = x @ w`` (f32 sums,
-output in x's dtype) — the port of `repro.kernels.fc_gemv.fc_gemv`
+output in x's dtype, or in f32 on request) — the port of `repro.kernels.fc_gemv.fc_gemv`
 (``src/repro/kernels/fc_gemv.py:86``).
 
 `fc_gemv_group(x, ws)` computes ``x @ w`` for up to `WEIGHTS_MAX` weights
@@ -57,9 +57,11 @@ class FcPlan(NamedTuple):
     col_tile: int        # output columns per block
 
 
-def fc_gemv_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Plain version: x [m, K] @ w [K, N] with f32 accumulation."""
-    return torch.matmul(x.float(), w.float()).to(x.dtype)
+def fc_gemv_ref(x: torch.Tensor, w: torch.Tensor,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Plain version: x [m, K] @ w [K, N] with f32 accumulation, in
+    `out_dtype` (None: x's dtype)."""
+    return torch.matmul(x.float(), w.float()).to(out_dtype or x.dtype)
 
 
 def k_split(K: int) -> tuple[int, int]:
@@ -108,16 +110,19 @@ def _launch_fn():
         fn = _build.load("fc_gemv").fc_gemv_launch
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int] + [ctypes.c_void_p] * 6
-                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
-def fc_gemv_group(x: torch.Tensor, ws: list[torch.Tensor]
+def fc_gemv_group(x: torch.Tensor, ws: list[torch.Tensor],
+                  out_dtype: torch.dtype | None = None
                   ) -> list[torch.Tensor]:
-    """[x @ w for w in ws]: x [m, K], each w [K, N_i] -> [m, N_i] in x's
-    dtype, through FC-PIM in one launch."""
+    """[x @ w for w in ws]: x [m, K], each w [K, N_i] -> [m, N_i] in
+    `out_dtype` (x's dtype, or float32: the f32 sums unrounded, for a
+    partial product summed over ranks before its one rounding), through
+    FC-PIM in one launch."""
     global LAUNCHES
     _build.refuse_autograd("fc_gemv", x, *ws)
     if not 1 <= len(ws) <= WEIGHTS_MAX:
@@ -131,11 +136,15 @@ def fc_gemv_group(x: torch.Tensor, ws: list[torch.Tensor]
     if x.dtype not in DTYPES or any(w.dtype != x.dtype for w in ws):
         raise TypeError(f"fc_gemv takes float32 or bfloat16 of one dtype, "
                         f"got {x.dtype} and {[w.dtype for w in ws]}")
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"fc_gemv writes {x.dtype} or float32, not "
+                        f"{out_dtype}")
     if any(w.device != x.device for w in ws):
         raise ValueError(f"x on {x.device}, weights on "
                          f"{[str(w.device) for w in ws]}")
     if x.device.type == "cpu":
-        return [fc_gemv_ref(x, w) for w in ws]
+        return [fc_gemv_ref(x, w, out_dtype) for w in ws]
     if x.device.type != "cuda":
         raise ValueError(f"fc_gemv runs on cuda or cpu, not {x.device}")
     if not (x.is_contiguous() and all(w.is_contiguous() for w in ws)):
@@ -143,7 +152,7 @@ def fc_gemv_group(x: torch.Tensor, ws: list[torch.Tensor]
     m, K = x.shape
     ns = [w.shape[1] for w in ws]
     p = plan(K, ns, sm_count(x.device))
-    ys = [torch.empty((m, n), dtype=x.dtype, device=x.device) for n in ns]
+    ys = [torch.empty((m, n), dtype=out_dtype, device=x.device) for n in ns]
     pad = WEIGHTS_MAX - len(ws)
     err = _launch_fn()(
         x.data_ptr(), m, K, len(ws),
@@ -151,6 +160,7 @@ def fc_gemv_group(x: torch.Tensor, ws: list[torch.Tensor]
         *[y.data_ptr() for y in ys], *[None] * pad,
         *ns, *[0] * pad,
         p.cluster, p.k_slice, p.col_tile, m_rows(m), DTYPES[x.dtype],
+        int(out_dtype != x.dtype),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "fc_gemv")
     LAUNCHES += 1

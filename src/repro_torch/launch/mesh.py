@@ -20,9 +20,11 @@ the calling rank joined: ``model`` is the tensor axis (one FC-PIM bank and
 one Attn-PIM unit per shard, PAPI §5.3), ``data`` splits the engine's slot
 batch (each data group computes its own slots; the serving engine gathers
 what it fetches over it).
-Its collectives (`ServingMesh.all_gather`, `all_reduce`) give every rank
-of a group the same bytes: `all_reduce` gathers the partials and adds them
-in rank order, in f32, whatever the backend's own reduction order.  A
+Its collectives (`ServingMesh.all_gather`, `all_reduce`, `all_reduce_many`)
+give every rank of a group the same bytes: `all_reduce` gathers the
+partials and adds them in rank order, in f32, whatever the backend's own
+reduction order; `all_reduce_many` sums a list of tensors so, in one
+collective per dtype (the 2D weight-stationary decode's column groups).  A
 world of k·dp·tp ranks holds k such meshes side by side (rank r in mesh
 r // (dp·tp)), each with groups of its own.  `local_mesh(device)` is the
 (1, 1) mesh of one process: no group, no collective.
@@ -131,6 +133,14 @@ class ServingMesh:
         for p in parts[1:]:
             acc = acc + p.float()
         return acc.to(x.dtype)
+
+    def all_reduce_many(self, xs: Sequence[torch.Tensor], axis: str
+                        ) -> list[torch.Tensor]:
+        """Each x of `xs` summed over `axis` as `all_reduce` sums it, in
+        one collective per dtype among them."""
+        if self.groups.get(axis) is None or not xs:
+            return list(xs)
+        return _summed(self, axis, xs)
 
     def all_gather_grad(self, xs: Sequence[torch.Tensor], axis: str,
                         dims: Sequence[int]) -> list[torch.Tensor]:

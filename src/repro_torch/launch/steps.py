@@ -12,16 +12,29 @@ blocks of every "fsdp" leaf and of both AdamW moments (the moments take
 the parameters' axes: ZeRO-1 comes with the ZeRO-3 weights, as in the
 reference) and its rows of the batch (`draw_train_batch`: rank r draws
 the pipeline's shard r).  The prefill and decode cells run `prefill` /
-`decode_step` under the plain serve rules, on the rank's blocks
+`decode_step` under the cell's rules, on the rank's blocks
 (`models.shard_params`) and its cache block (`models.init_cache` under
-the rules).  The reference's `lower_step` has no counterpart: the port's
-cost analysis (`dryrun`, `hlo`, `roofline`) comes with a later slice.
+the rules), on any (dp, tp) mesh:
+
+  * the plain serve rules: the batch over "data", the weights and the KV
+    sequence over "model";
+  * the 2D weight-stationary decode (a big model's decode cell): the
+    weights' "fsdp" dim over "data" too, the batch whole and the KV
+    sequence over (data, model); every FC weight contracts the rank's 2D
+    block in place (`models.linear`);
+  * the FSDP prefill (a big model's prefill cell): the "fsdp" dim over
+    "data" beside the batch; each layer's weights are gathered at its
+    entry (`models.model.serve_split`);
+  * `long_500k`: the batch (one row) whole, the KV sequence over (data,
+    model).
+
+The reference's `lower_step` has no counterpart: the port's cost analysis
+(`dryrun`, `hlo`, `roofline`) comes with a later slice.
 
 What raises, naming the later slice: a train cell with tp > 1 (sequence
 parallelism on the residual stream, the vocab-split cross-entropy), and
-with dp > 1 a prefill or decode cell whose rules gather the weights over
-"data" (the FSDP prefill, the 2D weight-stationary decode) or keep the
-batch whole with the KV sequence over (data, model) (`long_500k`).
+with dp > 1 a MoE, SSM, hybrid or VLM model under a table that puts its
+weights on "data" (`serving.engine.check_mesh`).
 
 `choose_rules` switches a big model's serving to those rules when its
 tensor share of the weights passes `WEIGHT_FSDP_SHARE` of a card's memory
@@ -140,12 +153,7 @@ def _refuse(cfg: ModelConfig, cell: ShapeCell, rules: dict, mesh) -> None:
                 "vocab-split cross-entropy) comes with a later slice of the "
                 "port")
         return
-    if mesh.shape["data"] > 1 and rules.get("fsdp") is not None:
-        raise ValueError(
-            f"{cell.name}: {cfg.name}'s weights over 'data' (the FSDP "
-            "prefill, the 2D weight-stationary decode) with dp > 1 come "
-            "with a later slice of the port")
-    check_mesh(mesh.shape, rules)
+    check_mesh(mesh.shape, rules, cfg.family)
 
 
 def build_step(cfg: ModelConfig, cell: ShapeCell, mesh=None, *,

@@ -136,7 +136,8 @@ def swiglu_mlp(x: torch.Tensor, p: dict,
     gate, up = papi_linear_group(x, [p["w_gate"], p["w_up"]], tp="col",
                                  units=units)
     act = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return papi_linear(act, p["w_down"], tp="row", units=units)
+    return papi_linear(act, p["w_down"], tp="row", units=units,
+                       out_dim=x.shape[-1])
 
 
 def gelu_mlp(x: torch.Tensor, p: dict,
@@ -145,7 +146,8 @@ def gelu_mlp(x: torch.Tensor, p: dict,
     (``jax.nn.gelu(approximate=True)``).  The banks as `swiglu_mlp`'s."""
     h = papi_linear(x, p["w_in"], tp="col", units=units) + p["b_in"]
     h = torch.nn.functional.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return papi_linear(h, p["w_out"], tp="row", units=units) + p["b_out"]
+    return papi_linear(h, p["w_out"], tp="row", units=units,
+                       out_dim=x.shape[-1]) + p["b_out"]
 
 
 def qkv_project(x: torch.Tensor, p: dict, heads: int | None = None,
@@ -158,12 +160,14 @@ def qkv_project(x: torch.Tensor, p: dict, heads: int | None = None,
     so the bank name decides nothing here: q is banked by its stored
     "heads" block, also on an MHA model such as olmoe-1b-7b, where the
     reference's "kv_heads" bank would run its FC-PIM q projection
-    unsharded on a sharded weight."""
-    b, s, d = x.shape
+    unsharded on a sharded weight.  A 2D weight-stationary rank holds a
+    block of d (the weights' first dim), which `papi_linear_group`
+    contracts in place."""
+    b, s, _ = x.shape
     ws = [p["w_q"], p["w_k"], p["w_v"]]
     bank = "kv_heads" if heads == kv_heads else "heads"
-    ys = papi_linear_group(x, [w.reshape(d, -1) for w in ws], tp="col",
-                           bank=bank, units=heads)
+    ys = papi_linear_group(x, [w.reshape(w.shape[0], -1) for w in ws],
+                           tp="col", bank=bank, units=heads)
     q, k, v = (y.reshape(b, s, *w.shape[1:]) for y, w in zip(ys, ws))
     if "b_q" in p:
         q = q + p["b_q"]
@@ -172,14 +176,16 @@ def qkv_project(x: torch.Tensor, p: dict, heads: int | None = None,
     return q, k, v
 
 
-def out_project(attn: torch.Tensor, p: dict,
-                heads: int | None = None) -> torch.Tensor:
+def out_project(attn: torch.Tensor, p: dict, heads: int | None = None,
+                d: int | None = None) -> torch.Tensor:
     """[b, s, nH, hd] -> [b, s, d]: a row bank over "heads" (`heads`
-    global), whose partial products a mesh sums over the tensor group."""
+    global), whose partial products a mesh sums over the tensor group;
+    `d` is the global model width (a 2D weight-stationary rank holds a
+    block of it)."""
     b, s, nh, hd = attn.shape
     w = p["w_o"]
     return papi_linear(attn.reshape(b, s, nh * hd), w.reshape(nh * hd, -1),
-                       tp="row", bank="heads", units=heads)
+                       tp="row", bank="heads", units=heads, out_dim=d)
 
 
 def expand_kv_heads(k: torch.Tensor, nh: int) -> torch.Tensor:

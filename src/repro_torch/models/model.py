@@ -47,8 +47,19 @@ embedding and the gathered logits (`vocab_split`), the MoE layer's
 experts (`moe.moe_mlp`) and the Mamba2 block's heads (`ssm.mamba2_block`),
 whose SSM state each rank holds for its heads.  Where the data axis
 splits the slot batch (the "batch" rule, `batch_block`), the caches hold
-this data group's slots and every entry point takes their rows only: no
-forward gathers over "data".
+this data group's slots and every entry point takes their rows only.
+
+Serving with the weights over "data" (the rules put the "fsdp" dim on
+it, `distributed.sharding.fsdp_layout`): where the batch lies on "data"
+too (the FSDP prefill), `serve_split` gathers each layer's blocks whole
+at the layer's entry and the untied head's once a forward (`DataSplit`,
+no gradient), and the tensor-split forward runs on them unchanged; where
+the batch is whole (the 2D weight-stationary decode), every data group
+computes every row and each FC weight and the untied head contract the
+rank's 2D block in place (`models.linear`, `lm_logits`).  A KV sequence
+split over (data, model) writes each position on the rank whose slice
+holds it, and the decode attention merges every rank's partials in the
+row-major rank order of `block_range`.
 
 Training over the data axis (`train_rules` installed, dp > 1, tp = 1;
 `DataSplit`): every leaf the rules label "fsdp" is this rank's block of
@@ -81,6 +92,7 @@ Entry points:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -92,10 +104,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (batch_block, block_range,
                                               current_mesh, current_rules,
-                                              tensor_split, tree_shardings)
+                                              fsdp_block, fsdp_layout,
+                                              seq_axes, tensor_split,
+                                              tree_shardings)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
+from repro_torch.models.linear import contract_block
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
@@ -132,14 +147,14 @@ def _attention_collectives(cfg: ModelConfig, cache: dict,
                            attn_pim: bool) -> int:
     """Collectives of one attention sub-block on a rank: the
     out-projection's row-bank sum, the q-head gather and the partials'
-    gather over a sequence-split slab (`cache` holds ``kv_seq``), or the
-    q-head gather that lets Attn-PIM run unsharded where the KV heads are
-    whole."""
+    gathers (one per mesh axis of the split) over a sequence-split slab
+    (`cache` holds ``kv_seq``), or the q-head gather that lets Attn-PIM
+    run unsharded where the KV heads are whole."""
     heads, _ = tensor_split("heads", cfg.num_heads)
     kv_heads, _ = tensor_split("kv_heads", cfg.num_kv_heads)
     n = int(heads > 1)
     if "kv_seq" in cache:
-        n += 1 + int(heads > 1)
+        n += len(seq_axes()) + int(heads > 1)
     elif heads > 1 and kv_heads == 1 and attn_pim:
         n += 1
     return n
@@ -155,12 +170,25 @@ def collectives_per_forward(cfg: ModelConfig, cache: dict,
       * SSM: per Mamba2 layer the gated norm's and ``w_out``'s sums;
       * hybrid: those per Mamba2 layer, and a dense layer's per
         application of the shared block.
-    The data axis adds none: a data group's forward takes only its own
-    slots' rows, and the serving engine gathers what it fetches once an
-    iteration (`PapiEngine._fetch`, counted in its `transfer_budget`)."""
+    The batch split over "data" adds none: a data group's forward takes
+    only its own slots' rows, and the serving engine gathers what it
+    fetches once an iteration (`PapiEngine._fetch`, counted in its
+    `transfer_budget`).  The weights over "data" add, for a dense model,
+    under the 2D weight-stationary layout per layer the q/k/v and the MLP
+    column groups' sums and the out-projection's and down bank's gathers
+    over "data" (4), and the untied head's sum; under the FSDP prefill
+    per layer its blocks' gather (one a dtype) and the untied head's once
+    (`serve_split`)."""
     if current_mesh() is None:
         return 0
-    vocab = 2 if vocab_split(cfg) is not None else 0
+    top = 2 if vocab_split(cfg) is not None else 0
+    contract = int(fsdp_block(cfg.d_model) is not None)
+    split = serve_split(cfg)
+    if split is not None:
+        groups = _split_groups(cfg, split)
+        top += cfg.num_layers * len(groups["layer"]) + len(groups["top"])
+    if cfg.decoder and not cfg.tie_embeddings:
+        top += contract
     if cfg.family in ("ssm", "hybrid"):
         heads, _ = tensor_split("ssm_heads", cfg.ssm.n_heads(cfg.d_model))
         n = cfg.num_layers * 2 * int(heads > 1)
@@ -168,13 +196,13 @@ def collectives_per_forward(cfg: ModelConfig, cache: dict,
             ffn, _ = tensor_split("ffn", cfg.d_ff)
             n += cfg.num_attention_applications() * (
                 _attention_collectives(cfg, cache, attn_pim) + int(ffn > 1))
-        return vocab + n
+        return top + n
     if cfg.family == "moe":
         experts, _ = tensor_split("experts", cfg.moe.num_experts)
         mlp = int(experts > 1)
     else:
-        mlp = int(tensor_split("ffn", cfg.d_ff)[0] > 1)
-    return vocab + cfg.num_layers * (
+        mlp = int(tensor_split("ffn", cfg.d_ff)[0] > 1) + 4 * contract
+    return top + cfg.num_layers * (
         _attention_collectives(cfg, cache, attn_pim) + mlp)
 
 
@@ -191,16 +219,24 @@ def collectives_per_train_step(cfg: ModelConfig, accum: int = 1,
     split = data_split(cfg)
     if split is None:
         return 0
+    groups = _split_groups(cfg, split)
+    micro = ((3 if remat else 2) * cfg.num_layers * len(groups["layer"])
+             + 2 * len(groups["top"]) + len(groups["whole"]) + 1)
+    return accum * micro + 1
+
+
+def _split_groups(cfg: ModelConfig, split: "DataSplit") -> dict:
+    """The dtypes of a data split's leaves, by kind: "layer" (blocks
+    gathered at each layer's entry), "top" (blocks gathered once a
+    forward) and "whole" (kept whole on every rank)."""
     dtype = {k: v.dtype or cfg.dtype
              for k, v in flatten_tree(model_spec(cfg))}
-    groups = {"layer": set(), "top": set(), "whole": set()}
+    groups: dict = {"layer": set(), "top": set(), "whole": set()}
     for key, spec in flatten_tree(split.specs):
         kind = ("whole" if split.block_dim(spec) is None else
                 "layer" if key.startswith("layers/") else "top")
         groups[kind].add(dtype[key])
-    micro = ((3 if remat else 2) * cfg.num_layers * len(groups["layer"])
-             + 2 * len(groups["top"]) + len(groups["whole"]) + 1)
-    return accum * micro + 1
+    return groups
 
 
 def host_copies_per_forward(cfg: ModelConfig) -> int:
@@ -369,33 +405,37 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     biases, and the SSM laws for A_log (log U[a_min, a_max]) and dt_bias
     (softplus^-1 of dt ~ logU[1e-3, 1e-1]), both f32 — the reference's init
     laws, not its random numbers."""
-    device = generator.device
-
-    def make(ps: PSpec) -> torch.Tensor:
-        dtype = DTYPES[ps.dtype or cfg.dtype]
-        if ps.init == "zeros":
-            return torch.zeros(ps.shape, dtype=dtype, device=device)
-        if ps.init == "ones":
-            return torch.ones(ps.shape, dtype=dtype, device=device)
-        if ps.init == "a_log":
-            u = torch.rand(ps.shape, generator=generator, device=device)
-            return torch.log(cfg.ssm.a_min + u * (cfg.ssm.a_max
-                                                   - cfg.ssm.a_min)).to(dtype)
-        if ps.init == "dt_bias":
-            u = torch.rand(ps.shape, generator=generator, device=device)
-            lo, hi = math.log(1e-3), math.log(0.1)
-            dt = torch.exp(u * (hi - lo) + lo)
-            return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
-        x = torch.empty(ps.shape, dtype=torch.float32, device=device)
-        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -3.0, 3.0,
-                                    generator=generator)
-        return (x * ps.std).to(dtype)
-
     def walk(tree):
-        return {k: (make(v) if isinstance(v, PSpec) else walk(v))
+        return {k: (init_leaf(cfg, v, generator) if isinstance(v, PSpec)
+                    else walk(v))
                 for k, v in tree.items()}
 
     return walk(model_spec(cfg))
+
+
+def init_leaf(cfg: ModelConfig, ps: PSpec,
+              generator: torch.Generator) -> torch.Tensor:
+    """One leaf of `init_params` by its spec's law, on the generator's
+    device (a caller that seeds each leaf itself can make a big model's
+    leaves one at a time and keep only a rank's block of each)."""
+    device = generator.device
+    dtype = DTYPES[ps.dtype or cfg.dtype]
+    if ps.init == "zeros":
+        return torch.zeros(ps.shape, dtype=dtype, device=device)
+    if ps.init == "ones":
+        return torch.ones(ps.shape, dtype=dtype, device=device)
+    if ps.init == "a_log":
+        u = torch.rand(ps.shape, generator=generator, device=device)
+        return torch.log(cfg.ssm.a_min + u * (cfg.ssm.a_max
+                                               - cfg.ssm.a_min)).to(dtype)
+    if ps.init == "dt_bias":
+        u = torch.rand(ps.shape, generator=generator, device=device)
+        lo, hi = math.log(1e-3), math.log(0.1)
+        dt = torch.exp(u * (hi - lo) + lo)
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
+    x = torch.empty(ps.shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -3.0, 3.0, generator=generator)
+    return (x * ps.std).to(dtype)
 
 
 def _mesh_specs(axes, shapes, split: bool = True):
@@ -570,10 +610,13 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
 class DataSplit:
     """Training over the data axis ``axis`` of ``mesh`` (module
     docstring): ``specs`` are the params' spec tuples under the installed
-    rules, a leaf whose spec holds ``axis`` being a block of that dim."""
+    rules, a leaf whose spec holds ``axis`` being a block of that dim.
+    ``grad=False`` (the FSDP prefill, `serve_split`): the gathers run
+    under `torch.no_grad` and the whole leaves are taken as they are."""
     mesh: object
     axis: str
     specs: dict
+    grad: bool = True
 
     def block_dim(self, spec) -> int | None:
         """The dim `spec` splits over the data axis, or None (whole)."""
@@ -594,8 +637,8 @@ class DataSplit:
         whole = [k for k in leaf if dims[k] is None]
         top = [k for k in leaf
                if dims[k] is not None and not k.startswith("layers/")]
-        out = dict(zip(whole, self.mesh.replicated_grad(
-            [leaf[k] for k in whole], self.axis)))
+        out = (dict(zip(whole, self.mesh.replicated_grad(
+            [leaf[k] for k in whole], self.axis))) if self.grad else {})
         out.update(self._gathered(leaf, top, dims))
         return unflatten_tree({**leaf, **out})
 
@@ -609,8 +652,10 @@ class DataSplit:
         return unflatten_tree({**leaf, **self._gathered(leaf, keys, dims)})
 
     def _gathered(self, leaf: dict, keys: list, dims: dict) -> dict:
-        return dict(zip(keys, self.mesh.all_gather_grad(
-            [leaf[k] for k in keys], self.axis, [dims[k] for k in keys])))
+        with contextlib.nullcontext() if self.grad else torch.no_grad():
+            return dict(zip(keys, self.mesh.all_gather_grad(
+                [leaf[k] for k in keys], self.axis,
+                [dims[k] for k in keys])))
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """x summed over the data axis (gradient passed through)."""
@@ -655,6 +700,28 @@ def data_split(cfg: ModelConfig) -> DataSplit | None:
     if not isinstance(axis, str) or mesh.shape.get(axis, 1) <= 1:
         return None
     return DataSplit(mesh, axis, param_shardings(cfg, rules, mesh))
+
+
+def serve_split(cfg: ModelConfig) -> DataSplit | None:
+    """The FSDP prefill's data split of a serving forward: where the
+    installed rules put the weights' "fsdp" dim and the batch on one mesh
+    axis of more than one rank, a `DataSplit` without gradient (each
+    layer's blocks gathered whole at its entry, the untied head's once a
+    forward); None otherwise (one device, the weights whole over "data",
+    or the 2D weight-stationary layout, which contracts its blocks in
+    place)."""
+    layout = fsdp_layout()
+    if layout is None or not layout[2]:
+        return None
+    mesh, axis, _ = layout
+    return DataSplit(mesh, axis, param_shardings(cfg, current_rules(), mesh),
+                     grad=False)
+
+
+def _serve_params(cfg: ModelConfig, params: dict):
+    """(the forward's view of `params`, its `serve_split`)."""
+    split = serve_split(cfg)
+    return (params if split is None else split.prepare(params)), split
 
 
 def layer_list(params: dict, num_layers: int) -> list[dict]:
@@ -723,12 +790,9 @@ def _write_kv_seq(k_cache, v_cache, k_new, v_new, idx, keep, kv_seq):
     (``kv_seq[0] <= idx < kv_seq[0] + S_local``) land in its slice; every
     other row rewrites the value already there, at its local position
     modulo S_local (distinct from the owned rows' for t <= S_local, as in
-    `_write_kv_masked`)."""
+    `_write_kv_masked`; a wider window takes `_write_kv_slice`)."""
     b, t = k_new.shape[0], k_new.shape[1]
     span = k_cache.shape[1]
-    if t > span:
-        raise ValueError(f"a {t}-token write into a {span}-position slice "
-                         "of a sequence-split KV slab")
     local = idx - kv_seq[0]
     own = (keep & (local >= 0) & (local < span))[..., None, None]
     local = local % span
@@ -738,11 +802,31 @@ def _write_kv_seq(k_cache, v_cache, k_new, v_new, idx, keep, kv_seq):
     return k_cache, v_cache
 
 
+def _write_kv_slice(k_cache, v_cache, k_new, v_new, start, keep, kv_seq):
+    """The sequence-split slab's write of a window wider than the rank's
+    slice (a prefill over the slab): row b's t new tokens sit at global
+    positions start[b] + j, so each local position takes the window row
+    that lands on it where `keep` marks that row, and keeps its value
+    otherwise."""
+    b, t = k_new.shape[0], k_new.shape[1]
+    span = k_cache.shape[1]
+    p = kv_seq[0] + torch.arange(span, device=start.device)[None, :]
+    j = p - start[:, None]                                       # [b, span]
+    jc = torch.clamp(j, 0, t - 1)
+    own = ((j >= 0) & (j < t) & torch.gather(keep, 1, jc))[..., None, None]
+    bidx = torch.arange(b, device=start.device)[:, None]
+    k_cache.copy_(torch.where(own, k_new[bidx, jc], k_cache))
+    v_cache.copy_(torch.where(own, v_new[bidx, jc], v_cache))
+    return k_cache, v_cache
+
+
 def _write_kv_window(k_cache, v_cache, k_new, v_new, pos, write_lens,
                      kv_seq):
     """The decode path's KV write: masked to `write_lens` (chunked
     prefill) or the plain clamped write, into a whole slab or this rank's
-    slice of a sequence-split one (`kv_seq`: (first position, capacity))."""
+    slice of a sequence-split one (`kv_seq`: (first position, capacity));
+    each position lands on the rank whose slice holds it, whatever mesh
+    axes the slab is split over."""
     if kv_seq is None:
         if write_lens is not None:
             return _write_kv_masked(k_cache, v_cache, k_new, v_new, pos,
@@ -756,6 +840,9 @@ def _write_kv_window(k_cache, v_cache, k_new, v_new, pos, write_lens,
     else:
         idx = torch.clamp(pos.long(), 0, cap - t)[:, None] + j
         keep = torch.ones_like(idx, dtype=torch.bool)
+    if t > k_cache.shape[1]:
+        return _write_kv_slice(k_cache, v_cache, k_new, v_new, idx[:, 0],
+                               keep, kv_seq)
     return _write_kv_seq(k_cache, v_cache, k_new, v_new, idx, keep, kv_seq)
 
 
@@ -827,10 +914,12 @@ def _decode_attention(q, k_cache, v_cache, pos, tables=None, shard=None):
 @dataclasses.dataclass(frozen=True)
 class HeadSplit:
     """How a layer's attention heads lie on this rank under a mesh: the
-    tensor axis (the one "heads" maps to; the serve rules put the KV
-    sequence split on it too), the q heads it holds (``q0`` .. ``q0 + nq``) of ``nh``,
-    whether its KV heads are its own shard (``kv_local``) or all of them,
-    and the GQA group ``g`` of the whole model."""
+    tensor axis (the one "heads" maps to), the q heads it holds (``q0``
+    .. ``q0 + nq``) of ``nh``, whether its KV heads are its own shard
+    (``kv_local``) or all of them, the GQA group ``g`` of the whole model,
+    and the mesh axes a sequence-split slab lies over (``seq``: ("data",
+    "model") under the long-context and 2D tables; None: the tensor axis
+    alone)."""
     mesh: object
     axis: str
     nh: int
@@ -838,6 +927,7 @@ class HeadSplit:
     nq: int
     kv_local: bool
     g: int
+    seq: tuple | None = None
 
     @property
     def q_split(self) -> bool:
@@ -862,7 +952,8 @@ def head_split(cfg: ModelConfig, q: torch.Tensor,
         raise ValueError("KV heads split but q heads split otherwise")
     axis = (current_rules() or {}).get("heads")
     return HeadSplit(mesh, axis if isinstance(axis, str) else "model", nh,
-                     hi * (nh // hs), nh // hs, ks > 1, nh // nkv)
+                     hi * (nh // hs), nh // hs, ks > 1, nh // nkv,
+                     seq_axes())
 
 
 def kv_for_heads(k: torch.Tensor, sp: HeadSplit) -> torch.Tensor:
@@ -883,8 +974,11 @@ def _seq_split_attention(q, k_cache, v_cache, pos, kv_seq, sp: HeadSplit):
     """Decode attention over a sequence-split slab: each rank's plain
     attention covers its slice of positions for every q head (the window
     rows keep their global positions), the partial max, sum and
-    unnormalised output are all-gathered, and every rank merges them in
-    rank order — the split-S kernel's merge.  q holds all heads."""
+    unnormalised output are all-gathered over every mesh axis of the
+    split (``sp.seq``, innermost first, so the parts stand in the
+    row-major order of the slices), and every rank merges them in that
+    order — the split-S kernel's merge: every rank holds the same bytes.
+    q holds all heads."""
     b, t, nh, hd = q.shape
     span, nkv = k_cache.shape[1], k_cache.shape[2]
     g = nh // nkv
@@ -903,7 +997,9 @@ def _seq_split_attention(q, k_cache, v_cache, pos, kv_seq, sp: HeadSplit):
         m[..., None], p.sum(dim=-1)[..., None],
         torch.einsum("bthgs,bshk->bthgk", p.to(v_cache.dtype),
                      v_cache).float()], dim=-1)               # [..., 2+hd]
-    parts = sp.mesh.all_gather(part[None], sp.axis, dim=0)
+    parts = part[None]
+    for axis in reversed(sp.seq or (sp.axis,)):
+        parts = sp.mesh.all_gather(parts, axis, dim=0)
     ms = parts[..., 0]
     big = ms.amax(dim=0)
     scale = torch.where(torch.isinf(ms), torch.zeros_like(ms),
@@ -925,7 +1021,8 @@ def _mesh_decode_attention(cfg, q, k_cache, v_cache, pos, tables, kv_seq,
       * KV heads split with the q heads: each rank attends over its own
         heads (`decode_attention_sharded` under "pim"), no cross-rank term;
       * sequence-split slab: the q heads are gathered and the partials of
-        every rank's slice merged (`_seq_split_attention`; plain only);
+        every rank's slice merged (`_seq_split_attention`; plain only),
+        over "model" or over (data, model);
       * KV heads whole, q heads split: under "pim" the q heads are
         gathered and the unsharded kernel runs on every rank; the plain
         path lets each local q head read its own KV head (`kv_for_heads`);
@@ -995,7 +1092,8 @@ def attention_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
         if kv is not None:          # prefill: persist the new KV
             _write_kv_window(kv[0], kv[1], k, v, torch.zeros_like(pos), None,
                              kv_seq)
-    return h + L.out_project(attn, p["attn"], heads=cfg.num_heads)
+    return h + L.out_project(attn, p["attn"], heads=cfg.num_heads,
+                             d=h.shape[-1])
 
 
 def mlp_block(cfg: ModelConfig, p: dict, h: torch.Tensor,
@@ -1107,8 +1205,9 @@ def backbone(cfg, params, h, positions, cache, mode, write_lens=None,
     and `lens` [b] stops a prefill's SSM state at each row's prompt end.
     The stateful families take no chunked-prefill writes, as in the
     reference (the `lens` mechanism could carry them later).  `remat`
-    (training only) checkpoints each layer; a data `split` (training
-    only) gathers each layer's blocks at its entry.  Returns (h, aux): the
+    (training only) checkpoints each layer; a data `split` (training, or
+    the FSDP prefill's `serve_split`) gathers each layer's blocks at its
+    entry.  Returns (h, aux): the
     MoE layers' summed aux loss, 0.0 for the other families."""
     if cfg.family in ("ssm", "hybrid") and write_lens is not None:
         raise ValueError(f"{cfg.family}: chunked prefill needs maskable KV "
@@ -1204,10 +1303,16 @@ def lm_logits(cfg, params, h: torch.Tensor) -> torch.Tensor:
     """norm(h) @ lm_head, or @ embed^T for a tied head.  Under a
     vocab-split mesh each rank computes its slice of the vocabulary and
     the slices are all-gathered (the "vocab" dim), so every rank samples
-    from the same bytes."""
+    from the same bytes.  Under the 2D weight-stationary layout an untied
+    head contracts the rank's block of d in place and sums the partial
+    logits over "data" in f32 (`models.linear.contract_block`)."""
     h = L.norm(h, params["final_norm"]["w"], cfg.norm, cfg.norm_eps)
     if "lm_head" in params:
-        logits = torch.matmul(h, params["lm_head"]["w"])
+        block = fsdp_block(h.shape[-1])
+        if block is None:
+            logits = torch.matmul(h, params["lm_head"]["w"])
+        else:
+            logits = contract_block(h, [params["lm_head"]["w"]], block)[0]
     else:
         logits = torch.matmul(h, params["embed"]["w"].t())
     split = vocab_split(cfg)
@@ -1278,10 +1383,11 @@ def prefill(cfg, params, batch: dict, cache: dict):
     Without ``prompt_lens``, every row is a whole prompt; with it, the SSM
     state stops at each row's prompt end."""
     _check_decoder(cfg)
+    params, split = _serve_params(cfg, params)
     h, positions = embed_inputs(cfg, params, batch)
     prompt_lens = batch.get("prompt_lens")
     h, _ = backbone(cfg, params, h, positions, cache, "prefill",
-                    lens=prompt_lens)
+                    lens=prompt_lens, split=split)
     if prompt_lens is None:
         prompt_lens = torch.full((h.shape[0],), h.shape[1],
                                  dtype=torch.int32, device=h.device)
@@ -1377,12 +1483,13 @@ def chunk_logits(cfg, params, cache: dict, tokens: torch.Tensor,
     after each slot's last valid chunk token ([slots, V]; garbage for rows
     with chunk_lens == 0) and the cache."""
     _check_decoder(cfg)
+    params, split = _serve_params(cfg, params)
     b, t = tokens.shape
     pos = cache["pos"]
     h, positions = embed_inputs(cfg, params, {
         "tokens": tokens, "positions": _window_positions(cfg, pos, t)})
     h, _ = backbone(cfg, params, h, positions, cache, "decode",
-                    write_lens=chunk_lens)
+                    write_lens=chunk_lens, split=split)
     idx = torch.clamp(chunk_lens.long() - 1, 0, t - 1)
     h_last = h[torch.arange(b, device=h.device), idx][:, None]
     logits = lm_logits(cfg, params, h_last)
@@ -1420,6 +1527,7 @@ def decode_step(cfg, params, cache: dict, tokens: torch.Tensor,
     (default: pos + j, each stream of an M-RoPE triple alike) rotate the
     window's q and k."""
     _check_decoder(cfg)
+    params, split = _serve_params(cfg, params)
     b, t = tokens.shape
     pos = cache["pos"]
     if positions is None:
@@ -1431,7 +1539,8 @@ def decode_step(cfg, params, cache: dict, tokens: torch.Tensor,
     new = ssm_steps
     if new is None and "ssm" in cache:
         new = S.SSMState(*map(torch.empty_like, cache["ssm"]))
-    h, _ = backbone(cfg, params, h, positions, cache, "decode", ssm_out=new)
+    h, _ = backbone(cfg, params, h, positions, cache, "decode", ssm_out=new,
+                    split=split)
     logits = lm_logits(cfg, params, h)
     cache["pos"] = pos + t
     if ssm_steps is not None:

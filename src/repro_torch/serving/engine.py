@@ -177,9 +177,20 @@ card over gloo, each collective stages through a host copy: the engine
 counts those in `IterStats.transfers` and in `transfer_budget`.  Every
 decoder family is served on both axes: the MoE layer splits its experts
 over the tensor axis, the Mamba2 block its heads (and the SSM state), and
-zamba2's shared block is banked as a dense layer.  The long-context rules
-(the batch whole, the KV sequence over (data, model)) with dp > 1 come
-with a later slice and raise.
+zamba2's shared block is banked as a dense layer.
+
+``rules`` may also keep the batch whole over "data" (`_data_split` is
+then False: every data group holds and computes every slot, and `_fetch`
+gathers nothing, so `transfer_budget` counts as on a tensor split): the
+long-context table (the KV sequence over (data, model); every decoder
+family, the dense slab) and the 2D weight-stationary decode of
+`launch.steps.choose_rules` (each FC weight the rank's 2D block,
+contracted in place, `models.linear`; the dense family).  The FSDP
+prefill's table (the weights and the batch over "data") gathers each
+layer's weights at its entry (`models.model.serve_split`).  With dp > 1
+a paged cache under those tables, and a non-dense family under a table
+that puts the weights on "data", raise (`check_mesh`), naming a later
+slice.
 
 Not ported yet: ``run(abort_in_flight=False)``.
 """
@@ -199,7 +210,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.scheduler import PapiScheduler
 from repro_torch.debug.sanitize import EngineSanitizer
 from repro_torch.distributed.sharding import (axis_rules, batch_block,
-                                              serve_rules)
+                                              data_layout, serve_rules)
 from repro_torch.models import (attn_impl, current_fc_variant, decode_step,
                                 fc_variant, init_cache, init_paged_cache,
                                 mixed_step, prefill_chunk, prefill_to_pages,
@@ -383,22 +394,45 @@ def check_decoder(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name} is encoder-only")
 
 
-def check_mesh(shape: dict, rules: dict) -> None:
-    """Refuse what mesh serving does not cover yet: with dp > 1, rules
-    that keep the batch whole (the long-context table, whose KV sequence
-    spans (data, model)).  Every decoder family is served on both axes."""
-    if shape.get("data", 1) > 1:
-        seq = rules.get("act_kv_seq")
-        seq = seq if isinstance(seq, (tuple, list)) else (seq,)
-        if rules.get("batch") is None or "data" in seq:
-            raise ValueError(
-                f"mesh {dict(shape)}: the long-context rules (the batch "
-                "whole, the KV sequence over (data, model)) with dp > 1 "
-                "come with a later slice of the port")
+# `distributed.sharding.data_layout` -> the table it names
+DATA_TABLES = {"gather": "the FSDP prefill",
+               "contract": "the 2D weight-stationary decode",
+               "seq": "the long-context table"}
 
 
-def _check_mesh(mesh, rules: dict, device: torch.device) -> None:
-    check_mesh(mesh.shape, rules)
+def check_mesh(shape: dict, rules: dict, family: str,
+               kv_layout: str = "dense") -> None:
+    """Refuse what mesh serving does not cover yet, naming the later
+    slice.  With dp > 1: a paged cache under a table that puts the weights
+    or the KV sequence on "data" or keeps the batch whole (the FSDP
+    prefill, the 2D weight-stationary decode, the long-context table:
+    they serve the dense slab, as `launch.steps.build_step`'s cells do),
+    and a MoE, SSM, hybrid or VLM model (`family`) under a table that puts
+    the weights on "data" (no such assigned model passes the threshold of
+    `launch.steps.choose_rules` on an 80 GB card).  Every decoder family
+    is served on both axes under the other tables, the long-context one
+    included."""
+    if shape.get("data", 1) <= 1:
+        return
+    layout = data_layout(rules)
+    if layout is None:
+        return
+    table = DATA_TABLES[layout]
+    if kv_layout == "paged":
+        raise ValueError(
+            f"mesh {dict(shape)}: a paged KV cache under {table} with "
+            "dp > 1 comes with a later slice of the port (serve the dense "
+            "slab)")
+    if family != "dense" and layout != "seq":
+        raise ValueError(
+            f"mesh {dict(shape)}: the {family} family under {table} (its "
+            "weights over 'data') with dp > 1 comes with a later slice of "
+            "the port")
+
+
+def _check_mesh(mesh, rules: dict, device: torch.device, family: str,
+                kv_layout: str) -> None:
+    check_mesh(mesh.shape, rules, family, kv_layout)
     if mesh.device.type != device.type:
         raise ValueError(f"the mesh's rank runs on {mesh.device}, the "
                          f"engine on {device}")
@@ -452,7 +486,10 @@ class PapiEngine:
         if mesh is not None:
             self.rules = (dict(rules) if rules is not None else serve_rules(
                 attn_pim=attn_pim or kv_layout == "paged"))
-            _check_mesh(mesh, self.rules, self.device)
+            for c in (cfg, draft[0] if draft else None):
+                if c is not None:
+                    _check_mesh(mesh, self.rules, self.device, c.family,
+                                kv_layout)
             params = shard_params(cfg, params, self.rules, mesh)
             if draft is not None:
                 draft = (draft[0], shard_params(draft[0], draft[1],

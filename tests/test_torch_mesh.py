@@ -22,9 +22,12 @@ reference's `PRNGKey(0)` weights through `params_from_jax` and
     and qwen2-vl-7b's (M-RoPE) equal the port's one-device engine;
   * the launcher's ``--mesh 1,2 --device cpu`` prints the one-device
     launcher's lines;
-  * the refusal that stands (the long-context rules with dp > 1) raises;
-    the data axis itself is `tests/test_torch_mesh_data.py`'s, the MoE,
-    SSM, hybrid and gelu families `tests/test_torch_mesh_families.py`'s.
+  * what still raises at dp > 1 (a paged cache under the long-context
+    rules, a MoE model with its weights over "data") names the later
+    slice; the data axis itself is `tests/test_torch_mesh_data.py`'s, the
+    MoE, SSM, hybrid and gelu families `tests/test_torch_mesh_families.py`'s,
+    the weights and the KV sequence over "data"
+    `tests/test_torch_mesh_fsdp_serve.py`'s.
 """
 import re
 import sys
@@ -225,38 +228,51 @@ def test_launcher_mesh_prints_the_one_device_lines(capfd, tmp_path):
 
 
 def test_refusals_raise():
-    """What the mesh still refuses: the long-context rules (the batch
-    whole, the KV sequence over (data, model)) with dp > 1.  Every decoder
-    family is served on both axes (`tests/test_torch_mesh_families.py`)."""
+    """What the mesh still refuses at dp > 1, naming the later slice: a
+    paged cache under the long-context rules (the batch whole, the KV
+    sequence over (data, model)).  Those rules themselves serve every
+    decoder family on the dense slab (`tests/test_torch_mesh_fsdp_serve.py`),
+    and every family is served on both axes under the plain rules
+    (`tests/test_torch_mesh_families.py`)."""
     for arch in ("mamba2-1.3b-smoke", "olmoe-1b-7b-smoke",
                  "zamba2-1.2b-smoke", R.ARCH):
+        family = get_config(arch).family
         for attn_pim in (False, True):
             rules = serve_rules(long_context=True, attn_pim=attn_pim)
             for shape in ({"data": 2, "model": 2}, {"data": 2, "model": 1}):
+                check_mesh(shape, rules, family)
                 with pytest.raises(ValueError,
-                                   match="long-context.*later slice"):
-                    check_mesh(shape, rules)
-            check_mesh({"data": 1, "model": 2}, rules)
+                                   match="paged.*long-context.*later slice"):
+                    check_mesh(shape, rules, family, "paged")
+            check_mesh({"data": 1, "model": 2}, rules, family, "paged")
         for shape in ({"data": 1, "model": 2}, {"data": 2, "model": 2}):
-            check_mesh(shape, serve_rules())
+            check_mesh(shape, serve_rules(), family)
     cfg = get_config("olmoe-1b-7b-smoke")
     from repro_torch.models import init_params
     params = init_params(cfg, torch.Generator().manual_seed(0))
     mesh = type("M", (), {"shape": {"data": 2, "model": 2},
                           "device": torch.device("cpu"), "rank": 0})()
     with pytest.raises(ValueError, match="long-context.*later slice"):
-        PapiEngine(cfg, params, mesh=mesh, device="cpu",
+        PapiEngine(cfg, params, mesh=mesh, device="cpu", kv_layout="paged",
                    rules=serve_rules(long_context=True))
 
 
 def test_engine_refuses_without_spawning():
     """The engine checks the mesh before any collective: a shape-only mesh
-    is enough to see it refuse the long-context rules with dp > 1."""
+    is enough to see it refuse a paged cache under the long-context rules
+    with dp > 1, and a MoE model under the 2D weight-stationary decode's
+    table (its weights over "data")."""
     cfg = get_config(R.ARCH)
     from repro_torch.models import init_params
     params = init_params(cfg, torch.Generator().manual_seed(0))
     mesh = type("M", (), {"shape": {"data": 2, "model": 1},
                           "device": torch.device("cpu"), "rank": 0})()
     with pytest.raises(ValueError, match="later slice"):
-        PapiEngine(cfg, params, mesh=mesh, device="cpu",
+        PapiEngine(cfg, params, mesh=mesh, device="cpu", kv_layout="paged",
                    rules=serve_rules(long_context=True, attn_pim=True))
+    moe = get_config("olmoe-1b-7b-smoke")
+    rules = dict(serve_rules(), fsdp="data", batch=None,
+                 act_kv_seq=("data", "model"))
+    with pytest.raises(ValueError, match="moe.*weight-stationary.*later"):
+        PapiEngine(moe, init_params(moe, torch.Generator().manual_seed(0)),
+                   mesh=mesh, device="cpu", rules=rules)
