@@ -340,8 +340,20 @@ Phases (any failed check makes the script exit non-zero, after all ran):
      masked counts per rank) and qwen2-vl-7b, 3 steps each against the
      one-rank step; the qwen2 checkpoint saved over the mesh at step 3
      restores onto the (4, 1) mesh and onto one rank, and 2 more steps
-     equal the uninterrupted run's; the four kernels' launch counts read
-     0 on every rank;
+     equal the uninterrupted run's; then the tensor split of training
+     (tp > 1: the residual over the sequence on "model", the heads, FFN
+     and vocabulary over "model", a vocab-split cross-entropy, ZeRO-3
+     over "data") in the same world: the full-width qwen2-0.5b (4 of 24
+     layers) at (2, 2) (7 of its 14 heads a rank) and (1, 4) (its heads
+     whole, the FFN and the vocabulary split), and the qwen2-vl-7b and
+     hubert-xlarge smoke twins at (2, 2), 3 steps each on the same
+     global batches: every rank's loss equal, losses within 1e-5
+     relative, the first step's gathered gradients within 1e-5 of the
+     largest and the gathered parameters within 1e-4 of the one-rank
+     step's, each rank's bytes of weights and moments beside one rank's,
+     the collectives a step on every rank equal to the reckoning, the
+     step wall beside one rank's; the four kernels' launch counts read 0
+     on every rank;
   8. print the `kernels` JSON line, the card line, and last the device JSON.
 
 Exits non-zero without printing a result when no CUDA device is present or
@@ -1088,12 +1100,18 @@ SSD_PRECISION = ("C·Bᵀ: bf16 mma, exact products, f32 sums (f32 B/C: CUDA "
 
 def ssd_launch_ms(kern, sets) -> dict:
     """Device ms per call of each CUDA kernel of the scan (torch.profiler
-    over one pass of `sets`)."""
+    over one pass of `sets`).  A capture that holds no device time at all
+    is the profiler failing to trace (seen once on the card, between two
+    good captures in one process), not the scan: it is taken once more."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for a in sets:
-            kern(*a)
-        torch.cuda.synchronize()
+    for _ in range(2):
+        with torch.profiler.profile(activities=acts) as prof:
+            for a in sets:
+                kern(*a)
+            torch.cuda.synchronize()
+        if any(getattr(evt, "self_device_time_total", 0) > 0
+               for evt in prof.key_averages()):
+            break
     out = {}
     for evt in prof.key_averages():
         for name in ("ssd_cb_kernel", "ssd_scan_kernel"):
@@ -4013,7 +4031,8 @@ def phase_training() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7f: the train cell over the data axis, four ranks on this card
+# Phase 7f: the train cell over the data axis and, since the tensor split
+# of training, over (data, model): four ranks on this card
 TRAIN_MESH_ARCH = "qwen2-0.5b"
 TRAIN_MESH_DEPTH = 4
 TRAIN_MESH_CELL = ShapeCell("train_mesh", 256, 8, "train")
@@ -4025,7 +4044,12 @@ TRAIN_MESH_FAMILIES = ("olmoe-1b-7b", "mamba2-1.3b", "hubert-xlarge",
 # (1.01e-4 apart after 3 steps at eps 1e-8, measured on one H100)
 TRAIN_MESH_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=1e-6)
 TRAIN_MESH_STEPS, TRAIN_MESH_MORE = 3, 2
-TRAIN_MESH_TIMEOUT_S = 300
+TRAIN_MESH_TIMEOUT_S = 600
+# the tensor split: qwen2 at (2, 2) (7 of its 14 heads a rank) and (1, 4)
+# (its heads whole, the FFN and the vocabulary split), the residual over
+# the sequence on "model"; the VLM and audio twins at (2, 2)
+TRAIN_TP_MESHES = ((2, 2), (1, 4))
+TRAIN_TP_FAMILIES = ("qwen2-vl-7b", "hubert-xlarge")
 
 
 def _tm_rows(cfg, step: int, shards: int, mesh, device) -> dict:
@@ -4083,7 +4107,8 @@ def _tm_train(cfg, mesh, device, *, steps: int, start: int = 0,
                 step + 1, {"params": params, "opt": opt},
                 shardings=_tm_specs(cfg, built.rules, m), mesh=m)
     with axis_rules(built.rules, m):
-        out["reckoned"] = collectives_per_train_step(cfg)
+        out["reckoned"] = collectives_per_train_step(
+            cfg, seq_len=TRAIN_MESH_CELL.seq_len)
     out["collectives"] = coll / steps
     out["weight_bytes"] = sum(4 * p.numel() for p in leaves(params))
     out["moment_bytes"] = sum(4 * x.numel()
@@ -4119,12 +4144,16 @@ def _tm_summary(run: dict) -> dict:
 
 def _train_mesh_rank(rank: int, device, ckpt_dir: str) -> dict:
     """One rank of phase 7f's world of 4: the (2, 1) runs (qwen2 on
-    ranks 0-1, the families on ranks 2-3), then the elastic restores."""
+    ranks 0-1, the families on ranks 2-3), the elastic restores, then the
+    tensor split's runs on every rank (`_train_tp_runs`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh4 = make_serving_mesh(4, 1, device=device)
     mesh2 = make_serving_mesh(2, 1, device=device)
+    tp_meshes = [make_serving_mesh(*shape, device=device)
+                 for shape in TRAIN_TP_MESHES]
     res = {"coords4": dict(mesh4.coords), "coords2": dict(mesh2.coords)}
+    one_state = None
     lead = mesh2.rank == 0
     cfg = family_cfg(TRAIN_MESH_ARCH, TRAIN_MESH_DEPTH, "float32")
     if rank < 2:
@@ -4143,6 +4172,7 @@ def _train_mesh_rank(rank: int, device, ckpt_dir: str) -> dict:
             res["one"] = _tm_summary(one)
             res["param_err"] = _tm_diff(at3, one["state"][0])
             res["grad_err"] = _tm_grad_err(grads, one["grads"])
+            one_state = (one["state"][0], one["grads"])
             del one, at3
         del grads
         res["uninterrupted"] = whole if lead else None
@@ -4189,8 +4219,46 @@ def _train_mesh_rank(rank: int, device, ckpt_dir: str) -> dict:
                                        res["uninterrupted"])
         del run, got
     res["uninterrupted"] = None
+    res["tp"] = _train_tp_runs(cfg, tp_meshes, device, one_state)
     res["launches"] = read_counts()
     return res
+
+
+def _train_tp_run(cfg, mesh, device, one) -> dict:
+    """3 steps of `cfg` on `mesh` from seed-0 weights; on rank 0, the
+    distance of the first step's gathered gradients and of the gathered
+    parameters from `one`'s (params, grads) of the one-rank step."""
+    run = _tm_train(cfg, mesh, device, steps=TRAIN_MESH_STEPS)
+    whole, grads = _tm_gather(cfg, run), run["grads"]
+    got = _tm_summary(run)
+    del run
+    if one is not None:
+        got["param_err"] = _tm_diff(whole, one[0])
+        got["grad_err"] = _tm_grad_err(grads, one[1])
+    return got
+
+
+def _train_tp_runs(cfg, meshes, device, one_state) -> dict:
+    """The tensor split (tp > 1, every rank): qwen2 on each mesh of
+    `TRAIN_TP_MESHES` against rank 0's one-rank run (`one_state`), the
+    VLM and audio twins at (2, 2) against rank 0's one-rank runs."""
+    out = {}
+    for shape, mesh in zip(TRAIN_TP_MESHES, meshes):
+        out[(TRAIN_MESH_ARCH, shape)] = _train_tp_run(cfg, mesh, device,
+                                                      one_state)
+    del one_state
+    for arch in TRAIN_TP_FAMILIES:
+        fcfg = get_config(arch + "-smoke")
+        one = None
+        if meshes[0].rank == 0:
+            run = _tm_train(fcfg, None, device, steps=TRAIN_MESH_STEPS)
+            one = (run["state"][0], run["grads"])
+            out[(arch, "one")] = _tm_summary(run)
+            del run
+        out[(arch, TRAIN_TP_MESHES[0])] = _train_tp_run(fcfg, meshes[0],
+                                                        device, one)
+        del one
+    return out
 
 
 def phase_train_mesh() -> dict:
@@ -4262,6 +4330,7 @@ def phase_train_mesh() -> dict:
           f"rank holds {r0['weights4'] / 2**20:.1f} MiB of weights; "
           f"restore {max(r['restore_s'] for r in ranks):.1f} s",
           flush=True)
+    _check_train_tp(ranks, one)
     launches = read_counts()
     for r in ranks:
         for name, n in r["launches"].items():
@@ -4270,6 +4339,46 @@ def phase_train_mesh() -> dict:
           f"7f: no kernel launched on any rank ({launches})")
     print(f"      7f: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches
+
+
+def _check_train_tp(ranks: list, one: dict) -> None:
+    """7f's tensor-split runs (module docstring) against the one-rank
+    steps, `one` being qwen2's."""
+    r0 = ranks[0]["tp"]
+    for (arch, shape), got in r0.items():
+        if shape == "one":
+            continue
+        want = one if arch == TRAIN_MESH_ARCH else r0[(arch, "one")]
+        label = (f"{arch}/{TRAIN_MESH_DEPTH}" if arch == TRAIN_MESH_ARCH
+                 else f"{arch}-smoke")
+        same = all(r["tp"][(arch, shape)]["losses"] == got["losses"]
+                   for r in ranks)
+        counted = all(r["tp"][(arch, shape)]["collectives"] == got["reckoned"]
+                      for r in ranks)
+        rel = _tm_rel(got["losses"], want["losses"])
+        check(same and counted and rel <= 1e-5 and got["grad_err"] <= 1e-5
+              and got["param_err"] <= 1e-4,
+              f"7f {label} f32 {shape}: every rank's losses equal ({same}), "
+              f"within {rel:.2e} relative of the one-rank step's (limit "
+              f"1e-5); the first step's gathered gradients within "
+              f"{got['grad_err']:.2e} of the largest (limit 1e-5), the "
+              f"gathered parameters after {TRAIN_MESH_STEPS} steps within "
+              f"{got['param_err']:.2e} (limit 1e-4); {got['collectives']:.0f} "
+              f"collectives a step on every rank ({counted}; "
+              f"{got['reckoned']} reckoned)")
+        print(f"      7f {label} f32 {shape} [{CARD}]: losses "
+              f"{' '.join(f'{x:.5f}' for x in got['losses'])} (one rank "
+              f"{' '.join(f'{x:.5f}' for x in want['losses'])}); a rank "
+              f"holds {got['weight_bytes'] / 2**20:.1f} MiB of weights and "
+              f"{got['moment_bytes'] / 2**20:.1f} MiB of moments, one rank "
+              f"{want['weight_bytes'] / 2**20:.1f} / "
+              f"{want['moment_bytes'] / 2**20:.1f} MiB "
+              f"({got['weight_bytes'] / want['weight_bytes']:.4f}); "
+              f"{got['collectives']:.0f} collectives a step "
+              f"({got['reckoned']} reckoned), each staged through a host "
+              f"copy; step wall median {statistics.median(got['walls']):.3f}"
+              f" s (one rank {statistics.median(want['walls']):.3f} s)",
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5626,7 +5735,7 @@ def main() -> int:
           f"{json.dumps(family_mesh_launches)}; weights and KV sequence "
           f"over 'data' (phase 6l, 4 ranks x 4 engine runs): "
           f"{json.dumps(fsdp_launches)}; training (phase 7): "
-          f"{json.dumps(train_launches)}; training over the data axis "
+          f"{json.dumps(train_launches)}; training over the mesh "
           f"(phase 7f, 4 ranks): {json.dumps(train_mesh_launches)}",
           flush=True)
     launches = {name: n + spec_launches[name] + serve_launches[name]

@@ -172,6 +172,19 @@ def block_range(n: int, entry, mesh) -> tuple[int, int]:
     return idx * step, (idx + 1) * step
 
 
+def axis_dim(spec: Sequence, axis: str) -> int | None:
+    """The dim of `spec` whose entry holds mesh axis `axis` (alone or in
+    a tuple), or None where the leaf is whole over it.  A train split
+    asks it of every leaf twice: its "data" dim (the ZeRO-3 block) and
+    its "model" dim (heads, ffn or vocabulary); `filter_spec_for_shape`
+    has already dropped a dim the axis does not divide, so such a leaf is
+    whole over it."""
+    for dim, entry in enumerate(spec):
+        if entry is not None and axis in _atoms(entry):
+            return dim
+    return None
+
+
 def local_block(t: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     """This rank's block of the full tensor `t` under `spec` (a copy, so
     the full tensor can be freed)."""
@@ -340,8 +353,8 @@ def serve_rules(multi_pod: bool = False, long_context: bool = False,
     return rules
 
 
-__all__ = ["axis_rules", "batch_block", "block_range", "current_mesh",
-           "current_rules", "data_layout", "fc_tensor_axis",
+__all__ = ["axis_dim", "axis_rules", "batch_block", "block_range",
+           "current_mesh", "current_rules", "data_layout", "fc_tensor_axis",
            "filter_spec_for_shape",
            "fsdp_block", "fsdp_layout", "full_tensor", "local_block",
            "logical_to_spec", "resolve_spec", "seq_axes", "serve_rules",

@@ -42,6 +42,17 @@ collective for each dtype among them (a layer's weights in one gather):
     passes the gradient through, since every rank computes the same loss
     from the sum.
 
+Training over "model" (sequence parallelism on the residual stream,
+`models.model.SeqSplit`) adds the pair that moves the residual's
+sequence dim (dim 1 of [b, s, d]) between its blocks and the whole, one
+tensor a call:
+  * `seq_gather`: every rank's block of the sequence concatenated in rank
+    order (the input of a tensor-split sub-block); the backward sums the
+    gradient over the axis and keeps this rank's block (a reduce-scatter);
+  * `seq_scatter`: every rank's partial sum (a row bank's output) added
+    in rank order in f32, and this rank's block of the sequence kept (a
+    reduce-scatter); the backward all-gathers the blocks' gradients.
+
 The reference's `make_production_mesh`, `make_host_mesh` and
 `force_host_device_count` exist for XLA's host-device trick (one process,
 N fake devices); a process per rank needs none of them.
@@ -164,6 +175,22 @@ class ServingMesh:
             return x
         return _SumOver.apply(x, self, axis)
 
+    def seq_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Every rank's block of the sequence (dim 1) concatenated in
+        rank order, one collective; the backward reduce-scatters (module
+        docstring)."""
+        if self.groups.get(axis) is None:
+            return x
+        return _SeqGather.apply(x, self, axis)
+
+    def seq_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """This rank's block of the sequence (dim 1) of the sum of every
+        rank's `x`, added in rank order in f32, one collective; the
+        backward all-gathers (module docstring)."""
+        if self.groups.get(axis) is None:
+            return x
+        return _SeqScatter.apply(x, self, axis)
+
     def _gather(self, x: torch.Tensor, axis: str) -> list[torch.Tensor]:
         group = self.groups.get(axis)
         if group is None:
@@ -274,6 +301,41 @@ class _SumOver(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None, None
+
+
+def _scattered(mesh, axis, x) -> torch.Tensor:
+    """This rank's block of the sequence (dim 1) of x summed over `axis`:
+    every rank's block added in rank order in f32, cast back to x's
+    dtype."""
+    n = x.shape[1] // mesh.shape[axis]
+    lo = mesh.coords[axis] * n
+    parts = mesh._gather(x, axis)
+    acc = parts[0].narrow(1, lo, n).float()
+    for p in parts[1:]:
+        acc = acc + p.narrow(1, lo, n).float()
+    return acc.to(x.dtype)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh.all_gather(x, axis, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scattered(ctx.mesh, ctx.axis, g), None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _scattered(mesh, axis, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_gather(g, ctx.axis, 1), None, None
 
 
 def make_serving_mesh(dp: int = 1, tp: int = 1, *,

@@ -7,12 +7,15 @@ runs with the stand-ins of its inputs and their specs.
     params, opt_state, loss = built.fn(params, opt_state, batch)
 
 The train cell runs `training.make_train_step` under
-``axis_rules(train_rules(), mesh)``: on a (dp, 1) mesh each rank holds its
-blocks of every "fsdp" leaf and of both AdamW moments (the moments take
-the parameters' axes: ZeRO-1 comes with the ZeRO-3 weights, as in the
-reference) and its rows of the batch (`draw_train_batch`: rank r draws
-the pipeline's shard r).  The prefill and decode cells run `prefill` /
-`decode_step` under the cell's rules, on the rank's blocks
+``axis_rules(train_rules(), mesh)``: on a (dp, tp) mesh each rank holds
+its blocks of every "fsdp" leaf over "data" and of every heads, FFN and
+vocabulary leaf over "model", the same blocks of both AdamW moments (the
+moments take the parameters' axes: ZeRO-1 comes with the ZeRO-3 weights,
+as in the reference), and its data group's rows of the batch
+(`draw_train_batch`: the ranks at data coordinate d draw the pipeline's
+shard d); with tp > 1 the residual stream is split over its sequence on
+"model" (`models.model.SeqSplit`).  The prefill and decode cells run
+`prefill` / `decode_step` under the cell's rules, on the rank's blocks
 (`models.shard_params`) and its cache block (`models.init_cache` under
 the rules), on any (dp, tp) mesh:
 
@@ -31,10 +34,10 @@ the rules), on any (dp, tp) mesh:
 The reference's `lower_step` has no counterpart: the port's cost analysis
 (`dryrun`, `hlo`, `roofline`) comes with a later slice.
 
-What raises, naming the later slice: a train cell with tp > 1 (sequence
-parallelism on the residual stream, the vocab-split cross-entropy), and
-with dp > 1 a MoE, SSM, hybrid or VLM model under a table that puts its
-weights on "data" (`serving.engine.check_mesh`).
+What raises, naming the later slice: a train cell with tp > 1 for the
+MoE, SSM and hybrid families (the experts and the Mamba2 heads over
+"model"), and with dp > 1 a MoE, SSM, hybrid or VLM model under a table
+that puts its weights on "data" (`serving.engine.check_mesh`).
 
 `choose_rules` switches a big model's serving to those rules when its
 tensor share of the weights passes `WEIGHT_FSDP_SHARE` of a card's memory
@@ -56,8 +59,9 @@ from repro_torch.distributed.sharding import (axis_rules, resolve_spec,
                                               tree_shardings)
 from repro_torch.launch.mesh import local_mesh
 from repro_torch.launch.specs import input_specs, train_specs
-from repro_torch.models.model import (DTYPES, cache_logical_axes,
-                                      cache_shapes, decode_step, model_spec,
+from repro_torch.models.model import (DTYPES, TP_TRAIN_FAMILIES,
+                                      cache_logical_axes, cache_shapes,
+                                      decode_step, model_spec,
                                       param_logical_axes, param_shapes,
                                       prefill)
 from repro_torch.serving.engine import check_mesh
@@ -146,12 +150,13 @@ def _param_meta(cfg: ModelConfig) -> dict:
 
 def _refuse(cfg: ModelConfig, cell: ShapeCell, rules: dict, mesh) -> None:
     if cell.kind == "train":
-        if mesh.shape["model"] > 1:
+        if mesh.shape["model"] > 1 and cfg.family not in TP_TRAIN_FAMILIES:
             raise ValueError(
-                f"{cell.name}: mesh {dict(mesh.shape)}: the train cell with "
-                "tp > 1 (sequence parallelism on the residual stream, the "
-                "vocab-split cross-entropy) comes with a later slice of the "
-                "port")
+                f"{cell.name}: mesh {dict(mesh.shape)}: the train cell of "
+                f"the {cfg.family} family with tp > 1 (the experts over "
+                "\"model\" and the token dispatch across a tensor group; "
+                "the Mamba2 heads over \"ssm_heads\", zamba2's shared "
+                "block) comes with a later slice of the port, the next one")
         return
     check_mesh(mesh.shape, rules, cfg.family)
 
@@ -243,8 +248,9 @@ def draw_train_batch(cfg: ModelConfig, cell: ShapeCell, step: int, *,
                      shard: int = 0) -> dict:
     """Shard `shard`'s rows of the train cell's batch at `step` (numpy):
     ``make_batch`` with the pipeline's ``num_shards`` / ``shard``, with a
-    leading [accum] axis when the step accumulates.  On a (dp, 1) mesh
-    rank r draws shard r of dp, and global microbatch i is every shard's
+    leading [accum] axis when the step accumulates.  On a (dp, tp) mesh
+    the tp ranks of data group d all draw shard d of dp (the data
+    coordinate, not the rank), and global microbatch i is every shard's
     microbatch i, in shard order."""
     raw = make_batch(cfg, DataConfig(seed=seed, batch=cell.global_batch,
                                      seq_len=cell.seq_len, num_shards=shards,

@@ -61,7 +61,7 @@ split over (data, model) writes each position on the rank whose slice
 holds it, and the decode attention merges every rank's partials in the
 row-major rank order of `block_range`.
 
-Training over the data axis (`train_rules` installed, dp > 1, tp = 1;
+Training over the data axis (`train_rules` installed, dp > 1;
 `DataSplit`): every leaf the rules label "fsdp" is this rank's block of
 that dim and the batch its rows.  `forward_train` gathers each layer's
 blocks at the layer's entry, inside the remat region, so the whole weight
@@ -73,13 +73,38 @@ the rank's block; a leaf kept whole on every rank sums its gradient over
 denominator summed over "data" before the division) and an MoE layer's
 aux loss the mean over the global batch's groups.
 
+Training over the tensor axis too (tp > 1: the dense, VLM and audio
+families; `DataSplit.model`, `SeqSplit`): each rank holds its "model"
+block of the heads, the FFN and the vocabulary beside its "data" block,
+and the residual stream is split over its sequence dim on "model"
+(sequence parallelism, the reference's "seq" rule).  Norms run on the
+rank's rows; before each attention and split MLP sub-block the normed
+rows are gathered over the sequence (`ServingMesh.seq_gather`), and the
+out-projection's and the down / ``w_out`` bank's partial products are
+reduce-scattered back to the rank's rows (`seq_scatter`); a bank that
+is whole over "model" (qwen2-0.5b's 14 heads at tp = 4) computes every
+row and keeps its own.  The embedding reduce-scatters its vocabulary
+slice's partial rows; the head takes every row and the rank's
+vocabulary, and the cross-entropy combines the max, the sum of
+exponentials and the gold logit over "model" (`_vocab_nll_sums`).  A leaf
+whole over "model" then has only a partial gradient on each rank (its
+rows, or its heads), which one `replicated_grad` over "model" sums.
+Where tp does not divide the sequence, the residual stays whole on every
+rank (the reference's `filter_spec_for_shape`): a split bank's input is
+then the identity whose backward sums over "model", its output summed
+over "model" whose backward passes through, and a whole leaf's gradient
+is complete but the K/V projections' that split q heads read
+(`SeqSplit.partial`).  Under remat each layer's recompute runs its
+collectives again (early stop off, so the count is fixed).
+
 Entry points:
   init_params(cfg, generator)            -> params
   param_logical_axes / param_shardings(cfg, rules, mesh)
   cache_logical_axes / cache_shardings, paged_cache_logical_axes /
   paged_cache_shardings                  -> trees of spec tuples
   forward_train(cfg, params, batch, remat=True) -> (loss, metrics)
-  data_split(cfg) -> DataSplit | None;  collectives_per_train_step(cfg, accum)
+  data_split(cfg) -> DataSplit | None
+  collectives_per_train_step(cfg, accum, remat, seq_len)
   init_cache(cfg, batch, capacity, device)
   init_paged_cache(cfg, max_slots, num_pages, page_size, max_blocks, device)
   prefill(cfg, params, batch, cache)     -> (last_logits, cache)
@@ -99,13 +124,14 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import (batch_block, block_range,
-                                              current_mesh, current_rules,
-                                              fsdp_block, fsdp_layout,
-                                              seq_axes, tensor_split,
+from repro_torch.distributed.sharding import (axis_dim, batch_block,
+                                              block_range, current_mesh,
+                                              current_rules, fsdp_block,
+                                              fsdp_layout, seq_axes,
+                                              split_axis, tensor_split,
                                               tree_shardings)
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -207,22 +233,66 @@ def collectives_per_forward(cfg: ModelConfig, cache: dict,
 
 
 def collectives_per_train_step(cfg: ModelConfig, accum: int = 1,
-                               remat: bool = True) -> int:
+                               remat: bool = True,
+                               seq_len: int | None = None) -> int:
     """Collectives one train step runs on a rank under the installed
-    data split (0 without one), one a dtype where a call takes several
-    leaves.  Per microbatch: a layer's blocks are gathered at its entry,
-    again when remat recomputes it, and reduce-scattered in the backward;
-    the other blocks are gathered once and reduce-scattered; the leaves
-    kept whole sum their gradients; the loss's numerator, denominator and
-    MoE aux loss are summed together.  Per step: the gradient norm's one
-    sum."""
+    train split (0 without one), one a dtype where a call takes several
+    leaves.  Over "data" (dp > 1), per microbatch: a layer's blocks are
+    gathered at its entry, again when remat recomputes it, and
+    reduce-scattered in the backward; the other blocks are gathered once
+    and reduce-scattered; the leaves kept whole sum their gradients; the
+    loss's numerator, denominator and MoE aux loss are summed together.
+    Over "model" (tp > 1; `_tensor_collectives`, which needs the cell's
+    `seq_len`): the sequence gathers and reduce-scatters.  Per step: the
+    gradient norm's one sum an axis."""
     split = data_split(cfg)
     if split is None:
         return 0
-    groups = _split_groups(cfg, split)
-    micro = ((3 if remat else 2) * cfg.num_layers * len(groups["layer"])
-             + 2 * len(groups["top"]) + len(groups["whole"]) + 1)
-    return accum * micro + 1
+    micro = 0
+    if split.mesh.shape.get(split.axis, 1) > 1:
+        groups = _split_groups(cfg, split)
+        micro += ((3 if remat else 2) * cfg.num_layers * len(groups["layer"])
+                  + 2 * len(groups["top"]) + len(groups["whole"]) + 1)
+    if split.model is not None:
+        if seq_len is None:
+            raise ValueError("a tensor split's collectives depend on the "
+                             "sequence length (seq_len=)")
+        micro += _tensor_collectives(cfg, split, seq_len, remat)
+    norm = {a for _, sp in flatten_tree(split.specs)
+            for a in split.leaf_axes(sp) if split.mesh.shape[a] > 1}
+    return accum * micro + len(norm)
+
+
+def _tensor_collectives(cfg: ModelConfig, split: "DataSplit", seq_len: int,
+                        remat: bool) -> int:
+    """The "model" collectives of one microbatch (module docstring).
+    With the residual split over the sequence, each layer gathers the
+    attention's input and reduce-scatters its out-projection where the
+    heads are split, and gathers and reduce-scatters a split MLP: each
+    once forward, again in the recompute and once backward.  The
+    embedding's reduce-scatter and its backward gather, the head's gather
+    and its backward reduce-scatter, the cross-entropy's max and sums (or,
+    with the vocabulary whole, the loss sums).  With the residual whole, a
+    split bank's input sums its gradient once and its output is summed
+    forward and in the recompute; the embedding's partial rows are summed
+    once; the head's input sums its gradient and the cross-entropy's max
+    and sums run once.  Either way the partial leaves' gradient sum
+    (`SeqSplit.partial`), one a dtype."""
+    res = SeqSplit.of(cfg, split, seq_len)
+    heads, ffn = int(res.heads.q_split), int(res.ffn)
+    vocab = vocab_split(cfg) is not None
+    embed = int(vocab and cfg.family != "audio")
+    partial = res.partial(split)
+    dtype = {k: v.dtype or cfg.dtype
+             for k, v in flatten_tree(model_spec(cfg))}
+    sums = len({dtype[k] for k in dtype if partial(k)})
+    if res.seq:
+        r = 3 if remat else 2
+        top = 2 * embed + (4 if vocab else 1) + sums
+        return cfg.num_layers * r * (1 + heads + 2 * ffn) + top
+    f = 2 if remat else 1
+    return (cfg.num_layers * (1 + f) * (heads + ffn) + embed
+            + (3 if vocab else 0) + sums)
 
 
 def _split_groups(cfg: ModelConfig, split: "DataSplit") -> dict:
@@ -611,27 +681,46 @@ class DataSplit:
     """Training over the data axis ``axis`` of ``mesh`` (module
     docstring): ``specs`` are the params' spec tuples under the installed
     rules, a leaf whose spec holds ``axis`` being a block of that dim.
-    ``grad=False`` (the FSDP prefill, `serve_split`): the gathers run
-    under `torch.no_grad` and the whole leaves are taken as they are."""
+    ``model``: the tensor axis where it has more than one rank (a train
+    split over both; ``axis`` may then have one rank, and its collectives
+    are none), a leaf whose spec holds it being its block of the heads,
+    the FFN or the vocabulary.  ``grad=False`` (the FSDP prefill,
+    `serve_split`): the gathers run under `torch.no_grad` and the whole
+    leaves are taken as they are."""
     mesh: object
     axis: str
     specs: dict
     grad: bool = True
+    model: str | None = None
 
     def block_dim(self, spec) -> int | None:
         """The dim `spec` splits over the data axis, or None (whole)."""
-        for dim, entry in enumerate(spec):
-            if entry == self.axis or (isinstance(entry, tuple)
-                                      and self.axis in entry):
-                return dim
-        return None
+        return axis_dim(spec, self.axis)
 
-    def prepare(self, params: dict) -> dict:
+    def model_dim(self, spec) -> int | None:
+        """The dim `spec` splits over the tensor axis, or None (whole)."""
+        return None if self.model is None else axis_dim(spec, self.model)
+
+    def leaf_axes(self, spec) -> tuple:
+        """The mesh axes a leaf of `spec` is a rank's block over (the
+        gradient norm sums its squares over each)."""
+        return tuple(a for a, d in ((self.axis, self.block_dim(spec)),
+                                    (self.model, self.model_dim(spec)))
+                     if d is not None)
+
+    def prepare(self, params: dict, partial=None) -> dict:
         """The forward's view of a rank's params: every whole leaf through
         one `replicated_grad`, the blocks outside ``layers`` through one
         gather (once a forward), the layers' blocks as they are (`gather`
-        takes them at each layer's entry)."""
+        takes them at each layer's entry).  `partial` (a tensor split,
+        `SeqSplit.partial`): the keys of the leaves whole over ``model``
+        whose gradient each rank has only a part of, first through one
+        `replicated_grad` over it."""
         leaf = dict(flatten_tree(params))
+        if partial is not None and self.grad:
+            keys = [k for k in leaf if partial(k)]
+            leaf.update(zip(keys, self.mesh.replicated_grad(
+                [leaf[k] for k in keys], self.model)))
         dims = {k: self.block_dim(sp)
                 for k, sp in flatten_tree(self.specs)}
         whole = [k for k in leaf if dims[k] is None]
@@ -683,23 +772,34 @@ def unflatten_tree(flat: dict) -> dict:
     return out
 
 
+# the families a tensor split trains (attention + MLP layers)
+TP_TRAIN_FAMILIES = ("dense", "vlm", "audio")
+
+
 def data_split(cfg: ModelConfig) -> DataSplit | None:
-    """The installed rules' data split of training: the mesh axis the
-    "batch" rule maps to, when it has more than one rank; None otherwise
-    (one device, or dp = 1).  A tensor split (tp > 1) of training raises:
-    it comes with a later slice of the port."""
+    """The installed rules' split of training: the mesh axis the "batch"
+    rule maps to, and the tensor axis the "seq" rule maps to where it has
+    more than one rank (``model``); None where neither has (one device).
+    A tensor split of the MoE, SSM and hybrid families raises: it comes
+    with a later slice of the port."""
     mesh, rules = current_mesh(), current_rules()
     if mesh is None or rules is None:
         return None
-    if mesh.shape.get("model", 1) > 1:
+    axis, model = rules.get("batch"), rules.get("seq")
+    if not isinstance(model, str) or mesh.shape.get(model, 1) <= 1:
+        model = None
+    if model is not None and cfg.family not in TP_TRAIN_FAMILIES:
         raise ValueError(
-            f"mesh {dict(mesh.shape)}: training with tp > 1 (sequence "
-            "parallelism on the residual stream, the vocab-split cross-"
-            "entropy) comes with a later slice of the port")
-    axis = rules.get("batch")
-    if not isinstance(axis, str) or mesh.shape.get(axis, 1) <= 1:
+            f"{cfg.name}: mesh {dict(mesh.shape)}: training the "
+            f"{cfg.family} family with tp > 1 (the experts over \"model\" "
+            "and the token dispatch across a tensor group; the Mamba2 "
+            "heads over \"ssm_heads\", zamba2's shared block) comes with "
+            "a later slice of the port, the next one; train it at tp = 1")
+    if not isinstance(axis, str) or (mesh.shape.get(axis, 1) <= 1
+                                     and model is None):
         return None
-    return DataSplit(mesh, axis, param_shardings(cfg, rules, mesh))
+    return DataSplit(mesh, axis, param_shardings(cfg, rules, mesh),
+                     model=model)
 
 
 def serve_split(cfg: ModelConfig) -> DataSplit | None:
@@ -1341,28 +1441,258 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 # Steps
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """The residual stream of a train split over the tensor axis ``axis``
+    (module docstring): ``seq`` where tp divides the sequence of ``n``
+    positions, so each rank holds its block of them, else whole on every
+    rank; the rank's q heads (``heads``: the KV heads whole, as
+    `train_rules` keep them) and whether the FFN is split (``ffn``).  A
+    layer reads these, not the installed rules: its recompute runs in the
+    backward, where the rules may not be installed."""
+    mesh: object
+    axis: str
+    n: int
+    seq: bool
+    heads: HeadSplit
+    ffn: bool
+
+    @classmethod
+    def of(cls, cfg, split: DataSplit, n: int) -> "SeqSplit":
+        """The split of an n-position residual under the installed rules
+        and `split`'s tensor axis."""
+        nh, nkv = cfg.num_heads, cfg.num_kv_heads
+        hs, hi = tensor_split("heads", nh)
+        if tensor_split("kv_heads", nkv)[0] > 1:
+            raise ValueError("a train split keeps the KV heads whole "
+                             "(train_rules' \"kv_heads\": None)")
+        heads = HeadSplit(split.mesh, split.model, nh, hi * (nh // hs),
+                          nh // hs, False, nh // nkv)
+        return cls(split.mesh, split.model, n,
+                   split_axis("seq", n) is not None, heads,
+                   split_axis("ffn", cfg.d_ff) is not None)
+
+    def enter(self, x: torch.Tensor, split: bool = True) -> torch.Tensor:
+        """The input of a sub-block from the rank's residual rows: every
+        row (a gather whose backward reduce-scatters); with the residual
+        whole, x, whose gradient a `split` bank's partial backward sums
+        over the axis."""
+        if self.seq:
+            return self.mesh.seq_gather(x, self.axis)
+        return self.mesh.replicated_grad([x], self.axis)[0] if split else x
+
+    def leave(self, y: torch.Tensor, split: bool = True) -> torch.Tensor:
+        """The rank's residual rows of a sub-block's output over every
+        row: a `split` bank's partial products summed over the axis (a
+        reduce-scatter with the residual split, else a sum whose backward
+        passes through); a whole one's rows as they are."""
+        if not split:
+            return self.rows(y)
+        if self.seq:
+            return self.mesh.seq_scatter(y, self.axis)
+        return self.mesh.all_reduce_grad(y, self.axis)
+
+    def partial(self, split: DataSplit):
+        """Of a leaf key, whether the leaf is whole over the axis and each
+        rank's gradient of it a part (summed over the axis in
+        `DataSplit.prepare`): every such leaf where the residual is split
+        over the sequence (its rows, or its heads, are the rank's), and
+        with the residual whole the K/V projections that split q heads
+        read (each rank's heads read them)."""
+        whole = {k for k, sp in flatten_tree(split.specs)
+                 if split.model_dim(sp) is None}
+        kv = ("w_k", "w_v", "b_k", "b_v")
+
+        def partial(key: str) -> bool:
+            return key in whole and (self.seq or (
+                self.heads.q_split and key.startswith("layers/attn/")
+                and key.rsplit("/", 1)[1] in kv))
+        return partial
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's block of dim 1 of x over every row."""
+        if not self.seq:
+            return x
+        k = self.n // self.mesh.shape[self.axis]
+        return x.narrow(1, self.mesh.coords[self.axis] * k, k)
+
+
+def _train_seq_len(cfg, batch: dict) -> int:
+    """The residual's sequence length of a train batch."""
+    if cfg.family == "audio":
+        return batch["frames"].shape[1]
+    n = batch["tokens"].shape[1]
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        n += batch["patch_embeds"].shape[1]
+    return n
+
+
+def _train_embed(cfg, params, batch: dict, res: SeqSplit):
+    """`embed_inputs` onto the rank's residual rows: a vocab-split
+    embedding's partial rows (zeros where another rank owns the id, a
+    VLM's patch rows on the axis's first rank only) summed over the axis;
+    else every row computed whole, the rank's kept."""
+    split = vocab_split(cfg)
+    if cfg.family == "audio" or split is None:
+        h, positions = embed_inputs(cfg, params, batch)
+        return res.leave(h, split=False), positions
+    mesh, axis, lo = split
+    w = params["embed"]["w"]
+    idx = batch["tokens"].long() - lo
+    own = (idx >= 0) & (idx < w.shape[0])
+    rows = F.embedding(torch.clamp(idx, 0, w.shape[0] - 1), w)
+    rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        patch = batch["patch_embeds"].to(rows.dtype)
+        if mesh.coords[axis]:
+            patch = torch.zeros_like(patch)
+        rows = torch.cat([patch, rows], dim=1)
+    if "positions" in batch:
+        positions = batch["positions"]
+    else:
+        start = torch.zeros(rows.shape[0], dtype=torch.int32,
+                            device=rows.device)
+        positions = _window_positions(cfg, start, rows.shape[1])
+    return res.leave(rows), positions
+
+
+def _train_attention(cfg, p: dict, h, positions, res: SeqSplit):
+    """The pre-norm attention sub-block on the rank's residual rows: every
+    row's q of the rank's heads, K/V of every KV head ("kv_heads" is
+    whole under `train_rules`; each q head reads its group's,
+    `kv_for_heads`), the out-projection's partial products back to the
+    rank's rows."""
+    sp = res.heads
+    a_in = L.norm(h, p["norm1"], cfg.norm, cfg.norm_eps)
+    # a column group: "pu" (`torch.matmul`), no collective
+    q, k, v = L.qkv_project(res.enter(a_in, sp.q_split), p["attn"],
+                            heads=cfg.num_heads, kv_heads=cfg.num_kv_heads)
+    q, k = _apply_positional(cfg, q, k, positions)
+    if sp.q_split:
+        k, v = kv_for_heads(k, sp), kv_for_heads(v, sp)
+    attn = L.flash_attention(q, k, v, causal=cfg.causal)
+    b, s, nq, hd = attn.shape
+    w = p["attn"]["w_o"]
+    y = torch.matmul(attn.reshape(b, s, nq * hd), w.reshape(nq * hd, -1))
+    return h + res.leave(y, sp.q_split)
+
+
+def _train_mlp(cfg, p: dict, h, res: SeqSplit):
+    """The pre-norm MLP sub-block on the rank's residual rows: a split FFN
+    on every row and its down / ``w_out`` bank's partial products back to
+    the rank's rows; a whole one on the rank's rows alone."""
+    split = res.ffn
+    m_in = L.norm(h, p["norm2"], cfg.norm, cfg.norm_eps)
+    x = res.enter(m_in) if split else m_in
+    q = p["mlp"]
+    if cfg.mlp == "swiglu":
+        gate, up = torch.matmul(x, q["w_gate"]), torch.matmul(x, q["w_up"])
+        act = F.silu(gate.float()).to(x.dtype) * up
+        y = torch.matmul(act, q["w_down"])
+        return h + (res.leave(y) if split else y)
+    a = torch.matmul(x, q["w_in"]) + q["b_in"]
+    a = F.gelu(a.float(), approximate="tanh").to(x.dtype)
+    y = torch.matmul(a, q["w_out"])
+    return h + ((res.leave(y) if split else y) + q["b_out"])
+
+
+def _vocab_nll_sums(logits, targets, mask, mesh, axis: str, lo: int):
+    """`nll_sums` of logits over the rank's slice of the vocabulary (ids
+    lo ..): the max over every slice (gathered, no gradient), the sums of
+    exponentials and the gold logit, which one rank's slice holds, summed
+    over `axis` in one collective whose backward passes through (every
+    rank computes the same loss from them)."""
+    lf = logits.float()
+    with torch.no_grad():
+        big = mesh.all_gather(lf.amax(dim=-1)[None], axis, 0).amax(dim=0)
+    se = torch.exp(lf - big[..., None]).sum(dim=-1)
+    idx = targets.long() - lo
+    own = (idx >= 0) & (idx < lf.shape[-1])
+    gold = torch.gather(lf, -1, torch.clamp(idx, 0, lf.shape[-1] - 1)
+                        [..., None])[..., 0]
+    gold = torch.where(own, gold, torch.zeros_like(gold))
+    se, gold = mesh.all_reduce_grad(torch.stack([se, gold]), axis)
+    lse = big + torch.log(se)
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def _train_nll_sums(cfg, params, h, targets, mask, res: SeqSplit):
+    """`nll_sums` of the model's head over the rank's residual rows, as
+    one [2] tensor: a vocab-split head on every row and the rank's
+    vocabulary (`_vocab_nll_sums`, the same sums on every rank); a whole
+    one on the rank's rows, its sums added over the axis where the rows
+    are split."""
+    hn = L.norm(h, params["final_norm"]["w"], cfg.norm, cfg.norm_eps)
+    w = (params["lm_head"]["w"] if "lm_head" in params
+         else params["embed"]["w"].t())
+    split = vocab_split(cfg)
+    if split is not None:
+        logits = torch.matmul(res.enter(hn), w)
+        return torch.stack(_vocab_nll_sums(logits, targets, mask, *split))
+    sums = torch.stack(nll_sums(torch.matmul(hn, w), res.rows(targets),
+                                res.rows(mask)))
+    return res.mesh.all_reduce_grad(sums, res.axis) if res.seq else sums
+
+
+def _train_tensor_split(cfg, params, batch: dict, remat: bool,
+                        split: DataSplit):
+    """`forward_train`'s backbone and loss sums under a tensor split
+    (module docstring): [num, den] on every rank, before the sum over
+    "data"."""
+    n = _train_seq_len(cfg, batch)
+    res = SeqSplit.of(cfg, split, n)
+    params = split.prepare(params, res.partial(split))
+    h, positions = _train_embed(cfg, params, batch, res)
+
+    def layer(h, lp):
+        lp = split.gather(lp)
+        h = _train_attention(cfg, lp, h, positions, res)
+        return _train_mlp(cfg, lp, h, res)
+
+    run = _remat(layer, remat)
+    with set_checkpoint_early_stop(False):
+        for lp in layer_list(params, cfg.num_layers):
+            h = run(h, lp)
+    return _train_nll_sums(cfg, params, h, *_train_targets(cfg, batch, n),
+                           res)
+
+
+def _train_targets(cfg, batch: dict, n: int):
+    """(targets, mask) over the n positions of the residual: the mask of
+    ones unless the batch has ``target_mask``; a VLM's text targets padded
+    out over its vision prefix."""
+    targets = batch["targets"]
+    mask = batch.get("target_mask")
+    mask = (torch.ones(targets.shape, device=targets.device)
+            if mask is None else mask.float())
+    if cfg.family == "vlm":
+        pad = n - targets.shape[1]
+        targets = F.pad(targets, (pad, 0))
+        mask = F.pad(mask, (pad, 0))
+    return targets, mask
+
+
 def forward_train(cfg, params, batch: dict, *, remat: bool = True):
     """One training forward: (loss, {"ce", "aux"}).  loss = ce + the MoE
     aux weight x the layers' summed aux loss / num_layers; a VLM's targets
     cover the text tail only, so the vision prefix is padded out of the
     loss; an audio batch's ``target_mask`` picks the masked frames.  Under
-    a data split (`data_split`) `params` are the rank's blocks and `batch`
+    a train split (`data_split`) `params` are the rank's blocks and `batch`
     its rows (module docstring)."""
     split = data_split(cfg)
+    if split is not None and split.model is not None:
+        # no MoE layer: no aux loss
+        num, den = split.sum(_train_tensor_split(cfg, params, batch, remat,
+                                                 split))
+        ce = num / torch.clamp(den, min=1.0)
+        return ce, {"ce": ce.detach(), "aux": torch.zeros_like(ce)}
     if split is not None:
         params = split.prepare(params)
     h, positions = embed_inputs(cfg, params, batch)
     h, aux = backbone(cfg, params, h, positions, None, "train", remat=remat,
                       split=split)
     logits = lm_logits(cfg, params, h)
-    targets = batch["targets"]
-    mask = batch.get("target_mask")
-    mask = (torch.ones(targets.shape, device=targets.device)
-            if mask is None else mask.float())
-    if cfg.family == "vlm":
-        pad = logits.shape[1] - targets.shape[1]
-        targets = F.pad(targets, (pad, 0))
-        mask = F.pad(mask, (pad, 0))
+    targets, mask = _train_targets(cfg, batch, logits.shape[1])
     aux = torch.as_tensor(aux, dtype=torch.float32, device=logits.device)
     if split is None:
         ce = cross_entropy(logits, targets, mask)

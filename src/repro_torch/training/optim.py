@@ -12,11 +12,13 @@ Each function is plain PyTorch under ``torch.no_grad()``.  `adamw_update`
 writes the new parameters and moments IN PLACE (the reference returns new
 arrays) and returns the same objects; the step counter is a 0-d int32
 tensor on the parameters' device, so no step reads back to the host.
-Over the data axis (`launch.steps.build_step`'s train cell) the
-parameters, gradients and both moments are a rank's blocks under the
-rules (ZeRO-3: the moments take the parameters' axes), so `adamw_update`
-runs on the blocks as it is; only the gradient norm sums its blocks' sums
-of squares over the axis (`global_norm`'s ``data``).
+Over a mesh (`launch.steps.build_step`'s train cell) the parameters,
+gradients and both moments are a rank's blocks under the rules (ZeRO-3
+over "data": the moments take the parameters' axes, so a leaf split over
+"data" and "model" keeps its 2D block in both), so `adamw_update` runs
+on the blocks as it is; only the gradient norm sums its blocks' sums of
+squares over the axes each leaf is split over (`global_norm`'s
+``split``).
 `zero1_logical_axes` is the reference's ZeRO-1 rule for the states of a
 parameter the rules keep whole; no step of the port calls it yet, as the
 reference's `build_step` does not.
@@ -77,16 +79,17 @@ def lr_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 @torch.no_grad()
-def global_norm(tree: Tree, data=None) -> torch.Tensor:
-    """sqrt of the sum of every leaf's sum of squares.  ``data=(mesh,
-    axis, blocks)``: ``blocks[i]`` marks leaf i as a rank's block, whose
-    sums are summed over `axis` (one collective for all of them); the
-    other leaves, whole on every rank, count once."""
+def global_norm(tree: Tree, split=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares.  ``split=(mesh,
+    axes)``: ``axes[i]`` names the mesh axes leaf i is a rank's block
+    over; its sum is summed over each of them (one collective an axis for
+    all the leaves split over it, the axes in name order), and a leaf
+    whole over an axis counts once."""
     sq = [torch.sum(torch.square(x.float())) for x in leaves(tree)]
-    if data is not None:
-        mesh, axis, blocks = data
-        idx = [i for i, b in enumerate(blocks) if b]
-        if idx:
+    if split is not None:
+        mesh, axes = split
+        for axis in sorted({a for ax in axes for a in ax}):
+            idx = [i for i, ax in enumerate(axes) if axis in ax]
             whole = mesh.all_reduce(torch.stack([sq[i] for i in idx]), axis)
             for j, i in enumerate(idx):
                 sq[i] = whole[j]
@@ -95,12 +98,12 @@ def global_norm(tree: Tree, data=None) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree,
-                 state: AdamWState, data=None
+                 state: AdamWState, split=None
                  ) -> tuple[Tree, AdamWState, dict]:
     """One AdamW step.  Writes params, m and v in place; returns (params,
-    the state with the new step, {"grad_norm", "lr"}).  `data`: the
-    data split of the blocks (`global_norm`)."""
-    gnorm = global_norm(grads, data)
+    the state with the new step, {"grad_norm", "lr"}).  `split`: the
+    mesh axes of the blocks (`global_norm`)."""
+    gnorm = global_norm(grads, split)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
     lr = lr_schedule(cfg, step)

@@ -10,11 +10,12 @@ where `batch` tensors carry a leading [accum] microbatch axis when
 divided by `accum`, one optimizer application per global step, as the
 reference's scan does.  Parameters and moments are updated in place.  The
 step runs `models.forward_train`, which reaches no kernel wrapper.  Under
-`axis_rules(train_rules(), mesh)` with dp > 1 the same step runs on a
-rank's blocks of the parameters and moments and its rows of each
-microbatch (global microbatch i is every rank's microbatch i, in rank
-order): `forward_train` gathers and reduce-scatters (`models.DataSplit`)
-and the gradient norm sums its blocks over "data".
+`axis_rules(train_rules(), mesh)` on a (dp, tp) mesh the same step runs
+on a rank's blocks of the parameters and moments and its data group's
+rows of each microbatch (global microbatch i is every data group's
+microbatch i, in data order): `forward_train` gathers and
+reduce-scatters (`models.DataSplit`; with tp > 1 over "model" too) and
+the gradient norm sums each block over the axes it is split over.
 
 `run_training` labels its preemption checkpoint with the number of steps
 done (the reference labels it with the step the run started from: ROADMAP
@@ -73,14 +74,13 @@ def make_train_step(mcfg: ModelConfig, ocfg: AdamWConfig, *, accum: int = 1,
                     compress_grads: bool = False) -> Callable:
     def train_step(params, opt_state, err, batch):
         split = data_split(mcfg)
-        data = None
+        axes = None
         if split is not None:
             if compress_grads:
                 raise ValueError("int8 gradient compression over the data "
                                  "axis is not ported")
-            data = (split.mesh, split.axis,
-                    [split.block_dim(sp) is not None
-                     for sp in leaves(split.specs)])
+            axes = (split.mesh, [split.leaf_axes(sp)
+                                 for sp in leaves(split.specs)])
         if accum > 1:
             gsum, lsum = None, 0.0
             for i in range(accum):
@@ -101,7 +101,7 @@ def make_train_step(mcfg: ModelConfig, ocfg: AdamWConfig, *, accum: int = 1,
             # int8 + error feedback, where it would bracket the DP all-reduce
             grads, err = compress_with_feedback(grads, err)
         params, opt_state, om = adamw_update(ocfg, params, grads, opt_state,
-                                             data)
+                                             axes)
         return params, opt_state, err, {"loss": loss, **om}
 
     return train_step

@@ -12,9 +12,10 @@ against the JAX package's.
   relative, parameters within 1e-4, moments within 1e-4 relative) and
   the prefill and decode steps (logits and caches within 1e-4) against
   the reference's `build_step` fn, jitted on a one-device Auto mesh;
-* what raises, naming the later slice: a train cell with tp > 1; at
-  dp > 1 a MoE or VLM model with its weights over "data" and a paged
-  cache under the long-context table (the dense serve cells build);
+* what raises, naming the later slice: a MoE model's train cell with
+  tp > 1; at dp > 1 a MoE or VLM model with its weights over "data" and
+  a paged cache under the long-context table (the dense train and serve
+  cells build);
 * qwen2-0.5b's rank share of weights and moments at (2, 1) (its tied
   embedding stays whole).
 """
@@ -309,25 +310,21 @@ def test_one_device_prefill_and_decode_equal_the_reference(arch):
     ("mamba2-1.3b", "long_500k", {"data": 2, "model": 1}, "long-context"),
 ])
 def test_later_slices_raise(arch, cell, shape, what):
-    """A train cell with tp > 1 raises, naming the later slice.  The serve
-    cells once refused here at dp > 1 (the 2D weight-stationary decode,
-    the FSDP prefill, `long_500k`) build now (meta stand-ins); what still
-    raises under their tables names the later slice: a MoE or VLM model
-    with its weights over "data", a paged cache under the long-context
-    table."""
+    """The cells once refused here build now (meta stand-ins): the dense
+    train cell with tp > 1, and at dp > 1 the 2D weight-stationary
+    decode, the FSDP prefill and `long_500k`.  What still raises under
+    their tables names the later slice: a MoE model's train cell with
+    tp > 1, a MoE or VLM model with its weights over "data", a paged
+    cache under the long-context table."""
     sc = tconfigs.SHAPES[cell]
-    if sc.kind == "train":
-        with pytest.raises(ValueError, match="later slice") as err:
-            tsteps.build_step(get_config(arch), sc, _Mesh(shape))
-        assert what in str(err.value)
-        return
     built = tsteps.build_step(get_config(arch), sc, _Mesh(shape))
     assert built.kind == sc.kind
     if what == "long-context":
         with pytest.raises(ValueError, match="later slice") as err:
             check_mesh(shape, built.rules, "ssm", "paged")
     else:
-        other = "olmoe-1b-7b" if cell == "decode_32k" else "qwen2-vl-7b"
+        other = ("olmoe-1b-7b" if cell in ("decode_32k", "train_4k")
+                 else "qwen2-vl-7b")
         with pytest.raises(ValueError, match="later slice") as err:
             tsteps.build_step(get_config(other), sc, _Mesh(shape),
                               hbm_bytes=1.0)
